@@ -7,18 +7,28 @@ Phases, in order; any failure raises and the exit code is not 0:
 1. Report and build: the card's name and power limit, the nvcc build of
    every kernel in ``src/repro_torch/csrc`` (one process per source, in
    parallel), TF32 off for matmuls and cuDNN.
-2. Kernel phases: each hand-written kernel against its plain PyTorch
-   version on the card, at sizes 0 .. 2^27, then timed with CUDA events
-   (median of 15) beside the plain version, one PyTorch library call where
-   there is one, and its bound (bytes moved / 3.35 TB/s).
-3. The relational main path through ``hf`` at P = 1: Fig. 8a filter, join
-   and aggregate and TPCx-BB Q26 / Q26-multikey, each checked against a
-   vectorised numpy oracle.  The launch counters are zeroed just before and
-   read just after; prefix_sum and segment_sums must have launched.
+2. Kernel phases: each of the eight hand-written kernels against its plain
+   PyTorch version on the card, at sizes 0 .. 2^27 (segment lengths 1, 64
+   and 2^16; stencils of 1, 3, 5, 7 and 20 taps at centres 0, K // 2 and
+   the main path's K - 1), then held again and timed on the main path's
+   inputs with CUDA events (median of 15) beside the plain version,
+   one PyTorch library call where there is one, and its bound (the larger
+   of bytes moved / 3.35 TB/s and operations / 67 TFLOP/s).
+3. The two main paths through ``hf`` at P = 1, each with the launch
+   counters zeroed just before it and read just after, each query checked
+   against a vectorised numpy oracle:
+   - relational: Fig. 8a filter, join and aggregate and TPCx-BB Q26 /
+     Q26-multikey; prefix_sum and segment_sums must have launched;
+   - windows: Fig. 8b cumsum, SMA, WMA and exact rolling mean at 2^27 rows,
+     a partitioned WMA after a join and five chained grouped windows
+     (cumsum, exact rolling mean, rank, dense_rank, row_number) over 2^27
+     rows in 11585 groups; prefix_sum, segment_scan, segment_rank,
+     stencil1d, stencil1d_exact and segment_stencil must have launched.
    (bucket_scatter runs only in exchanges at P > 1, which one card cannot
    host; phase 2 holds it.)
-4. Report: one JSON line of kernel records, query wall times and peak
-   memory, and a last line ``{"ok": true, "device": {...}}``.
+4. Report: a JSON line of query wall times, peak memory and the window
+   checks' largest differences, a JSON line of the eight kernel records,
+   and a last line ``{"ok": true, "device": {...}}``.
 
 ``--quick`` stops after phase 2 at sizes up to 1_000_003 and prints ptxas's
 register and shared-memory report: a short first check of new kernels.
@@ -28,6 +38,7 @@ and writes its per-op device-time table to ``DIR/profile_<query>.txt``.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import subprocess
@@ -222,6 +233,265 @@ def kernel_phases(torch, sizes, record: dict):
     cuda.reset_launches()
 
 
+def ulps(torch, a, b) -> int:
+    """Largest distance of two float32 tensors in units in the last place
+    (+0 and -0 equal)."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    if a.numel() == 0:
+        return 0
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+# The main path's shapes of the window kernels: 2^27 rows; the partitioned
+# queries' groups hold 2^27 / 11585 ~ 11585 rows on average.
+GROUPS = 11585
+
+
+def window_kernel_phases(torch, sizes, record: dict):
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.segment_rank import segment_rank as rk
+    from repro_torch.kernels.segment_scan import segment_scan as ss
+    from repro_torch.kernels.stencil1d import stencil1d as st
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    wrng = np.random.default_rng(5)
+
+    def heads(n, mean_len):
+        """int32 segment-head mask, row 0 a head, one head per mean_len rows
+        on average."""
+        h = (torch.rand(n, device=dev, generator=g) < 1.0 / mean_len)
+        h[:1] = True
+        return h.to(torch.int32)
+
+    # -- segment_scan: int32 exact; float32 of integer values exact (every
+    # partial sum of the plain version's global cumsum is an integer below
+    # 2^24); float32 normal values within 1e-5 of the running sum of |x|
+    # (+1e-4), the plain version's own rounding (a global cumsum minus the
+    # segment's base).
+    err = 0.0
+    for mean_len in (1, 64, 1 << 16):
+        for n in sizes:
+            b = heads(n, mean_len)
+            xi = torch.randint(-1000, 1000, (n,), device=dev, generator=g,
+                               dtype=torch.int32)
+            assert torch.equal(ss.segment_scan_cuda(xi, b),
+                               ss.segment_scan_plain(xi, b)), \
+                f"segment_scan int32 n={n} L={mean_len}"
+            xf = torch.randint(-8, 9, (n,), device=dev, generator=g).float()
+            assert torch.equal(ss.segment_scan_cuda(xf, b),
+                               ss.segment_scan_plain(xf, b)), \
+                f"segment_scan f32 (integer values) n={n} L={mean_len}"
+            if 0 < n <= 1 << 22:
+                xn = torch.randn(n, device=dev, generator=g)
+                got, want = ss.segment_scan_cuda(xn, b), ss.segment_scan_plain(xn, b)
+                tol = 1e-5 * torch.cumsum(xn.abs().double(), 0) + 1e-4
+                d = (got.double() - want.double()).abs()
+                assert bool((d <= tol).all()), f"segment_scan f32 n={n} L={mean_len}"
+                err = max(err, float(d.max()))
+        log(f"segment_scan mean segment {mean_len}: ok at sizes {sizes}")
+    # the timed inputs, held like the normal values above
+    n = sizes[-1]
+    b = heads(n, GROUPS)
+    xn = torch.randn(n, device=dev, generator=g)
+    got, want = ss.segment_scan_cuda(xn, b), ss.segment_scan_plain(xn, b)
+    tol = 1e-5 * torch.cumsum(xn.abs().double(), 0) + 1e-4
+    d = (got.double() - want.double()).abs()
+    assert bool((d <= tol).all()), f"segment_scan f32 timed inputs n={n}"
+    err = max(err, float(d.max()))
+    del got, want, tol, d
+    rec = {"name": "segment_scan", "route": "cuda",
+           "source": "src/repro_torch/csrc/segment_scan.cu",
+           "replaces": "src/repro/kernels/segment_scan/segment_scan.py:48",
+           "shape": f"f32 x, n={n}, mean segment {GROUPS}", "max_abs_err": err,
+           "ms": time_ms(lambda: ss.segment_scan_cuda(xn, b), torch),
+           "plain_ms": time_ms(lambda: ss.segment_scan_plain(xn, b), torch),
+           "library_ms": None, "library_call": None,
+           "library_note": "no one-call equivalent"}
+    rec["bound_ms"], rec["bound_by"] = bound_ms(12.0 * n, n)
+    record["segment_scan"] = rec
+    del b, xn
+
+    # -- segment_rank: all three kinds exact, ties in the order key (run
+    # heads ~ 3 rows apart inside segments).
+    for mean_len in (1, 64, 1 << 16):
+        for n in sizes:
+            seg = heads(n, mean_len)
+            ordb = seg | (torch.rand(n, device=dev, generator=g) < 0.3).int()
+            for kind in rk.KINDS:
+                assert torch.equal(rk.segment_rank_cuda(seg, ordb, kind),
+                                   rk.segment_rank_plain(seg, ordb, kind)), \
+                    f"segment_rank {kind} n={n} L={mean_len}"
+        log(f"segment_rank mean segment {mean_len}: ok at sizes {sizes}")
+    n = sizes[-1]
+    seg = heads(n, GROUPS)
+    ordb = seg | (torch.rand(n, device=dev, generator=g) < 0.125).int()
+    for kind in rk.KINDS:                    # the timed inputs
+        assert torch.equal(rk.segment_rank_cuda(seg, ordb, kind),
+                           rk.segment_rank_plain(seg, ordb, kind)), \
+            f"segment_rank {kind} timed inputs n={n}"
+    rec = {"name": "segment_rank", "route": "cuda",
+           "source": "src/repro_torch/csrc/segment_rank.cu",
+           "replaces": "src/repro/kernels/segment_rank/segment_rank.py:67",
+           "shape": f"rank, n={n}, mean segment {GROUPS}, runs of ~8",
+           "max_abs_err": 0.0,
+           "ms": time_ms(lambda: rk.segment_rank_cuda(seg, ordb, "rank"), torch),
+           "plain_ms": time_ms(lambda: rk.segment_rank_plain(seg, ordb, "rank"),
+                               torch),
+           "library_ms": None, "library_call": None,
+           "library_note": "no one-call equivalent"}
+    rec["bound_ms"], rec["bound_by"] = bound_ms(12.0 * n, n)
+    record["segment_rank"] = rec
+    del seg, ordb
+
+    # -- the stencils: K in {1, 3, 5, 7, 20} at centres 0 and K // 2, and
+    # the main path's (K, centre) pairs: (3, 1) of the SMA, the WMA and the
+    # partitioned WMA, (20, 19) of the exact rolling mean, (7, 6) of the
+    # grouped exact rolling mean.  stencil1d and non-exact segment_stencil
+    # bitwise equal to the plain version (the same float32 operations in
+    # the same order); the exact modes within 2 float32 ulps.
+    centres = {1: (0,), 3: (0, 1), 5: (0, 2), 7: (0, 3, 6), 20: (0, 10, 19)}
+
+    def layout(n, k, c, mean_len=64):
+        """ext as stencil1d / segment_stencil1d build it: zero halos of c
+        and k - 1 - c rows around n values; ext_s with -2 halos, segment
+        ids (one head per mean_len rows on average) and the last n // 7
+        rows invalid (-1)."""
+        ext = torch.zeros(n + k - 1, device=dev)
+        ext[c:c + n] = torch.randn(n, device=dev, generator=g)
+        ext_m = torch.zeros(n + k - 1, device=dev)
+        ext_m[c:c + n] = 1.0
+        sid = torch.cumsum(heads(n, mean_len), 0, dtype=torch.int32) - 1
+        sid[n - n // 7:] = -1
+        ext_s = torch.full((n + k - 1,), -2, dtype=torch.int32, device=dev)
+        ext_s[c:c + n] = sid
+        return ext, ext_m, ext_s
+
+    errs = {"stencil1d": 0.0, "stencil1d_exact": 0.0, "segment_stencil": 0.0}
+    worst = {"stencil1d_exact": 0, "segment_stencil": 0}
+
+    def held(name, got, want, exact, tag):
+        """One kernel call against its plain version: within 2 ulps for an
+        exact mode, else bitwise; folded into the kernel's own record."""
+        if exact:
+            u = ulps(torch, got, want)
+            assert u <= 2, f"{tag}: {u} ulps"
+            worst[name] = max(worst[name], u)
+        else:
+            assert torch.equal(got, want), tag
+        if got.numel():
+            errs[name] = max(errs[name], float((got - want).abs().max()))
+
+    for k, cs in centres.items():
+        w = [float(v) for v in wrng.normal(size=k)]
+        wpos = [abs(v) + 0.05 for v in w]
+        for n in sizes:
+            ext = torch.randn(n + k - 1, device=dev, generator=g)
+            held("stencil1d", st.stencil1d_cuda(ext, w),
+                 st.stencil1d_plain(ext, w), False, f"stencil1d K={k} n={n}")
+            for c in cs:
+                tag = f"K={k} c={c} n={n}"
+                ext, ext_m, ext_s = layout(n, k, c)
+                held("stencil1d", st.stencil1d_cuda(ext, w),
+                     st.stencil1d_plain(ext, w), False, f"stencil1d {tag}")
+                held("stencil1d_exact", st.stencil1d_exact_cuda(ext, ext_m, wpos),
+                     st.stencil1d_exact_plain(ext, ext_m, wpos), True,
+                     f"stencil1d_exact {tag}")
+                for exact, ww in ((False, w), (True, wpos)):
+                    held("segment_stencil",
+                         st.segment_stencil_cuda(ext, ext_s, ww, c, exact),
+                         st.segment_stencil_plain(ext, ext_s, ww, c, exact),
+                         exact, f"segment_stencil exact={exact} {tag}")
+        log(f"stencils K={k} centres {cs}: ok at sizes {sizes}")
+    log(f"stencils: exact modes within {worst} ulps; the others bitwise")
+
+    # The main path's calls at 2^27 rows, each held against its plain
+    # version on the timed inputs.  fig8b_wma's: K = 3.
+    n = sizes[-1]
+    ext = torch.randn(n + 2, device=dev, generator=g)
+    w3 = [0.25, 0.5, 0.25]
+    wt = torch.tensor(w3, device=dev).view(1, 1, 3)
+    conv = torch.nn.functional.conv1d
+    got = st.stencil1d_cuda(ext, w3)
+    held("stencil1d", got, st.stencil1d_plain(ext, w3), False,
+         f"stencil1d timed inputs K=3 n={n}")
+    lib = conv(ext.view(1, 1, -1), wt).view(-1)
+    rec = {"name": "stencil1d", "route": "cuda",
+           "source": "src/repro_torch/csrc/stencil1d.cu",
+           "replaces": "src/repro/kernels/stencil1d/stencil1d.py:48",
+           "shape": f"K=3, n={n}", "max_abs_err": errs["stencil1d"],
+           "library_max_abs_diff": float((got - lib).abs().max()),
+           "ms": time_ms(lambda: st.stencil1d_cuda(ext, w3), torch),
+           "plain_ms": time_ms(lambda: st.stencil1d_plain(ext, w3), torch),
+           "library_ms": time_ms(lambda: conv(ext.view(1, 1, -1), wt), torch),
+           "library_call": "torch.nn.functional.conv1d (TF32 off)"}
+    rec["bound_ms"], rec["bound_by"] = bound_ms(8.0 * n, 2.0 * 3 * n)
+    record["stencil1d"] = rec
+    del ext, got, lib
+
+    # fig8b_rolling_mean_exact's call: K = 20, centre 19
+    ext, ext_m, _s = layout(n, 20, 19)
+    del _s
+    w20 = [0.05] * 20
+    held("stencil1d_exact", st.stencil1d_exact_cuda(ext, ext_m, w20),
+         st.stencil1d_exact_plain(ext, ext_m, w20), True,
+         f"stencil1d_exact timed inputs K=20 c=19 n={n}")
+    rec = {"name": "stencil1d_exact", "route": "cuda",
+           "source": "src/repro_torch/csrc/stencil1d.cu",
+           "replaces": "src/repro/kernels/stencil1d/stencil1d.py:86",
+           "shape": f"K=20, centre 19, n={n}",
+           "max_abs_err": errs["stencil1d_exact"],
+           "max_ulps": worst["stencil1d_exact"],
+           "ms": time_ms(lambda: st.stencil1d_exact_cuda(ext, ext_m, w20), torch),
+           "plain_ms": time_ms(lambda: st.stencil1d_exact_plain(ext, ext_m, w20),
+                               torch),
+           "library_ms": None, "library_call": None,
+           "library_note": "no one-call equivalent"}
+    rec["bound_ms"], rec["bound_by"] = bound_ms(12.0 * n, 4.0 * 20 * n + 2.0 * n)
+    record["stencil1d_exact"] = rec
+    del ext, ext_m
+
+    # segment_stencil: the partitioned WMA's call (K = 3, centre 1, not
+    # exact) is the record's; the grouped exact rolling mean's (K = 7,
+    # centre 6) goes beside it under "exact_k7".  Segment ids of groups of
+    # the main path's mean length.
+    ext, _m, ext_s = layout(n, 3, 1, GROUPS)
+    del _m
+    held("segment_stencil", st.segment_stencil_cuda(ext, ext_s, w3, 1),
+         st.segment_stencil_plain(ext, ext_s, w3, 1), False,
+         f"segment_stencil timed inputs K=3 c=1 n={n}")
+    rec = {"name": "segment_stencil", "route": "cuda",
+           "source": "src/repro_torch/csrc/stencil1d.cu",
+           "replaces": "src/repro/kernels/stencil1d/stencil1d.py:138",
+           "shape": f"K=3, centre 1, not exact, n={n}, mean segment {GROUPS}",
+           "ms": time_ms(lambda: st.segment_stencil_cuda(ext, ext_s, w3, 1), torch),
+           "plain_ms": time_ms(lambda: st.segment_stencil_plain(ext, ext_s, w3, 1),
+                               torch),
+           "library_ms": None, "library_call": None,
+           "library_note": "no one-call equivalent"}
+    rec["bound_ms"], rec["bound_by"] = bound_ms(12.0 * n, 3.0 * 3 * n)
+    del ext, ext_s
+    ext, _m, ext_s = layout(n, 7, 6, GROUPS)
+    del _m
+    w7 = [1.0 / 7] * 7
+    held("segment_stencil", st.segment_stencil_cuda(ext, ext_s, w7, 6, True),
+         st.segment_stencil_plain(ext, ext_s, w7, 6, True), True,
+         f"segment_stencil timed inputs K=7 c=6 exact n={n}")
+    k7 = {"shape": f"K=7, centre 6, exact, n={n}, mean segment {GROUPS}",
+          "ms": time_ms(lambda: st.segment_stencil_cuda(ext, ext_s, w7, 6, True),
+                        torch),
+          "plain_ms": time_ms(
+              lambda: st.segment_stencil_plain(ext, ext_s, w7, 6, True), torch)}
+    k7["bound_ms"], k7["bound_by"] = bound_ms(12.0 * n, 5.0 * 7 * n + 2.0 * n)
+    rec.update(max_abs_err=errs["segment_stencil"],
+               max_ulps=worst["segment_stencil"], exact_k7=k7)
+    record["segment_stencil"] = rec
+    del ext, ext_s
+    cuda.reset_launches()
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path through hf, against numpy oracles
 # ---------------------------------------------------------------------------
@@ -319,9 +589,11 @@ def profile_query(torch, frame, cfg, path: str) -> dict:
             "top": [[round(t, 3), k] for t, k in top[:6]]}
 
 
-def main_path(torch, hf, synth, queries: dict, profile_dir: str | None = None):
+def query_runner(torch, hf, queries: dict, profile_dir: str | None):
+    """``run(tag, frame)``: collect ``frame`` on the card, record its wall
+    time, peak memory and rows out under ``queries[tag]`` (and a profile
+    with ``profile_dir``), and return its columns as numpy."""
     cfg = hf.ExecConfig()          # the card
-    n8a = 2**27
 
     def run(tag, frame):
         torch.cuda.synchronize()
@@ -343,6 +615,13 @@ def main_path(torch, hf, synth, queries: dict, profile_dir: str | None = None):
             queries[tag]["profile"] = prof
             log(f"{tag} profile: {prof}")
         return out
+    return run
+
+
+def main_path(torch, hf, synth, queries: dict, profile_dir: str | None = None):
+    """The relational path: Fig. 8a and TPCx-BB Q26."""
+    run = query_runner(torch, hf, queries, profile_dir)
+    n8a = 2**27
 
     # Fig. 8a filter (bench_relational.py:27)
     t = synth.relational_tables(n8a, 1000, seed=0)
@@ -425,6 +704,158 @@ def main_path(torch, hf, synth, queries: dict, profile_dir: str | None = None):
     queries["fig11_q26_multikey"]["rows_in"] = len(key) + len(dim["i_item_sk"])
 
 
+def check_close(tag, got, want, rtol, atol) -> float:
+    """|got - want| <= atol + rtol |want| elementwise; the largest
+    difference."""
+    d = np.abs(got.astype(np.float64) - want)
+    bad = d > atol + rtol * np.abs(want)
+    assert not bad.any(), (f"{tag}: {int(bad.sum())} rows off, first at "
+                           f"{int(np.argmax(bad))}, max diff {d.max()}")
+    return float(d.max()) if d.size else 0.0
+
+
+def stencil_f32(v, weights, center, prev_ok=None, next_ok=None):
+    """The stencil's float32 operations in numpy, tap by tap: zero halos,
+    and (partitioned) taps across a group edge zeroed through the masks
+    ``prev_ok`` / ``next_ok`` of a 3-tap window."""
+    n, k = len(v), len(weights)
+    ext = np.concatenate([np.zeros(center, np.float32), v,
+                          np.zeros(k - 1 - center, np.float32)])
+    acc = np.zeros(n, np.float32)
+    for j, w in enumerate(weights):
+        tap = ext[j:j + n]
+        if prev_ok is not None and j != center:
+            tap = np.where(prev_ok if j < center else next_ok, tap,
+                           np.float32(0))
+        acc = acc + np.float32(w) * tap
+    return acc
+
+
+def window_path(torch, hf, synth, queries: dict, profile_dir: str | None = None,
+                checks: dict | None = None, n: int = 2**27, groups: int = GROUPS):
+    """The window path: Fig. 8b (bench_analytics.py:29-62) and the
+    partitioned windows (bench_analytics.py:64-76) at n = 2^27 rows; the
+    largest difference of each float check goes into ``checks``."""
+    run = query_runner(torch, hf, queries, profile_dir)
+    checks = {} if checks is None else checks
+    x = synth.series(n, seed=3)
+    df = hf.table({"x": x})
+    x64 = x.astype(np.float64)
+    csum = np.cumsum(x64)
+
+    # fig8b_cumsum: float32 reduce-then-scan against a float64 oracle.  The
+    # scan adds in another order; its error grows with the magnitude of the
+    # partial sums (|S| reaches ~3.5e4), so: within 1e-5 of the running max
+    # |S| (+1e-3), ~40 float32 roundings of that magnitude.
+    out = run("fig8b_cumsum", hf.cumsum(df, df["x"], out="c"))
+    assert np.array_equal(out["x"], x)
+    scale = np.maximum.accumulate(np.abs(csum))
+    checks["fig8b_cumsum"] = check_close("fig8b_cumsum", out["c"], csum,
+                                         0.0, 1e-5 * scale + 1e-3)
+    queries["fig8b_cumsum"]["rows_in"] = n
+    del out, scale
+
+    # fig8b_sma / fig8b_wma: the float32 tap operations replayed in numpy;
+    # the kernel does the same operations, so equal within 1e-6
+    for tag, frame, w in (
+            ("fig8b_sma", hf.sma(df, df["x"], 3, out="s"), [1.0 / 3] * 3),
+            ("fig8b_wma", hf.wma(df, df["x"], [1, 2, 1], out="s"),
+             [0.25, 0.5, 0.25])):
+        out = run(tag, frame)
+        want = stencil_f32(x, w, 1)
+        checks[tag] = check_close(tag, out["s"], want, 1e-6, 1e-6)
+        checks[tag + "_bitwise"] = bool(np.array_equal(out["s"], want))
+        queries[tag]["rows_in"] = n
+        del out, want
+
+    # fig8b_rolling_mean_exact: the mean of the min(i + 1, 20) rows that
+    # exist, from float64 cumsum differences.  The kernel sums 20 taps of
+    # |x| < 6 with weight 1/20 and divides by the summed weights: ~40
+    # float32 roundings of values below 6, so atol 2e-5, rtol 1e-5.
+    out = run("fig8b_rolling_mean_exact",
+              hf.rolling_mean(df, df["x"], 20, out="m", exact=True))
+    c0 = np.concatenate([[0.0], csum])
+    i = np.arange(n)
+    lo = np.maximum(i - 19, 0)
+    want = (c0[i + 1] - c0[lo]) / (i + 1 - lo)
+    checks["fig8b_rolling_mean_exact"] = check_close(
+        "fig8b_rolling_mean_exact", out["m"], want, 1e-5, 2e-5)
+    queries["fig8b_rolling_mean_exact"]["rows_in"] = n
+    del out, c0, i, lo, want, df, csum, x64
+
+    # the partitioned fact table: ~sqrt(n) groups, t a permutation
+    rng = np.random.default_rng(7)
+    g = rng.integers(0, groups, n).astype(np.int32)
+    t = rng.permutation(n).astype(np.int32)
+    t8 = (t // 8).astype(np.int32)
+    w0 = rng.normal(size=groups).astype(np.float32)
+    # the oracle's order: sort once by (g, t) (unique keys)
+    perm = np.argsort((g.astype(np.int64) << 32) | t)
+    gs, ts, xs = g[perm], t[perm], x[perm]
+    head = np.ones(n, bool)
+    head[1:] = gs[1:] != gs[:-1]
+    idx = np.arange(n)
+    first = np.maximum.accumulate(np.where(head, idx, 0))
+    nxt = np.ones(n, bool)
+    nxt[:-1] = ~head[1:]             # row i + 1 is in row i's group
+    nxt[-1] = False
+
+    # partitioned WMA after a join on g (bench_analytics.py:64-76): the
+    # exchanges (compactions at P = 1), the merge join, the local sort and
+    # segment_stencil.  The value x * w0 and the three taps replayed in
+    # float32 numpy: equal within 1e-6.
+    j = hf.join(hf.table({"g": g, "t": t, "x": x}, "fact"),
+                hf.table({"g": np.arange(groups, dtype=np.int32), "w0": w0},
+                         "dim"), on="g")
+    out = run("partitioned_wma", hf.wma(j, j["x"] * j["w0"], [1, 2, 1],
+                                        out="ww", partition_by="g",
+                                        order_by="t"))
+    for k, v in (("g", gs), ("t", ts), ("x", xs), ("w0", w0[gs])):
+        assert np.array_equal(out[k], v), f"partitioned_wma.{k} differs"
+    want = stencil_f32(xs * w0[gs], [0.25, 0.5, 0.25], 1, ~head, nxt)
+    checks["partitioned_wma"] = check_close("partitioned_wma", out["ww"],
+                                            want, 1e-6, 1e-6)
+    checks["partitioned_wma_bitwise"] = bool(np.array_equal(out["ww"], want))
+    queries["partitioned_wma"]["rows_in"] = n + groups
+    del out, want, j
+
+    # grouped_windows: one frame chaining five windows over the groups
+    fact = hf.table({"g": g, "t": t, "t8": t8, "x": x}, "fact")
+    a = fact.over("g", order_by="t").cumsum(fact["x"], out="c")
+    b = a.over("g", order_by="t").rolling_mean(a["x"], 7, out="m", exact=True)
+    c = b.over("g", order_by="t8").rank(out="r")
+    d = c.over("g", order_by="t8").dense_rank(out="dr")
+    e = d.over("g", order_by="t8").row_number(out="rn")
+    out = run("grouped_windows", e)
+    for k, v in (("g", gs), ("t", ts), ("t8", ts // 8), ("x", xs)):
+        assert np.array_equal(out[k], v), f"grouped_windows.{k} differs"
+    # segmented cumsum from float64: within 1e-5 of the group's running sum
+    # of |x| (+1e-4), as in phase 2
+    cs = np.cumsum(xs.astype(np.float64))
+    base = np.where(first > 0, cs[np.maximum(first - 1, 0)], 0.0)
+    ca = np.cumsum(np.abs(xs.astype(np.float64)))
+    abase = np.where(first > 0, ca[np.maximum(first - 1, 0)], 0.0)
+    checks["grouped_cumsum"] = check_close("grouped_cumsum", out["c"],
+                                           cs - base, 0.0,
+                                           1e-5 * (ca - abase) + 1e-4)
+    # exact rolling mean over the min(pos + 1, 7) rows of the group: 7 taps
+    lo = np.maximum(first, idx - 6)
+    win = cs - np.where(lo > 0, cs[np.maximum(lo - 1, 0)], 0.0)
+    checks["grouped_rolling_mean"] = check_close(
+        "grouped_rolling_mean", out["m"], win / (idx - lo + 1), 1e-5, 1e-5)
+    del cs, base, ca, abase, lo, win
+    # the ranks over (g, t8): exact
+    run_head = head.copy()
+    run_head[1:] |= (ts[1:] // 8) != (ts[:-1] // 8)
+    run_first = np.maximum.accumulate(np.where(run_head, idx, 0))
+    runs = np.cumsum(run_head)
+    for k, want in (("rn", idx - first + 1), ("r", run_first - first + 1),
+                    ("dr", runs - runs[first] + 1)):
+        assert np.array_equal(out[k], want.astype(np.int32)), \
+            f"grouped_windows.{k} differs"
+    queries["grouped_windows"]["rows_in"] = n
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true")
@@ -466,6 +897,7 @@ def main(argv=None) -> int:
         sizes.append(1 << 27)
     record: dict = {}
     kernel_phases(torch, sizes, record)
+    window_kernel_phases(torch, sizes, record)
     torch.cuda.synchronize()
     for r in record.values():
         log(f"{r['name']} [{r['shape']}]: kernel {r['ms']:.3f} ms, plain "
@@ -473,19 +905,34 @@ def main(argv=None) -> int:
             f"{r['bound_ms']:.3f} ms ({r['bound_by']})")
 
     queries: dict = {}
+    checks: dict = {}
     if not args.quick:
-        # phase 3: the main path, counters zeroed just before
-        cuda.reset_launches()
+        # phase 3: the two main paths, each with the counters zeroed just
+        # before it and read just after
         if args.profile:
             os.makedirs(args.profile, exist_ok=True)
-        main_path(torch, hf, synth, queries, args.profile)
-        torch.cuda.synchronize()
-        launched = dict(cuda.launches)
-        log(f"main-path launches: {launched}")
-        for name in ("prefix_sum", "segment_sums"):
-            assert launched[name] > 0, f"{name} never launched on the main path"
+        paths = {"relational": (main_path, ("prefix_sum", "segment_sums")),
+                 "windows": (functools.partial(window_path, checks=checks),
+                             ("prefix_sum", "segment_scan", "segment_rank",
+                              "stencil1d", "stencil1d_exact",
+                              "segment_stencil"))}
+        launched = {}
+        for path, (drive, must) in paths.items():
+            t0 = time.perf_counter()
+            cuda.reset_launches()
+            drive(torch, hf, synth, queries, args.profile)
+            torch.cuda.synchronize()
+            launched[path] = dict(cuda.launches)
+            log(f"{path} path: {time.perf_counter() - t0:.1f} s, launches "
+                f"{launched[path]}")
+            for name in must:
+                assert launched[path][name] > 0, \
+                    f"{name} never launched on the {path} path"
+        log(f"window checks (max abs diff; bitwise): {checks}")
         for r in record.values():
-            r["launches"] = launched[r["name"]]
+            by_path = {p: c[r["name"]] for p, c in launched.items()}
+            r["launches"] = sum(by_path.values())
+            r["launches_by_path"] = by_path
     assert "jax" not in sys.modules and "repro" not in sys.modules
 
     # phase 4: report
@@ -494,7 +941,7 @@ def main(argv=None) -> int:
     kern = [{**{k: r.get(k) for k in keys},
              **{k: v for k, v in r.items() if k not in keys}}
             for r in record.values()]
-    log(json.dumps({"queries": queries, "card": smi}))
+    log(json.dumps({"queries": queries, "checks": checks, "card": smi}))
     log(json.dumps({"kernels": kern}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,7 @@
-"""HiFrames user API on PyTorch — the relational main path.
+"""HiFrames user API on PyTorch — the relational main path and windows.
 
 The same fluent, pandas-flavored surface as the reference package, for the
-verbs of this slice:
+verbs ported so far:
 
     from repro_torch import hiframes as hf
     df = hf.table({"id": ids, "x": xs, "y": ys})        # host arrays
@@ -11,10 +11,27 @@ verbs of this slice:
              .agg(total=("x", "sum"), ym=hf.mean(df.y))
              .collect(hf.ExecConfig(device="cpu")))      # plan + run
 
+Window functions, global or PARTITIONED (SQL ``OVER (PARTITION BY ...
+ORDER BY ...)``), as in the reference:
+
+    d0 = hf.wma(df, df.x, [1, 2, 1])               # global WMA (halo stencil)
+    w = df.over("g", order_by="t")                 # the OVER clause
+    d1 = w.cumsum(df.x)                            # per-group running total
+    d2 = w.rolling_mean(df.x, 5, exact=True)       # pandas min_periods=1 mode
+    d3 = w.rank()                                  # SQL RANK()
+
+``hf.cumsum``, ``stencil``, ``sma``, ``wma``, ``lag``, ``lead``,
+``rolling_sum``, ``rolling_mean``, ``rank``, ``dense_rank`` and
+``row_number`` take ``partition_by=`` / ``order_by=`` keywords; a
+partitioned window returns rows in the grouped layout (hash-partitioned on
+the group keys, sorted by group and order keys within each rank).
+
 ``collect`` runs on the card unless the config says ``device="cpu"``.
 Composite keys work as in the reference: ``merge(on=[("a", "ca"), "b"])``,
-``groupby(("k1", "k2"))``.  Windows, sorts, persist, replicate, head,
-assign, the dtype verbs and string predicates are later slices.
+``groupby(("k1", "k2"))``.  Sorts (and with them a global rank or
+``row_number`` with ``order_by``), a global stencil over a 1D_VAR input
+(after a filter, join or group-by), persist, replicate, head, assign, the
+dtype verbs and string predicates are later slices.
 """
 from __future__ import annotations
 
@@ -39,7 +56,9 @@ from .table import DTable
 __all__ = [
     "DataFrame", "GroupBy", "table", "join", "aggregate", "sum_", "mean",
     "count", "min_", "max_", "prod", "any_", "all_", "var", "std", "first",
-    "nunique", "ExecConfig", "explain", "DTable",
+    "nunique", "ExecConfig", "explain", "DTable", "Over", "cumsum",
+    "stencil", "sma", "wma", "lag", "lead", "rolling_sum", "rolling_mean",
+    "rank", "dense_rank", "row_number",
 ]
 
 
@@ -121,6 +140,11 @@ class DataFrame:
     def groupby(self, by) -> "GroupBy":
         """Group-by proxy: ``df.groupby("k").agg(total=("x", "sum"))``."""
         return GroupBy(self, by)
+
+    def over(self, partition_by, order_by=None) -> "Over":
+        """Partitioned window context (SQL ``OVER (PARTITION BY ... ORDER BY
+        ...)``): ``df.over("g", order_by="t").cumsum(df.x)``."""
+        return Over(self, partition_by, order_by)
 
     # -- execution ---------------------------------------------------------------
     def collect(self, cfg: ExecConfig | None = None,
@@ -293,6 +317,189 @@ def join(left: DataFrame, right: DataFrame, on, suffix: str = "_r",
 def aggregate(df: DataFrame, by, **aggs) -> DataFrame:
     """Spelling of ``df.groupby(by).agg(...)``."""
     return df.groupby(by).agg(**aggs)
+
+
+# ---------------------------------------------------------------------------
+# window functions
+# ---------------------------------------------------------------------------
+
+
+def _over_keys(x) -> tuple[str, ...]:
+    """Normalize an optional partition/order key spec to a tuple (an absent
+    spec — None or an empty sequence — becomes ())."""
+    return () if not x else ir.as_keys(x)
+
+
+def cumsum(df: DataFrame, e, out: str = "cumsum", *,
+           partition_by=None, order_by=None) -> DataFrame:
+    """Distributed cumulative sum (MPI_Exscan analogue).
+
+    With ``partition_by``, the sum restarts at every group boundary
+    (``SUM(...) OVER (PARTITION BY ... ORDER BY ...)``) and rows come back in
+    the grouped layout, not input order."""
+    return DataFrame(ir.Window(df.node, "cumsum", df._rw(e), out,
+                               partition_by=_over_keys(partition_by),
+                               order_by=_over_keys(order_by)))
+
+
+def stencil(df: DataFrame, e, weights: Sequence[float], *, scale: float = 1.0,
+            center: int | None = None, out: str = "stencil",
+            partition_by=None, order_by=None, exact: bool = False) -> DataFrame:
+    """1-D stencil: out[i] = sum_j w[j]/scale * x[i+j-center].
+
+    SMA == stencil(x, [1,1,1], scale=3); WMA == stencil(x, [1,2,1], scale=4).
+    With ``partition_by``, taps never cross a group boundary (the zero-border
+    convention applies per group).  ``exact=True`` renormalizes border
+    windows by the weight mass of the taps that actually contributed (see
+    :func:`rolling_mean`)."""
+    w = tuple(float(x) / scale for x in weights)
+    c = len(w) // 2 if center is None else center
+    return DataFrame(ir.Window(df.node, "stencil", df._rw(e), out,
+                               weights=w, center=c, exact=exact,
+                               partition_by=_over_keys(partition_by),
+                               order_by=_over_keys(order_by)))
+
+
+def sma(df: DataFrame, e, window: int = 3, out: str = "sma", *,
+        partition_by=None, order_by=None) -> DataFrame:
+    """Centred simple moving average over ``window`` rows."""
+    return stencil(df, e, [1.0] * window, scale=float(window), out=out,
+                   partition_by=partition_by, order_by=order_by)
+
+
+def wma(df: DataFrame, e, weights: Sequence[float], out: str = "wma", *,
+        partition_by=None, order_by=None) -> DataFrame:
+    """Centred weighted moving average (weights normalized to sum 1)."""
+    return stencil(df, e, weights, scale=float(sum(weights)), out=out,
+                   partition_by=partition_by, order_by=order_by)
+
+
+def lag(df: DataFrame, e, n: int = 1, out: str = "lag", *,
+        partition_by=None, order_by=None) -> DataFrame:
+    """SQL lag(): out[i] = x[i-n], a one-hot stencil.  Borders -> 0; with
+    ``partition_by`` the border is the group edge."""
+    return stencil(df, e, [1.0] + [0.0] * n, center=n, out=out,
+                   partition_by=partition_by, order_by=order_by)
+
+
+def lead(df: DataFrame, e, n: int = 1, out: str = "lead", *,
+         partition_by=None, order_by=None) -> DataFrame:
+    """SQL lead(): out[i] = x[i+n]; borders -> 0 (group edges when
+    partitioned)."""
+    return stencil(df, e, [0.0] * n + [1.0], center=0, out=out,
+                   partition_by=partition_by, order_by=order_by)
+
+
+def rolling_sum(df: DataFrame, e, window: int, out: str = "rolling_sum", *,
+                partition_by=None, order_by=None) -> DataFrame:
+    """Trailing rolling sum over rows [i-window+1 .. i] (a one-sided
+    stencil, so leading borders contribute zeros)."""
+    return stencil(df, e, [1.0] * window, center=window - 1, out=out,
+                   partition_by=partition_by, order_by=order_by)
+
+
+def rolling_mean(df: DataFrame, e, window: int, out: str = "rolling_mean", *,
+                 partition_by=None, order_by=None,
+                 exact: bool = False) -> DataFrame:
+    """Trailing rolling mean over rows [i-window+1 .. i].
+
+    Default (``exact=False``): the first window-1 rows of the series (or of
+    each group) divide a zero-padded partial sum by the FULL window.
+    ``exact=True`` divides by the number of rows that actually contributed
+    (pandas ``rolling(window, min_periods=1).mean()``), fused into the same
+    kernel pass; the global form exchanges a second halo for the mass."""
+    return stencil(df, e, [1.0] * window, scale=float(window),
+                   center=window - 1, out=out, exact=exact,
+                   partition_by=partition_by, order_by=order_by)
+
+
+def _rank_df(df: DataFrame, kind: str, partition_by, order_by,
+             out: str) -> DataFrame:
+    pk, ok = _over_keys(partition_by), _over_keys(order_by)
+    if not pk and ok:
+        # the reference sorts first (a global sample sort) so that equal
+        # order keys are adjacent across ranks
+        raise NotImplementedError(
+            f"global {kind} with order_by needs a global sort (sample sort), "
+            "which is not part of this package yet (sort and rebalance are "
+            "the next slice); rank within groups with partition_by, or "
+            "number rows in arrival order with row_number(df, None)")
+    return DataFrame(ir.Window(df.node, kind, None, out,
+                               partition_by=pk, order_by=ok))
+
+
+def rank(df: DataFrame, partition_by, order_by, out: str = "rank") -> DataFrame:
+    """SQL RANK() OVER (PARTITION BY ... ORDER BY ...): 1-based; equal
+    order-key tuples share a rank, with gaps after ties."""
+    return _rank_df(df, "rank", partition_by, order_by, out)
+
+
+def dense_rank(df: DataFrame, partition_by, order_by,
+               out: str = "dense_rank") -> DataFrame:
+    """SQL DENSE_RANK(): ties share a rank, no gaps."""
+    return _rank_df(df, "dense_rank", partition_by, order_by, out)
+
+
+def row_number(df: DataFrame, partition_by, order_by=None,
+               out: str = "row_number") -> DataFrame:
+    """SQL ROW_NUMBER(): 1-based position within the group (ties broken by
+    the stable sort).  ``partition_by=None`` without ``order_by`` numbers
+    rows GLOBALLY in rank-concatenation arrival order, from an exclusive
+    scan of the per-rank counts."""
+    return _rank_df(df, "row_number", partition_by, order_by, out)
+
+
+class Over:
+    """Fluent handle for partitioned windows: ``df.over(partition_by=...,
+    order_by=...)`` then any window verb — the SQL ``OVER`` clause as an
+    object.  Each method returns a new DataFrame with the window column
+    appended, in the grouped (hash-partitioned, locally sorted) layout."""
+
+    def __init__(self, df: DataFrame, partition_by, order_by=None):
+        self.df = df
+        self.partition_by = ir.as_keys(partition_by)
+        self.order_by = _over_keys(order_by)
+
+    def _kw(self):
+        return dict(partition_by=self.partition_by,
+                    order_by=self.order_by or None)
+
+    def cumsum(self, e, out: str = "cumsum") -> DataFrame:
+        return cumsum(self.df, e, out, **self._kw())
+
+    def stencil(self, e, weights, *, scale: float = 1.0,
+                center: int | None = None, out: str = "stencil",
+                exact: bool = False) -> DataFrame:
+        return stencil(self.df, e, weights, scale=scale, center=center,
+                       out=out, exact=exact, **self._kw())
+
+    def sma(self, e, window: int = 3, out: str = "sma") -> DataFrame:
+        return sma(self.df, e, window, out, **self._kw())
+
+    def wma(self, e, weights, out: str = "wma") -> DataFrame:
+        return wma(self.df, e, weights, out, **self._kw())
+
+    def lag(self, e, n: int = 1, out: str = "lag") -> DataFrame:
+        return lag(self.df, e, n, out, **self._kw())
+
+    def lead(self, e, n: int = 1, out: str = "lead") -> DataFrame:
+        return lead(self.df, e, n, out, **self._kw())
+
+    def rolling_sum(self, e, window: int, out: str = "rolling_sum") -> DataFrame:
+        return rolling_sum(self.df, e, window, out, **self._kw())
+
+    def rolling_mean(self, e, window: int, out: str = "rolling_mean", *,
+                     exact: bool = False) -> DataFrame:
+        return rolling_mean(self.df, e, window, out, exact=exact, **self._kw())
+
+    def rank(self, out: str = "rank") -> DataFrame:
+        return rank(self.df, self.partition_by, self.order_by, out)
+
+    def dense_rank(self, out: str = "dense_rank") -> DataFrame:
+        return dense_rank(self.df, self.partition_by, self.order_by, out)
+
+    def row_number(self, out: str = "row_number") -> DataFrame:
+        return row_number(self.df, self.partition_by, self.order_by, out)
 
 
 def explain(df: DataFrame, cfg: ExecConfig | None = None) -> str:

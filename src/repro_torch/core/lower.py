@@ -65,6 +65,9 @@ class ExecConfig:
     partial_agg: bool = True
     # optional user bound on distinct groups per shard (PartialAgg buffers)
     agg_group_cap: int | None = None
+    # exclusive scan of per-rank values in the global windows: "allgather"
+    # (one all_gather) or "ladder" (log2(P) rounds of batch_isend_irecv)
+    exscan_method: str = "allgather"
     # capacity-overflow auto-retry built into collect()
     auto_retry: int = 3
     # {op_id: (cap_floor, bucket_floor)} applied by compute_capacities —
@@ -110,6 +113,9 @@ class Lowered:
         self.kernels = kreg.resolve(self.device.type)
         self.P = cfg.nshards()
         self.rank = dist.get_rank() if self.P > 1 else 0
+        for op in pplan.ops:
+            if not isinstance(op, _EXECUTED):
+                raise NotImplementedError(_unsupported(op))
         # per-op failure attribution: the static capacity-site table, one
         # (flag, requirement) pair per site in this order.
         self.sites = _capacity_sites(pplan)
@@ -166,6 +172,9 @@ class Lowered:
                 out = {name: _full(evaluate(e, cols, cache), cap)
                        for name, e in n.cols.items()}
                 res = (out, cnt)
+
+            elif isinstance(op, pp.WindowOp):
+                res = self._window(op, *env[op.inputs[0]])
 
             elif isinstance(op, pp.HashExchange):
                 cols, cnt = env[op.inputs[0]]
@@ -239,11 +248,7 @@ class Lowered:
                 res = (_restore_key_names(out, n.key), n_seg)
 
             else:
-                raise NotImplementedError(
-                    f"{type(op).__name__} is not part of this package yet "
-                    "(the relational main path runs Source, Compact, Map, "
-                    "HashExchange, LocalSort, MergeJoin, AggPrep, PartialAgg "
-                    "and SegmentAgg)")
+                raise NotImplementedError(_unsupported(op))
             env[op.op_id] = res
 
         cols, cnt = env[pplan.root_id]
@@ -267,6 +272,50 @@ class Lowered:
                       dist=self.dists[self.root.id], overflow=bool(fl.any()),
                       overflow_ops=overflow_ops)
 
+    def _window(self, op: pp.WindowOp, cols: dict, cnt) -> tuple[dict, Any]:
+        """cumsum / stencil / rank: partitioned over the grouped layout the
+        planner established (segment kernels, no collectives), or global
+        (an exclusive scan of per-rank values, or a halo exchange).  A REP
+        input is whole on every rank, so its global window runs as P = 1."""
+        n, kernels = op.node, self.kernels
+        P = 1 if op.dist == D.REP else self.P
+        method = self.cfg.exscan_method
+        cap = next(iter(cols.values())).shape[0]
+        x = _full(evaluate(n.expr, cols), cap) if n.expr is not None else None
+        tag = (nulltag_for(n.expr, n.children[0].schema)
+               if n.kind == "cumsum" else None)
+        if n.partition_by:
+            pk = tuple(cols[k] for k in n.partition_by)
+            if n.kind == "cumsum":
+                col = phys.segment_cumsum(x, pk, cnt, kernels=kernels,
+                                          nulltag=tag)
+            elif n.kind == "stencil":
+                col = phys.segment_stencil1d(x, pk, cnt, n.weights, n.center,
+                                             exact=n.exact, kernels=kernels)
+            else:
+                ok = tuple(cols[k] for k in n.order_by)
+                col = phys.segment_rank(pk, ok, cnt, n.kind, kernels=kernels)
+        elif n.kind in ir.RANK_KINDS:
+            ok = tuple(cols[k] for k in n.order_by)
+            col = phys.global_rank(ok, cnt, cap, n.kind, P=P, method=method,
+                                   kernels=kernels)
+        elif n.kind == "cumsum":
+            nullm = phys.null_mask(x, tag)
+            if nullm is not None:          # pandas: nulls stay null and the
+                x = torch.where(nullm, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device), x)
+            col = phys.dist_cumsum(x, cnt, P=P, method=method, kernels=kernels)
+            if nullm is not None:          # running total skips them
+                col = torch.where(nullm, torch.tensor(
+                    phys.null_value(col.dtype, tag), dtype=col.dtype,
+                    device=col.device), col)
+        else:
+            col = phys.stencil1d(x, cnt, n.weights, n.center, P=P,
+                                 kernels=kernels, exact=n.exact)
+        out = dict(cols)
+        out[n.out] = col
+        return out, cnt
+
     def _attribute_overflow(self, flags: np.ndarray,
                             reqs: np.ndarray) -> dict[int, dict]:
         """Reduce per-shard (flag, requirement) vectors to the per-op
@@ -289,6 +338,31 @@ class Lowered:
                 "req_shards": vals,
             }
         return overflow_ops
+
+
+# the physical ops this executor runs; the planner's others belong to later
+# slices of the package
+_EXECUTED = (pp.Source, pp.Compact, pp.Map, pp.WindowOp, pp.HashExchange,
+             pp.LocalSort, pp.MergeJoin, pp.AggPrep, pp.PartialAgg,
+             pp.SegmentAgg)
+
+# why a planned op is not executed yet, by op type
+_LATER = {
+    "SampleSort": "a global sort (sort_values, or a global rank, dense_rank "
+                  "or row_number with order_by) needs sample sort",
+    "RebalanceOp": "a Rebalance is planned where a 1D_VAR input (after a "
+                   "filter, join or group-by) meets an operator that needs "
+                   "even blocks, such as a global stencil",
+}
+
+
+def _unsupported(op: pp.POp) -> str:
+    name = type(op).__name__
+    why = _LATER.get(name, "")
+    return (f"{name} is not part of this package yet"
+            + (f": {why}; sort and rebalance are the next slice" if why else "")
+            + " (the executor runs "
+            + ", ".join(t.__name__ for t in _EXECUTED) + ")")
 
 
 def _full(v: torch.Tensor, cap: int) -> torch.Tensor:

@@ -6,6 +6,9 @@ eagerly, on the device the tensors live on.  Collectives go through
 ``torch.distributed`` (NCCL between cards, gloo on the CPU):
 
   MPI_Alltoallv  -> fixed-capacity bucketed all_to_all_single + count vector
+  MPI_Exscan     -> all_gather of one scalar per rank, or a log2(P) ladder
+                    of batch_isend_irecv
+  Isend/Irecv    -> batch_isend_irecv between ranks r and r +- 1 (halos)
 
 All shapes are static and validity is tracked with counts and masks, as in
 the reference package's ``core/physical.py``; results match it bit for bit
@@ -13,8 +16,11 @@ on integers, bools and hashes.  Counts and flags stay tensors on the device:
 nothing here reads a value back to the host.  Key sentinel for sorts is the
 dtype max, so padding sorts to the end.
 
-Operators of later slices (windows, sort, rebalance, salting, limit, concat)
-are not here yet; ``SALT_COL`` is kept because the planner names it.
+The window functions are here: partitioned (segmented) cumsum, stencils
+and ranks over the grouped layout, and the global forms through an
+exclusive scan of per-rank values or a halo exchange.  Operators of later
+slices (sort, rebalance, salting, limit, concat) are not; ``SALT_COL`` is
+kept because the planner names it.
 """
 from __future__ import annotations
 
@@ -840,3 +846,342 @@ def final_aggregate(keys_sorted, count, agg_fns: dict[str, Any],
                 res = torch.where(gvalid & (p["n"] == 0), null, res)
         out[name] = res
     return out, n_seg, ovf
+
+
+# ---------------------------------------------------------------------------
+# partitioned (segmented) windows — OVER (PARTITION BY ... ORDER BY ...)
+#
+# The physical planner guarantees the input is hash-partitioned on the
+# partition keys (every group lives whole on ONE rank) and locally sorted by
+# (partition keys, order keys), so the three operators below are
+# collective-free segment computations over the grouped layout.
+# ---------------------------------------------------------------------------
+
+def run_starts(keys: Sequence[torch.Tensor], valid: torch.Tensor) -> torch.Tensor:
+    """Boolean mask: True at the first row of each run of equal key tuples
+    (grouped input).  Invalid rows are never starts."""
+    return valid & _run_heads(keys)
+
+
+def _segment_first_index(seg_start: torch.Tensor) -> torch.Tensor:
+    """For every row, the index of its segment's first row (running max of
+    start positions; rows before the first start map to 0)."""
+    idx = torch.arange(seg_start.shape[0], dtype=torch.int32,
+                       device=seg_start.device)
+    if seg_start.shape[0] == 0:
+        return idx
+    return torch.cummax(torch.where(seg_start, idx, 0), 0).values
+
+
+def segment_cumsum(x: torch.Tensor, part_keys: Sequence[torch.Tensor], count,
+                   kernels=None, nulltag: str | None = None):
+    """Grouped cumulative sum through the registry's ``segment_scan``.  No
+    collectives: groups are rank-local under hash(partition_by).
+
+    With a ``nulltag`` the semantics match pandas cumsum on nullable data:
+    null rows stay null in the output and the running total skips them.
+    """
+    cap = x.shape[0]
+    valid = valid_mask(count, cap)
+    nullm = null_mask(x, nulltag)
+    skip = valid if nullm is None else valid & ~nullm
+    if x.dtype == torch.bool:
+        x = x.to(torch.int32)            # cumsum of bool promotes anyway
+    xz = _zero_where_not(skip, x, 0)
+    seg_start = run_starts(part_keys, valid)
+    out = _K(kernels, xz).segment_scan(xz, seg_start.to(torch.int32))
+    if nullm is not None:
+        out = torch.where(nullm, torch.tensor(null_value(out.dtype, nulltag),
+                                              dtype=out.dtype, device=out.device),
+                          out)
+    return _zero_where_not(valid, out, 0)
+
+
+def segment_stencil1d(x: torch.Tensor, part_keys: Sequence[torch.Tensor],
+                      count, weights: Sequence[float], center: int,
+                      exact: bool = False, kernels=None):
+    """Boundary-masked 1-D stencil: taps that would cross a group edge are
+    zeroed (the zero-border convention applied per group).  No halo
+    exchange: groups are rank-local, so neighbours outside the group are
+    masked by segment-id mismatch in the registry's ``segment_stencil``.
+
+    ``exact=True`` renormalizes each output by the realized weight mass of
+    the taps that contributed (pandas' ``min_periods=1`` rolling mean for
+    uniform weights).  Sentinel ids: -1 for invalid rows, -2 for the halo
+    rows at both ends, so neither ever matches a real group.
+    """
+    w = [float(v) for v in weights]
+    k_left, k_right = center, len(w) - 1 - center
+    cap = x.shape[0]
+    dev = x.device
+    valid = valid_mask(count, cap)
+    xz = torch.where(valid, x.to(torch.float32), 0.0)
+    seg_start = run_starts(part_keys, valid)
+    sid = torch.cumsum(seg_start.to(torch.int32), 0, dtype=torch.int32) - 1
+    sid = torch.where(valid, sid, -1)                # padding never matches
+    ext_x = torch.cat([torch.zeros(k_left, device=dev), xz,
+                       torch.zeros(k_right, device=dev)])
+    ext_s = torch.cat([torch.full((k_left,), -2, dtype=torch.int32, device=dev),
+                       sid,
+                       torch.full((k_right,), -2, dtype=torch.int32, device=dev)])
+    out = _K(kernels, xz).segment_stencil(ext_x, ext_s, w, center, exact)
+    return torch.where(valid, out, 0.0)
+
+
+def segment_rank(part_keys: Sequence[torch.Tensor],
+                 order_keys: Sequence[torch.Tensor], count, kind: str,
+                 kernels=None):
+    """SQL ranking within groups of rows sorted by (part_keys, order_keys).
+
+    row_number: 1-based position in the group (ties broken by the stable
+    sort).  rank: 1 + position of the first row with the same order-key
+    tuple (ties share, gaps after).  dense_rank: 1 + number of distinct
+    order-key tuples before this row's (ties share, no gaps).  The two head
+    masks (group starts; (group, order) run starts, so every group start is
+    also a run start) feed the registry's ``segment_rank``.
+    """
+    if kind not in ("row_number", "rank", "dense_rank"):
+        raise ValueError(kind)
+    cap = part_keys[0].shape[0]
+    valid = valid_mask(count, cap)
+    seg_start = run_starts(part_keys, valid)
+    if kind == "row_number":
+        order_start = seg_start
+    else:
+        order_start = run_starts(tuple(part_keys) + tuple(order_keys), valid)
+    r = _K(kernels, seg_start).segment_rank(seg_start.to(torch.int32),
+                                            order_start.to(torch.int32), kind)
+    return torch.where(valid, r, 0).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# distributed scans (MPI_Exscan analogue)
+# ---------------------------------------------------------------------------
+
+def _rank_of(P: int) -> int:
+    return dist.get_rank() if P > 1 else 0
+
+
+def _all_gather_scalars(v: torch.Tensor, P: int) -> torch.Tensor:
+    """(P,) tensor of every rank's 0-d ``v``, in rank order."""
+    parts = [torch.empty(1, dtype=v.dtype, device=v.device) for _ in range(P)]
+    dist.all_gather(parts, v.reshape(1).contiguous())
+    return torch.cat(parts)
+
+
+def exscan_scalar(v: torch.Tensor, P: int, method: str = "allgather"):
+    """Exclusive prefix sum of a per-rank 0-d tensor across the P ranks of
+    the default process group.
+
+    ``"allgather"`` gathers every rank's value and sums those of the lower
+    ranks; ``"ladder"`` is the Hillis-Steele ladder of the reference's
+    ``ppermute`` form: log2(P) rounds, each a ``batch_isend_irecv`` from
+    rank r to rank r + shift (ranks with no sender receive 0)."""
+    if P == 1:
+        return torch.zeros_like(v)
+    me = _rank_of(P)
+    if method == "ladder":
+        x = v.reshape(1).clone()
+        shift = 1
+        while shift < P:
+            y = torch.zeros_like(x)
+            ops = []
+            if me + shift < P:
+                ops.append(dist.P2POp(dist.isend, x, me + shift))
+            if me - shift >= 0:
+                ops.append(dist.P2POp(dist.irecv, y, me - shift))
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+            x = x + y
+            shift *= 2
+        return (x - v.reshape(1)).reshape(v.shape)
+    if method != "allgather":
+        raise ValueError(f"exscan method must be 'allgather' or 'ladder', "
+                         f"got {method!r}")
+    allv = _all_gather_scalars(v, P)
+    below = torch.arange(P, device=v.device) < me
+    return torch.where(below, allv, torch.zeros((), dtype=v.dtype,
+                                                device=v.device)).sum().to(v.dtype)
+
+
+def dist_cumsum(x: torch.Tensor, count, P: int = 1, method: str = "allgather",
+                kernels=None):
+    """Distributed cumulative sum over the valid prefix of each rank: the
+    registry's ``prefix_sum`` on the rank, plus the exclusive scan of the
+    ranks' totals."""
+    if x.dtype == torch.bool:
+        x = x.to(torch.int32)
+    cap = x.shape[0]
+    xz = _zero_where_not(valid_mask(count, cap), x, 0)
+    local = _K(kernels, xz).prefix_sum(xz) if cap else xz
+    total = local[-1] if cap else torch.zeros((), dtype=x.dtype, device=x.device)
+    return local + exscan_scalar(total, P, method=method)
+
+
+def global_rank(order_keys: Sequence[torch.Tensor], count, cap: int, kind: str,
+                P: int = 1, method: str = "allgather", kernels=None):
+    """GLOBAL SQL ranking (no PARTITION BY) over the rank-concatenated
+    stream, through an exclusive scan of per-rank counts: never a second
+    global sort.
+
+    row_number: 1-based global position in arrival order.  rank and
+    dense_rank REQUIRE equal order-key tuples adjacent across the global
+    stream (the planner checks it); ties straddling ranks are reconciled
+    from tiny all-gathered per-rank scalars (count, first and last key
+    tuple, trailing-run start, run count), so no rows move.
+    """
+    if kind not in ("row_number", "rank", "dense_rank"):
+        raise ValueError(kind)
+    dev = count.device
+    valid = valid_mask(count, cap)
+    cnt = count.to(torch.int32).reshape(())
+    idx = torch.arange(cap, dtype=torch.int32, device=dev)
+
+    def out(r):
+        return torch.where(valid, r, 0).to(torch.int32)
+
+    if kind == "row_number":
+        return out(exscan_scalar(cnt, P, method=method) + idx + 1)
+
+    keys = tuple(order_keys)
+    order_start = run_starts(keys, valid)
+    start_idx = _segment_first_index(order_start)          # local run start
+    run_ord = torch.cumsum(order_start.to(torch.int32), 0, dtype=torch.int32)
+
+    if P == 1:
+        return out(start_idx + 1 if kind == "rank" else run_ord)
+
+    # -- tiny boundary gathers (one scalar all_gather per quantity) ----------
+    last_i = (cnt - 1).clamp(0, cap - 1).long()
+    cnts = _all_gather_scalars(cnt, P)
+    ts = _all_gather_scalars(start_idx[last_i], P)   # trailing run's start
+    runs = _all_gather_scalars(order_start.to(torch.int32).sum(
+        dtype=torch.int32), P)
+    firsts = [_all_gather_scalars(k[0], P) for k in keys]
+    lasts = [_all_gather_scalars(k[last_i], P) for k in keys]
+    bases = torch.cumsum(cnts, 0, dtype=torch.int32) - cnts      # exclusive
+    me = _rank_of(P)
+    base = bases[me]
+
+    def key_eq(cols_a, j, cols_b):
+        return functools.reduce(torch.logical_and,
+                                [a[j] == b for a, b in zip(cols_a, cols_b)])
+
+    if kind == "rank":
+        # Walk back from this rank: while the previous rank's trailing run
+        # carries this rank's first key, the leading run started there (or
+        # earlier, when that whole rank holds the key).
+        fk = [k[0] for k in keys]
+        g = base                                   # leading run's global start
+        alive = cnt > 0
+        for j in range(me - 1, -1, -1):
+            nonempty = cnts[j] > 0
+            take = alive & nonempty & key_eq(lasts, j, fk)
+            g = torch.where(take, bases[j] + ts[j], g)
+            alive = alive & (~nonempty | (take & (ts[j] == 0)))
+        return out(torch.where(start_idx == 0, g, base + start_idx) + 1)
+
+    # dense_rank: distinct runs on ranks before this one, minus the boundary
+    # merges (a run continuing across consecutive non-empty ranks counts
+    # once).  merge[j]: rank j's first key equals the last key of the
+    # nearest previous non-empty rank.
+    prev_any = torch.zeros((), dtype=torch.bool, device=dev)
+    prev_last = [torch.zeros((), dtype=k.dtype, device=dev) for k in keys]
+    merges = []
+    for j in range(P):
+        nonempty = cnts[j] > 0
+        merges.append(nonempty & prev_any & key_eq(firsts, j, prev_last))
+        prev_last = [torch.where(nonempty, c[j], p)
+                     for c, p in zip(lasts, prev_last)]
+        prev_any = prev_any | nonempty
+    m = torch.stack(merges).to(torch.int32)
+    runs_before = runs[:me].sum(dtype=torch.int32) - m[:me + 1].sum(dtype=torch.int32)
+    return out(runs_before + run_ord)
+
+
+# ---------------------------------------------------------------------------
+# 1-D stencil with halo exchange (SMA / WMA)
+# ---------------------------------------------------------------------------
+
+def halo_exchange(x: torch.Tensor, count, k_left: int, k_right: int, P: int = 1):
+    """Count-aware halo exchange over the valid prefixes.
+
+    Each rank's valid rows are the prefix ``x[:count]``; the global array is
+    the concatenation of the prefixes.  The left halo is the left
+    neighbour's valid tail ``x[count - k_left : count]``; the right halo is
+    the right neighbour's head ``x[:k_right]``.  Zeros at the global
+    borders.  Rank r sends its tail to r + 1 and its head to r - 1 in one
+    ``batch_isend_irecv``.  The window radius must not exceed the smallest
+    non-empty rank's count (1D_BLOCK layouts with radius << block).
+    """
+    cap = x.shape[0]
+    dev = x.device
+    xz = _zero_where_not(valid_mask(count, cap), x, 0)
+    left = torch.zeros(k_left, dtype=x.dtype, device=dev)
+    right = torch.zeros(k_right, dtype=x.dtype, device=dev)
+    if P == 1:
+        return left, right
+    me = _rank_of(P)
+    ops = []
+    if k_left:
+        # the valid tail, its start clamped into the buffer like
+        # lax.dynamic_slice clamps it
+        start = (count.to(torch.int64) - k_left).clamp(0, max(cap - k_left, 0))
+        tail = xz[(start + torch.arange(k_left, device=dev)).clamp(max=cap - 1)]
+        if me + 1 < P:
+            ops.append(dist.P2POp(dist.isend, tail.contiguous(), me + 1))
+        if me > 0:
+            ops.append(dist.P2POp(dist.irecv, left, me - 1))
+    if k_right:
+        head = xz[:k_right].contiguous()
+        if me > 0:
+            ops.append(dist.P2POp(dist.isend, head, me - 1))
+        if me + 1 < P:
+            ops.append(dist.P2POp(dist.irecv, right, me + 1))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return left, right
+
+
+def stencil1d(x: torch.Tensor, count, weights: Sequence[float], center: int,
+              P: int = 1, kernels=None, exact: bool = False):
+    """out[i] = sum_j w[j] * x[i + j - center] over the distributed valid
+    prefix, halos from the neighbouring ranks (the paper's SMA/WMA).  The
+    weighted sum runs in the registry's ``stencil1d``.
+
+    ``exact=True`` renormalizes rows near the GLOBAL borders by the realized
+    weight mass: the mass is the same stencil of a ones vector through the
+    same halo machinery, so a tap into a populated neighbour rank counts
+    while a tap past the global ends does not.  Both stencils and the
+    renormalize run in ONE ``stencil1d_exact`` kernel pass.
+    """
+    w = [float(v) for v in weights]
+    k_left, k_right = center, len(w) - 1 - center
+    cap = x.shape[0]
+    dev = x.device
+    valid = valid_mask(count, cap)
+
+    def build_ext(vals):
+        vz = torch.where(valid, vals.to(torch.float32), 0.0)
+        left, right = halo_exchange(vz, count, k_left, k_right, P)
+        # ext[k_left + i] = v[i] (valid rows); the right halo lands AT the
+        # dynamic position k_left + count, so windows never straddle padding
+        ext = torch.zeros(cap + k_left + k_right, dtype=torch.float32,
+                          device=dev)
+        ext[k_left:k_left + cap] = vz
+        if k_right:
+            pos = (k_left + count.to(torch.int64)
+                   + torch.arange(k_right, device=dev))
+            ext.index_copy_(0, pos, right)
+        if k_left:
+            ext[:k_left] = left
+        return ext
+
+    kset = _K(kernels, x)
+    if exact:
+        out = kset.stencil1d_exact(
+            build_ext(x), build_ext(torch.ones(cap, device=dev)), w)
+    else:
+        out = kset.stencil1d(build_ext(x), w)
+    return torch.where(valid, out, 0.0)

@@ -7,50 +7,75 @@
 #pragma once
 
 #include <cstdint>
+#include <cstring>
 #include <cuda_runtime.h>
 
 #define FULL_MASK 0xffffffffu
 
 __device__ __forceinline__ int pad(int i) { return i + (i >> 5); }
 
+// __shfl_up_sync / __shfl_sync for any trivially copyable value whose size
+// is a multiple of 4 bytes (scalars and the small structs of the scan
+// monoids), one 32-bit word at a time.
+template <typename T>
+__device__ __forceinline__ T shfl_up_any(T v, int o) {
+  static_assert(sizeof(T) % 4 == 0, "shuffled values are whole 32-bit words");
+  constexpr int W = sizeof(T) / 4;
+  int w[W];
+  memcpy(w, &v, sizeof(T));
+#pragma unroll
+  for (int i = 0; i < W; ++i) w[i] = __shfl_up_sync(FULL_MASK, w[i], o);
+  memcpy(&v, w, sizeof(T));
+  return v;
+}
+
+// The sum monoid: the operator of the plain prefix sums.
+template <typename T>
+struct SumOp {
+  __device__ __forceinline__ T identity() const { return T(0); }
+  __device__ __forceinline__ T combine(T a, T b) const { return a + b; }
+};
+
 // Exclusive scan of one value per thread across a block of NT threads
-// (NT a multiple of 32, at most 1024).  `warp_sums` is shared scratch of 32
-// entries.  `total` receives the sum over the block.  The block must reach
-// this call together; it synchronises internally and on exit.
-template <typename T, int NT>
-__device__ __forceinline__ T block_exclusive_scan(T v, T* warp_sums, T& total) {
+// (NT a multiple of 32, at most 1024) under the associative operator `op`
+// (`op.identity()`, `op.combine(earlier, later)`; it need not commute).
+// `warp_buf` is shared scratch of 32 entries.  `total` receives the
+// combination over the whole block.  The block must reach this call
+// together; it synchronises internally and on exit.
+template <typename T, int NT, typename Op>
+__device__ __forceinline__ T block_exclusive_scan(T v, T* warp_buf, T& total,
+                                                  const Op& op) {
   constexpr int NW = NT / 32;
   const int lane = threadIdx.x & 31;
   const int wid = threadIdx.x >> 5;
   T x = v;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
-    T y = __shfl_up_sync(FULL_MASK, x, o);
-    if (lane >= o) x += y;
+    const T y = shfl_up_any(x, o);
+    if (lane >= o) x = op.combine(y, x);
   }
-  if (lane == 31) warp_sums[wid] = x;
+  if (lane == 31) warp_buf[wid] = x;
   __syncthreads();
   if (wid == 0) {
-    T w = lane < NW ? warp_sums[lane] : T(0);
+    T w = lane < NW ? warp_buf[lane] : op.identity();
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
-      T y = __shfl_up_sync(FULL_MASK, w, o);
-      if (lane >= o) w += y;
+      const T y = shfl_up_any(w, o);
+      if (lane >= o) w = op.combine(y, w);
     }
-    if (lane < NW) warp_sums[lane] = w;
+    if (lane < NW) warp_buf[lane] = w;
   }
   __syncthreads();
-  const T warp_off = wid > 0 ? warp_sums[wid - 1] : T(0);
-  total = warp_sums[NW - 1];
-  __syncthreads();  // warp_sums may be reused by the caller
-  return warp_off + x - v;
+  T excl = shfl_up_any(x, 1);
+  if (lane == 0) excl = op.identity();
+  if (wid > 0) excl = op.combine(warp_buf[wid - 1], excl);
+  total = warp_buf[NW - 1];
+  __syncthreads();  // warp_buf may be reused by the caller
+  return excl;
 }
 
-// Sum of one value per thread across a block of NT threads; every thread
-// receives the result.
+// The same under the sum monoid.
 template <typename T, int NT>
-__device__ __forceinline__ T block_sum(T v, T* warp_sums) {
-  T total;
-  block_exclusive_scan<T, NT>(v, warp_sums, total);
-  return total;
+__device__ __forceinline__ T block_exclusive_scan(T v, T* warp_sums, T& total) {
+  return block_exclusive_scan<T, NT>(v, warp_sums, total, SumOp<T>{});
 }

@@ -9,8 +9,9 @@ starts one ``nvcc`` per source, all at once.
 
 Every C entry point returns ``cudaGetLastError()`` after its launches;
 :func:`check` raises on anything but 0, so a refused launch never passes
-silently.  :data:`launches` counts, per kernel name, the wrapper calls that
-launched the kernel on the card.
+silently.  :data:`launches` counts, per registry name, the wrapper calls
+that launched the kernel on the card (one source may hold several kernels:
+``stencil1d.cu`` holds stencil1d, stencil1d_exact and segment_stencil).
 """
 from __future__ import annotations
 
@@ -23,16 +24,21 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("prefix_sum", "bucket_scatter", "segment_sums")
+SOURCES = ("prefix_sum", "bucket_scatter", "segment_sums", "segment_scan",
+           "segment_rank", "stencil1d")
+# registry names, one launch counter each
+KERNELS = ("prefix_sum", "bucket_scatter", "segment_sums", "segment_scan",
+           "segment_rank", "stencil1d", "stencil1d_exact", "segment_stencil")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-launches: dict[str, int] = {name: 0 for name in SOURCES}
+launches: dict[str, int] = {name: 0 for name in KERNELS}
 _libs: dict[str, ctypes.CDLL] = {}
 
 _VP = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _INT = ctypes.c_int
+_F32 = ctypes.c_float
 # C signatures (argument types; every function returns int)
 _SIGNATURES = {
     "prefix_sum": {"prefix_sum_tile": (),
@@ -42,6 +48,17 @@ _SIGNATURES = {
                        "bucket_scatter_max_p": (),
                        "bucket_scatter": (_VP, _VP, _VP, _VP, _LL, _INT, _VP)},
     "segment_sums": {"segment_sums": (_VP, _VP, _VP, _VP, _LL, _INT, _VP)},
+    "segment_scan": {"segment_scan_tile": (),
+                     "segment_scan_scratch_bytes": (),
+                     "segment_scan_i32": (_VP, _VP, _VP, _VP, _LL, _VP),
+                     "segment_scan_f32": (_VP, _VP, _VP, _VP, _LL, _VP)},
+    "segment_rank": {"segment_rank_tile": (),
+                     "segment_rank_scratch_bytes": (),
+                     "segment_rank": (_VP, _VP, _VP, _VP, _LL, _INT, _VP)},
+    "stencil1d": {"stencil1d": (_VP, _VP, _VP, _LL, _INT, _VP),
+                  "stencil1d_exact": (_VP, _VP, _VP, _VP, _LL, _INT, _F32, _VP),
+                  "segment_stencil": (_VP, _VP, _VP, _VP, _LL, _INT, _INT, _INT,
+                                      _F32, _VP)},
 }
 
 
@@ -71,7 +88,7 @@ def _stale(name: str) -> bool:
     if not lib.exists():
         return True
     newest = max(p.stat().st_mtime for p in
-                 (CSRC / f"{name}.cu", CSRC / "common.cuh"))
+                 (CSRC / f"{name}.cu", *CSRC.glob("*.cuh")))
     return lib.stat().st_mtime < newest
 
 

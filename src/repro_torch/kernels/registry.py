@@ -8,11 +8,17 @@ falls back to a plain version.  The physical planner never sees the device:
 plans are identical either way.
 
 Contracts (the same names and contracts as the reference package's
-``kernels/registry.py``; only the primitives of the relational main path are
-registered here):
+``kernels/registry.py``; the primitives of the relational main path and of
+the window functions are registered here):
 
   prefix_sum(x)                         dtype-preserving inclusive scan
                                         (int32 / float32)
+  segment_scan(x, boundary)             segmented inclusive scan; boundary
+                                        != 0 starts a segment (int32 /
+                                        float32, dtype-preserving)
+  segment_rank(seg_b, ord_b, kind)      1-based in-segment ranks (int32);
+                                        kind in row_number / rank /
+                                        dense_rank
   segment_sums(values, seg_id, valid, num_segments)
                                         per-segment sums of the valid rows
                                         (float32 on the card)
@@ -21,6 +27,12 @@ registered here):
                                         its ORIGINAL position; dest == P
                                         marks invalid rows (slot garbage,
                                         masked by callers)
+  stencil1d(ext, weights)               weighted window over an extended
+                                        (halo-carrying) float32 array
+  stencil1d_exact(ext, ext_m, weights)  stencil + mass renormalize, fused
+  segment_stencil(ext, ext_s, weights, center, exact)
+                                        partition-masked stencil (+ fused
+                                        renormalize when exact)
 """
 from __future__ import annotations
 
@@ -29,7 +41,10 @@ from dataclasses import dataclass
 from typing import Callable
 
 from .hash_partition import hash_partition as _hp
+from .segment_rank import segment_rank as _rk
 from .segment_reduce import segment_reduce as _sr
+from .segment_scan import segment_scan as _ss
+from .stencil1d import stencil1d as _st
 from .stream_compact import stream_compact as _sc
 
 DEVICES = ("cpu", "cuda")
@@ -90,7 +105,16 @@ def resolve(device: str) -> KernelSet:
 
 
 register("prefix_sum", plain=_sc.prefix_sum_plain, kernel=_sc.prefix_sum_cuda)
+register("segment_scan", plain=_ss.segment_scan_plain,
+         kernel=_ss.segment_scan_cuda)
+register("segment_rank", plain=_rk.segment_rank_plain,
+         kernel=_rk.segment_rank_cuda)
 register("segment_sums", plain=_sr.segment_sums_plain,
          kernel=_sr.segment_sums_cuda)
 register("bucket_scatter", plain=_hp.bucket_scatter_plain,
          kernel=_hp.bucket_scatter_cuda)
+register("stencil1d", plain=_st.stencil1d_plain, kernel=_st.stencil1d_cuda)
+register("stencil1d_exact", plain=_st.stencil1d_exact_plain,
+         kernel=_st.stencil1d_exact_cuda)
+register("segment_stencil", plain=_st.segment_stencil_plain,
+         kernel=_st.segment_stencil_cuda)

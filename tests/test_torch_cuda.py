@@ -16,8 +16,18 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import registry as treg  # noqa: E402
 
 SIZES = (0, 1, 2047, 2048, 2049, 5000)
-NAMES = ("prefix_sum", "bucket_scatter", "segment_sums")
+NAMES = ("prefix_sum", "bucket_scatter", "segment_sums", "segment_scan",
+         "segment_rank", "stencil1d", "stencil1d_exact", "segment_stencil")
 P_BUCKETS = 8
+RANK_KINDS = ("row_number", "rank", "dense_rank")
+# (weights, center) of the stencil cases: K = 1, 3, 5 and 20 taps
+STENCILS = (((0.25, 0.5, 0.25), 1), ((1.5,), 0),
+            ((0.1, -0.4, 2.0, 0.3, 0.7), 0), (tuple(np.linspace(0.05, 1.0, 20)), 10))
+# (weights, center, exact) of the segment_stencil cases
+SEGMENT_STENCILS = (((0.25, 0.5, 0.25), 1, False), ((0.25, 0.5, 0.25), 1, True),
+                    ((0.1, -0.4, 2.0, 0.3, 0.7), 0, False), ((1.0,) * 5, 2, True),
+                    ((1.0,), 0, False), (tuple(np.linspace(0.05, 1.0, 20)), 19, True),
+                    ((1.0 / 7,) * 7, 6, True))
 
 
 def _values(rng, n, dtype):
@@ -26,29 +36,71 @@ def _values(rng, n, dtype):
     return rng.normal(size=n).astype(dtype)
 
 
-def _case(name, rng, n, dtype):
-    """Numpy arguments of one primitive call (the reference's parity cases)."""
+def _seg_mask(rng, n, p=0.15, first=True):
+    """Random 0/1 segment-head mask; row 0 a head when ``first``."""
+    m = (rng.random(n) < p).astype(np.int32)
+    if n and first:
+        m[0] = 1
+    return m
+
+
+def _cases(name, rng, n, dtype):
+    """Numpy argument tuples of the primitive's calls at output length n
+    (the reference's parity cases, plus window lengths and rank kinds)."""
     if name == "prefix_sum":
-        return (_values(rng, n, dtype),)
+        return [(_values(rng, n, dtype),)]
     if name == "bucket_scatter":
         dest = rng.integers(0, P_BUCKETS, n).astype(np.int32)
         if n > 4:                     # some invalid rows (dest == P)
             dest[rng.choice(n, size=n // 6, replace=False)] = P_BUCKETS
-        return (dest, P_BUCKETS)
-    # segment_sums: ids sorted and consecutive over the valid prefix, the
-    # invalid tail routed to the overflow slot, as segment_aggregate does
-    nvalid = n - n // 5
-    starts = (rng.random(nvalid) < 0.15).astype(np.int32)
-    if nvalid:
-        starts[0] = 1
-    sid = (np.cumsum(starts) - 1).astype(np.int32)
-    nseg = int(sid[-1]) + 1 if nvalid else 1
-    sid = np.concatenate([sid, np.full(n - nvalid, nseg, np.int32)])
-    return (_values(rng, n, dtype), sid, np.arange(n) < nvalid, nseg)
+        return [(dest, P_BUCKETS)]
+    if name == "segment_sums":
+        # ids sorted and consecutive over the valid prefix, the invalid tail
+        # routed to the overflow slot, as segment_aggregate does
+        nvalid = n - n // 5
+        starts = _seg_mask(rng, nvalid)
+        sid = (np.cumsum(starts) - 1).astype(np.int32)
+        nseg = int(sid[-1]) + 1 if nvalid else 1
+        sid = np.concatenate([sid, np.full(n - nvalid, nseg, np.int32)])
+        return [(_values(rng, n, dtype), sid, np.arange(n) < nvalid, nseg)]
+    if name == "segment_scan":
+        # dense heads with row 0 a head; sparse heads without one
+        return [(_values(rng, n, dtype), _seg_mask(rng, n)),
+                (_values(rng, n, dtype), _seg_mask(rng, n, 0.01, first=False))]
+    if name == "segment_rank":
+        # order heads are a superset of segment heads (run_starts' invariant)
+        seg = _seg_mask(rng, n)
+        ordb = np.maximum(seg, (rng.random(n) < 0.3).astype(np.int32))
+        return [(seg, ordb, kind) for kind in RANK_KINDS]
+    if name == "stencil1d":
+        return [(_values(rng, n + len(w) - 1, dtype), w) for w, _c in STENCILS]
+    if name == "stencil1d_exact":
+        out = []
+        for w, c in STENCILS[:2] + STENCILS[3:]:
+            k = len(w)
+            ext = np.zeros(n + k - 1, dtype)
+            ext[c:c + n] = _values(rng, n, dtype)
+            ext_m = np.zeros(n + k - 1, dtype)   # zero mass at both ends
+            ext_m[c:c + n] = 1
+            out.append((ext, ext_m, tuple(abs(v) for v in w)))
+        return out
+    out = []                          # segment_stencil, as segment_stencil1d
+    for w, c, exact in SEGMENT_STENCILS:  # builds it: -2 halo, -1 invalid
+        k = len(w)
+        ext = np.zeros(n + k - 1, dtype)
+        ext[c:c + n] = _values(rng, n, dtype)
+        sid = (np.cumsum(_seg_mask(rng, n)) - 1).astype(np.int32)
+        sid[n - n // 7:] = -1
+        ext_s = np.full(n + k - 1, -2, np.int32)
+        ext_s[c:c + n] = sid
+        out.append((ext, ext_s, w, c, exact))
+    return out
 
 
 DTYPES = {"prefix_sum": (np.int32, np.float32), "bucket_scatter": (np.int32,),
-          "segment_sums": (np.float32,)}
+          "segment_sums": (np.float32,), "segment_scan": (np.int32, np.float32),
+          "segment_rank": (np.int32,), "stencil1d": (np.float32,),
+          "stencil1d_exact": (np.float32,), "segment_stencil": (np.float32,)}
 
 
 def _to_torch(a):
@@ -62,6 +114,12 @@ def _np(x):
 
 
 def _assert_same(name, args, got, want):
+    """Integers exact.  Floats: the stencils within rtol 1e-5, atol 1e-6
+    (the same taps in the same order; the reference's Pallas kernel folds
+    its weights in as constants); segment_scan within 1e-5 of the running
+    sum of |x| (the plain version is a global cumsum minus the segment's
+    base, so its rounding grows with that sum); the rest within the
+    reference's own tolerance between its backends, rtol 1e-4, atol 1e-3."""
     if name == "bucket_scatter":
         ok = args[0] < args[1]
         np.testing.assert_array_equal(got[1], want[1])
@@ -70,11 +128,21 @@ def _assert_same(name, args, got, want):
     if name == "segment_sums":
         got, want = got[: args[3]], want[: args[3]]
     assert got.shape == want.shape
-    if np.issubdtype(want.dtype, np.floating):
-        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-3)
-    else:
-        np.testing.assert_array_equal(got, want)
     assert got.dtype == want.dtype or name == "segment_sums"
+    if not np.issubdtype(want.dtype, np.floating):
+        np.testing.assert_array_equal(got, want)
+    elif name == "segment_scan":
+        tol = 1e-5 * np.cumsum(np.abs(args[0].astype(np.float64))) + 1e-6
+        assert np.all(np.abs(got.astype(np.float64) - want) <= tol)
+    elif name in ("stencil1d", "stencil1d_exact", "segment_stencil"):
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-3)
+
+
+# the kernels that compute their plain version's float32 operations in the
+# same order: bitwise equal on the card (the exact modes' divide too)
+BITWISE = ("stencil1d", "stencil1d_exact", "segment_stencil")
 
 
 @pytest.fixture
@@ -91,12 +159,14 @@ def test_kernel_matches_plain_on_card(card, name, n):
     spec = treg.get(name)
     for dtype in DTYPES[name]:
         rng = np.random.default_rng(hash((name, n, np.dtype(dtype).num)) % 2**31)
-        args = _case(name, rng, n, dtype)
-        dargs = tuple(a.to(card) if isinstance(a, torch.Tensor) else a
-                      for a in map(_to_torch, args))
-        got = spec.kernel(*dargs)
-        want = spec.plain(*dargs)
-        torch.cuda.synchronize()
-        to_np = (lambda t: tuple(v.cpu().numpy() for v in t)) \
-            if isinstance(got, tuple) else (lambda t: t.cpu().numpy())
-        _assert_same(name, args, to_np(got), to_np(want))
+        for args in _cases(name, rng, n, dtype):
+            dargs = tuple(a.to(card) if isinstance(a, torch.Tensor) else a
+                          for a in map(_to_torch, args))
+            got = spec.kernel(*dargs)
+            want = spec.plain(*dargs)
+            torch.cuda.synchronize()
+            to_np = (lambda t: tuple(v.cpu().numpy() for v in t)) \
+                if isinstance(got, tuple) else (lambda t: t.cpu().numpy())
+            _assert_same(name, args, to_np(got), to_np(want))
+            if name in BITWISE:
+                assert torch.equal(got, want), (name, n, args[2:])

@@ -5,8 +5,11 @@ the CPU, the reference with its Pallas kernels in interpret mode, and the
 python-loop oracles of tests/oracle.py.  Port and reference must agree row
 for row and column by column (exact for ints and bools, floats within
 rtol=1e-4, atol=1e-3); the oracle is compared as a row set.  The carry-over
-test moves a reference DTable's state into the port and queries it.  One
-test spawns two gloo ranks and runs the same queries at P=2.
+tests move a reference DTable's state into the port and query it.  One test
+spawns two gloo ranks and runs the same queries at P=2, together with the
+window queries of tests/test_torch_window.py (the global ones with both
+exclusive-scan methods) and direct checks of the halo exchange and the
+global rank across the two ranks.
 """
 import json
 import os
@@ -23,6 +26,8 @@ pytest.importorskip("torch")
 import oracle  # noqa: E402
 from repro import hiframes as rhf  # noqa: E402
 from repro_torch import hiframes as thf  # noqa: E402
+from test_torch_window import (W, WDATA, WINDOW_SRC,  # noqa: E402
+                               assert_same_row_set, window_oracle)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TCFG = dict(device="cpu")
@@ -186,6 +191,27 @@ def test_carry_over_reference_state():
     _assert_same_rows(got, want)
 
 
+def test_carry_over_reference_window_state():
+    """A reference partitioned window's output, in its grouped layout
+    (hash-partitioned on g, sorted by g and t), carried into the port; a
+    second partitioned window over the same keys runs on it and gives the
+    reference's rows."""
+    rt = W["p_cumsum"](rhf, WDATA).collect(rhf.ExecConfig())
+    tt = thf.DTable.from_numpy_state(
+        {c: np.asarray(v) for c, v in rt.columns.items()},
+        np.asarray(rt.counts), rt.capacity, rt.nshards, rt.dist, device="cpu")
+    assert tt.dist == rt.dist
+    _assert_same_rows(tt.to_numpy(), rt.to_numpy())
+    tdf, rdf = thf.table(tt), rhf.table(rt.to_numpy())
+    got = tdf.over("g", order_by="t").rolling_mean(tdf["wc"], 3, out="m",
+                                                   exact=True) \
+        .collect(thf.ExecConfig(**TCFG)).to_numpy()
+    want = rdf.over("g", order_by="t").rolling_mean(rdf["wc"], 3, out="m",
+                                                    exact=True) \
+        .collect(rhf.ExecConfig()).to_numpy()
+    _assert_same_rows(got, want)
+
+
 def test_overflow_retry_heals():
     """Unsafe capacities overflow the join's exchanges; collect() grows the
     overflowed sites and returns the full answer."""
@@ -225,22 +251,55 @@ def main(rank, world, port, out):
         calls[0] += 1
         return a2a(*a, **k)
     dist.all_to_all_single = counted
-    d = Q["data"]()
+    d, wd = Q["data"](), W["window_data"]()
     cfg = hf.ExecConfig(device="cpu")
+    ladder = hf.ExecConfig(device="cpu", exscan_method="ladder")
+    runs = [(name, build, d, cfg) for name, build in Q["QUERIES"].items()]
+    runs += [(name, build, wd, cfg)
+             for name, build in W["WINDOW_QUERIES"].items()]
+    runs += [(name + "@ladder", W["WINDOW_QUERIES"][name], wd, ladder)
+             for name in W["GLOBAL_WINDOWS"]]
     res = {}
-    for name, build in Q["QUERIES"].items():
-        frame = build(hf, d)
+    for name, build, data, c in runs:
+        frame = build(hf, data)
         calls[0] = 0
-        t = frame.collect(cfg)
+        t = frame.collect(c)
         res[name] = {"cols": {k: v.tolist() for k, v in t.to_numpy().items()},
                      "dtypes": {k: str(v.dtype) for k, v in t.to_numpy().items()},
                      "all_to_all": calls[0], "overflow": bool(t.overflow),
                      "nshards": t.nshards,
-                     "census": frame.physical_plan(cfg).shuffle_census(P=world)["all_to_all"]}
+                     "census": frame.physical_plan(c).shuffle_census(P=world)["all_to_all"]}
+    res["__direct__"] = direct_checks(rank, world)
     if rank == 0:
         with open(out, "w") as f:
             json.dump(res, f)
     dist.destroy_process_group()
+
+
+def gather_list(t):
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, t.contiguous())
+    return [p.tolist() for p in parts]
+
+
+def direct_checks(rank, world):
+    """The halo exchange with uneven counts, and the global rank kinds with
+    tie runs straddling the rank boundary, called on each rank directly."""
+    from repro_torch.core import physical as phys
+    out = {}
+    counts = [5, 7]
+    x = torch.arange(8, dtype=torch.float32) + 100 * rank
+    left, right = phys.halo_exchange(x, torch.tensor(counts[rank], dtype=torch.int32),
+                                     2, 3, world)
+    out["halo"] = [gather_list(left), gather_list(right)]
+    keys = [[0, 1, 1, 2, 2, 2, 9, 9], [2, 2, 3, 3, 4, 9, 9, 9]][rank]
+    cnt = torch.tensor([6, 5][rank], dtype=torch.int32)
+    k = torch.tensor(keys, dtype=torch.int32)
+    for kind in ("row_number", "rank", "dense_rank"):
+        for method in ("allgather", "ladder"):
+            r = phys.global_rank((k,), cnt, 8, kind, P=world, method=method)
+            out[kind + "@" + method] = gather_list(r)
+    return out
 
 
 if __name__ == "__main__":
@@ -262,6 +321,7 @@ def test_two_gloo_ranks(tmp_path):
     shuffle census states (two per exchange)."""
     script = tmp_path / "ranks.py"
     script.write_text("Q = {}\nexec(" + repr(QUERY_SRC) + ", Q)\n"
+                      + "W = {}\nexec(" + repr(WINDOW_SRC) + ", W)\n"
                       + textwrap.dedent(RANK_SCRIPT))
     out = tmp_path / "res.json"
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
@@ -271,12 +331,37 @@ def test_two_gloo_ranks(tmp_path):
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     res = json.loads(out.read_text())
-    for name in NAMES:
+    runs = [(name, Q["QUERIES"][name], DATA) for name in NAMES]
+    runs += [(name, W["WINDOW_QUERIES"][name.split("@")[0]], WDATA)
+             for name in res if name in W["WINDOW_QUERIES"]
+             or name.endswith("@ladder")]
+    assert len(runs) == len(NAMES) + len(W["WINDOW_QUERIES"]) \
+        + len(W["GLOBAL_WINDOWS"])
+    for name, build, data in runs:
         r = res[name]
         assert r["nshards"] == 2 and not r["overflow"], name
         got = {k: np.asarray(v, dtype=r["dtypes"][k])
                for k, v in r["cols"].items()}
-        _assert_same_row_set(got, _oracle(name, DATA))
-        census = Q["QUERIES"][name](rhf, DATA).physical_plan() \
+        base = name.split("@")[0]
+        if data is DATA:
+            _assert_same_row_set(got, _oracle(name, DATA))
+        else:
+            assert_same_row_set(got, window_oracle(base, WDATA))
+        census = build(rhf, data).physical_plan() \
             .shuffle_census(P=2)["all_to_all"]
         assert r["all_to_all"] == r["census"] == census, (name, r, census)
+    direct = res["__direct__"]
+    # rank 0 holds 0..4 valid of 8 rows, rank 1 holds 100..106: the left
+    # halo of rank 1 is rank 0's valid tail, the right halo of rank 0 is
+    # rank 1's head; zeros at the global borders
+    assert direct["halo"] == [[[0.0, 0.0], [3.0, 4.0]],
+                              [[100.0, 101.0, 102.0], [0.0, 0.0, 0.0]]]
+    keys = np.array([0, 1, 1, 2, 2, 2, 2, 2, 3, 3, 4])      # the valid rows
+    want = {"row_number": np.arange(1, 12),
+            "rank": np.searchsorted(keys, keys, side="left") + 1,
+            "dense_rank": np.unique(keys, return_inverse=True)[1] + 1}
+    for kind, w in want.items():
+        for method in ("allgather", "ladder"):
+            r = direct[kind + "@" + method]
+            assert r[0][:6] + r[1][:5] == w.tolist(), (kind, method, r)
+            assert r[0][6:] == [0, 0] and r[1][5:] == [0, 0, 0]

@@ -2,9 +2,11 @@
 backends AND its Pallas kernels in interpret mode, on the same numpy inputs.
 
 Sizes include 0 and the tile edges around 2048; dtypes int32 and float32,
-with bool covered through the physical layer.  Integers are exact; floats
-use rtol=1e-4, atol=1e-3, the reference's own tolerance between its
-backends (tests/test_kernel_registry.py).  ``segment_sums`` is compared on
+with bool covered through the physical layer; stencils with 1, 3, 5 and 20
+taps, rank kinds all three.  Integers are exact; the tolerances of floats
+are stated at ``_assert_same`` in tests/test_torch_cuda.py (the window
+kernels' tighter than the reference's rtol=1e-4, atol=1e-3 between its
+backends, tests/test_kernel_registry.py).  ``segment_sums`` is compared on
 the valid prefix only (the reference's Pallas wrapper leaves other slots
 undefined) and ``bucket_scatter`` slots only where ``dest < P``.  The
 inputs and comparisons are shared with tests/test_torch_cuda.py, which
@@ -20,8 +22,8 @@ from repro.core import physical as rphys  # noqa: E402
 from repro.kernels import registry as rreg  # noqa: E402
 from repro_torch.core import physical as tphys  # noqa: E402
 from repro_torch.kernels import registry as treg  # noqa: E402
-from test_torch_cuda import (DTYPES, NAMES, SIZES, _assert_same, _case,  # noqa: E402
-                             _np, _to_torch)
+from test_torch_cuda import (DTYPES, NAMES, SIZES, _assert_same,  # noqa: E402
+                             _cases, _np, _to_torch)
 
 
 def _to_jax(a):
@@ -42,11 +44,12 @@ def test_plain_matches_reference_backends(name, n):
     spec = rreg.get(name)
     for dtype in DTYPES[name]:
         rng = np.random.default_rng(hash((name, n, np.dtype(dtype).num)) % 2**31)
-        args = _case(name, rng, n, dtype)
-        got = _np(plain(*map(_to_torch, args)))
-        jargs = tuple(map(_to_jax, args))
-        _assert_same(name, args, got, _np(ref(*jargs)))
-        _assert_same(name, args, got, _np(spec.pallas(*jargs, interpret=True)))
+        for args in _cases(name, rng, n, dtype):
+            got = _np(plain(*map(_to_torch, args)))
+            jargs = tuple(map(_to_jax, args))
+            _assert_same(name, args, got, _np(ref(*jargs)))
+            _assert_same(name, args, got,
+                         _np(spec.pallas(*jargs, interpret=True)))
 
 
 def test_bool_values_via_physical_layer():
@@ -80,6 +83,6 @@ def test_kernel_wrapper_refuses_cpu_tensors(name):
     """A kernel wrapper never falls back to its plain version: a tensor off
     the card is refused before anything is built or launched."""
     rng = np.random.default_rng(0)
-    args = tuple(map(_to_torch, _case(name, rng, 64, DTYPES[name][0])))
+    args = tuple(map(_to_torch, _cases(name, rng, 64, DTYPES[name][0])[0]))
     with pytest.raises(ValueError, match="CUDA tensor"):
         treg.get(name).kernel(*args)

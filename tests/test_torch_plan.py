@@ -1,7 +1,10 @@
 """Planner parity: on the main-path pipelines of tests/test_plan_census.py
 (join -> aggregate on the join keys, the elision/partial-agg baselines, the
 wide table, partial aggregation with and without a group cap, packed and
-per-column exchanges) and on the Fig. 8a / Q26 queries, the port plans the
+per-column exchanges), on the Fig. 8a / Q26 queries and on window pipelines
+(a partitioned window after a join, with and without elision; chained
+grouped windows; a window after an aggregate on its keys; global cumsums,
+row numbers and stencils), the port plans the
 same physical op list, the same capacities, the same ``counts()`` and the
 same ``shuffle_census(P=8)`` as the reference.
 """
@@ -86,6 +89,43 @@ def q26(hf):
     return c[c["c_i_count"] > 4]
 
 
+def join_window(hf):
+    left, right = _frames()
+    j = hf.join(hf.table(left), hf.table(right, "d"), on=("k1", "ca"))
+    return hf.wma(j, j["x"] * j["w"], [1, 2, 1], out="v", partition_by="k1",
+                  order_by="t")
+
+
+def grouped_windows(hf):
+    left, _ = _frames()
+    df = hf.table(left)
+    a = df.over("k1", order_by="t").cumsum(df["x"], out="c")
+    b = a.over("k1", order_by="t").rolling_mean(a["c"], 7, out="m", exact=True)
+    return b.over(("k1", "k2"), order_by="t").rank(out="r")
+
+
+def agg_then_window(hf):
+    left, _ = _frames()
+    df = hf.table(left)
+    a = hf.aggregate(df, "k1", s=hf.sum_(df["x"]))
+    return a.over("k1").row_number(out="r")
+
+
+def global_windows(hf):
+    left, _ = _frames()
+    df = hf.table(left)
+    c = hf.cumsum(df, df["x"], out="c")
+    f = c[c["x"] < 0.5]
+    return hf.row_number(hf.cumsum(f, f["c"], out="cc"), None, out="r")
+
+
+def global_stencil(hf):
+    left, _ = _frames()
+    df = hf.table(left)
+    w = hf.wma(df, df["x"], [1, 2, 1], out="w")
+    return hf.rolling_mean(w, w["w"], 5, out="m", exact=True)
+
+
 CASES = [
     ("join_agg_same_keys", join_agg, {}),
     ("join_agg_baseline", join_count,
@@ -101,6 +141,12 @@ CASES = [
     ("fig8a_join", fig8a_join, {}),
     ("q26", q26, {}),
     ("q26_unsafe_caps", q26, {"safe_capacities": False}),
+    ("join_window", join_window, {}),
+    ("join_window_no_elision", join_window, {"elide_exchanges": False}),
+    ("grouped_windows", grouped_windows, {}),
+    ("agg_then_window", agg_then_window, {}),
+    ("global_windows", global_windows, {}),
+    ("global_stencil", global_stencil, {}),
 ]
 
 
