@@ -7,38 +7,49 @@ Phases, in order; any failure raises and the exit code is not 0:
 1. Report and build: the card's name and power limit, the nvcc build of
    every kernel in ``src/repro_torch/csrc`` (one process per source, in
    parallel), TF32 off for matmuls and cuDNN.
-2. Kernel phases: each of the eight hand-written kernels against its plain
+2. Kernel phases: each of the nine hand-written kernels against its plain
    PyTorch version on the card, at sizes 0 .. 2^27 (segment lengths 1, 64
    and 2^16; stencils of 1, 3, 5, 7 and 20 taps at centres 0, K // 2 and
-   the main path's K - 1), then held again and timed on the main path's
-   inputs with CUDA events (median of 15) beside the plain version,
-   one PyTorch library call where there is one, and its bound (the larger
-   of bytes moved / 3.35 TB/s and operations / 67 TFLOP/s).
-3. The two main paths through ``hf`` at P = 1, each with the launch
-   counters zeroed just before it and read just after, each query checked
-   against a vectorised numpy oracle:
-   - relational: Fig. 8a filter, join and aggregate and TPCx-BB Q26 /
-     Q26-multikey; prefix_sum and segment_sums must have launched;
-   - windows: Fig. 8b cumsum, SMA, WMA and exact rolling mean at 2^27 rows,
-     a partitioned WMA after a join and five chained grouped windows
-     (cumsum, exact rolling mean, rank, dense_rank, row_number) over 2^27
-     rows in 11585 groups; prefix_sum, segment_scan, segment_rank,
-     stencil1d, stencil1d_exact and segment_stencil must have launched.
+   the main path's K - 1; decode_attention at the reference's test shapes
+   in float32 and bfloat16 and at the LM path's shape with lengths 1 ..
+   2304), then held again and timed on the main path's inputs with CUDA
+   events (median of 15 runs, each the mean of back-to-back calls filling
+   ~2 ms) beside the plain version, one PyTorch library
+   call where there is one, and its bound (the larger of bytes moved /
+   3.35 TB/s and operations / 67 TFLOP/s).
+3. The three main paths, each with the launch counters zeroed just before
+   it and read just after:
+   - relational, through ``hf`` at P = 1: Fig. 8a filter, join and
+     aggregate and TPCx-BB Q26 / Q26-multikey against numpy oracles;
+     prefix_sum and segment_sums must have launched;
+   - windows, through ``hf``: Fig. 8b cumsum, SMA, WMA and exact rolling
+     mean at 2^27 rows, a partitioned WMA after a join and five chained
+     grouped windows (cumsum, exact rolling mean, rank, dense_rank,
+     row_number) over 2^27 rows in 11585 groups, against numpy oracles;
+     prefix_sum, segment_scan, segment_rank, stencil1d, stencil1d_exact and
+     segment_stencil must have launched;
+   - lm, through ``repro_torch.launch.steps`` as examples/serve_lm.py
+     drives the reference: qwen3-0.6b (28 layers, bf16, random weights from
+     a seed) serves 32 prompts of 2048 tokens with 256 greedy new tokens;
+     decode_attention must have launched exactly 28 x 256 times.  After the
+     path, the served logits of two requests are held against the port's
+     own no-cache forward (within 0.1), and the same path at 2 layers in
+     float32 (within 1e-3).
    (bucket_scatter runs only in exchanges at P > 1, which one card cannot
    host; phase 2 holds it.)
-4. Report: a JSON line of query wall times, peak memory and the window
-   checks' largest differences, a JSON line of the eight kernel records,
-   and a last line ``{"ok": true, "device": {...}}``.
+4. Report: a JSON line of query wall times, LM serving times, peak memory
+   and the checks' largest differences, a JSON line of the nine kernel
+   records, and a last line ``{"ok": true, "device": {...}}``.
 
 ``--quick`` stops after phase 2 at sizes up to 1_000_003 and prints ptxas's
 register and shared-memory report: a short first check of new kernels.
 ``--profile DIR`` runs every query a second time under ``torch.profiler``
-and writes its per-op device-time table to ``DIR/profile_<query>.txt``.
+and writes its per-op device-time table to ``DIR/profile_<query>.txt``, and
+profiles 4 LM decode steps (``DIR/profile_lm_decode.txt``).
 """
 from __future__ import annotations
 
 import argparse
-import functools
 import json
 import os
 import subprocess
@@ -64,19 +75,26 @@ def nvidia_smi_line() -> str:
 
 
 def time_ms(fn, torch) -> float:
-    """Median milliseconds of ``fn()`` over REPEATS runs (CUDA events),
-    after one warm-up run."""
+    """Median milliseconds of one ``fn()`` over REPEATS runs (CUDA events),
+    after one warm-up run.  A run calls ``fn`` back to back as many times
+    as fill about 2 ms (at least once) and counts the mean, so the host's
+    work of launching a short kernel overlaps the device's, as in a stream
+    of calls, and is not timed as device time."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
+    inner = max(1, min(50, int(2e-3 / max(time.perf_counter() - t0, 1e-6))))
     times = []
     for _ in range(REPEATS):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(inner):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / inner)
     return float(np.median(times))
 
 
@@ -234,11 +252,14 @@ def kernel_phases(torch, sizes, record: dict):
 
 
 def ulps(torch, a, b) -> int:
-    """Largest distance of two float32 tensors in units in the last place
-    (+0 and -0 equal)."""
+    """Largest distance of two float32 or bfloat16 tensors (of one dtype) in
+    units in the last place of that dtype (+0 and -0 equal)."""
+    bits, mag = ((torch.int16, 0x7FFF) if a.dtype == torch.bfloat16
+                 else (torch.int32, 0x7FFFFFFF))
+
     def ordered(t):
-        i = t.contiguous().view(torch.int32).long()
-        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+        i = t.contiguous().view(bits).long()
+        return torch.where(i < 0, -(i & mag), i)
     if a.numel() == 0:
         return 0
     return int((ordered(a) - ordered(b)).abs().max())
@@ -492,6 +513,116 @@ def window_kernel_phases(torch, sizes, record: dict):
     cuda.reset_launches()
 
 
+# The LM serving path: qwen3-0.6b at its published widths and depth, 32
+# requests of 2048 prompt tokens and 256 greedy new tokens (the cache holds
+# 2048 + 256 rows and fills exactly).  decode_attention is timed at the
+# middle of the decode, 2176 rows.
+LM_ARCH = "qwen3-0.6b"
+LM_BATCH, LM_PROMPT, LM_NEW = 32, 2048, 256
+LM_MID = LM_PROMPT + LM_NEW // 2
+
+
+def decode_attention_phases(torch, record: dict):
+    """decode_attention against its plain version: the reference's test
+    shapes (random and full lengths) in float32 and bfloat16, and the LM
+    decode path's shape with per-row lengths 1, 511, 512, 513, 2048, 2304
+    and random ones.  Both compute in float32 and round once to q's dtype,
+    so an element may differ by 2e-5 (the reference's float32 tolerance
+    between its kernel and its oracle) plus, in bfloat16, one rounding
+    step of the output: |got - want| <= 2^-7 |want| + 2e-5."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.decode_attention import decode_attention as da
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    f32, bf16 = torch.float32, torch.bfloat16
+    rel = {f32: 0.0, bf16: 2.0 ** -7}
+    err = {f32: 0.0, bf16: 0.0}
+    of_bound = {f32: 0.0, bf16: 0.0}     # largest |got - want| / its bound
+    worst_bf16 = [0]
+
+    def inputs(b, s, hkv, gq, hd, dt):
+        q = torch.randn((b, hkv, gq, hd), device=dev, generator=g).to(dt)
+        k, v = (torch.randn((b, s, hkv, hd), device=dev, generator=g).to(dt)
+                for _ in range(2))
+        return q, k, v
+
+    def held(q, k, v, length, tag):
+        got = da.decode_attention_cuda(q, k, v, length)
+        want = da.decode_attention_plain(q, k, v, length)
+        assert got.dtype == q.dtype and got.shape == q.shape, tag
+        diff = (got.float() - want.float()).abs()
+        share = float((diff / (rel[q.dtype] * want.float().abs() + 2e-5)).max())
+        assert share <= 1, f"decode_attention {tag}: {share} of the bound"
+        of_bound[q.dtype] = max(of_bound[q.dtype], share)
+        d = float(diff.max())
+        err[q.dtype] = max(err[q.dtype], d)
+        if q.dtype == bf16:
+            worst_bf16[0] = max(worst_bf16[0], ulps(torch, got, want))
+        return got
+
+    for b, s, hkv, gq, hd in ((1, 128, 2, 2, 32), (2, 512, 2, 4, 64),
+                              (4, 1024, 8, 7, 64), (2, 700, 4, 1, 32)):
+        for dt in (f32, bf16):
+            q, k, v = inputs(b, s, hkv, gq, hd, dt)
+            length = torch.randint(1, s + 1, (b,), device=dev, generator=g,
+                                   dtype=torch.int32)
+            for lens, what in ((length, "random"),
+                               (torch.full_like(length, s), "full")):
+                held(q, k, v, lens, f"{(b, s, hkv, gq, hd)} {dt} {what} lengths")
+        log(f"decode_attention {(b, s, hkv, gq, hd)}: ok in float32 and bfloat16")
+
+    cfg = get_config(LM_ARCH)
+    b, s = LM_BATCH, LM_PROMPT + LM_NEW
+    hkv, gq, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.hd
+    edges = torch.tensor([1, 511, 512, 513, 2048, 2304], dtype=torch.int32)
+    for dt in (bf16, f32):
+        q, k, v = inputs(b, s, hkv, gq, hd, dt)
+        length = torch.randint(1, s + 1, (b,), device=dev, generator=g,
+                               dtype=torch.int32)
+        length[:len(edges)] = edges
+        held(q, k, v, length, f"main path shape {dt}")
+        log(f"decode_attention main path shape {(b, s, hkv, gq, hd)} {dt}: ok")
+        del q, k, v
+
+    # timed at the main path's shape in bfloat16, all rows at LM_MID
+    q, k, v = inputs(b, s, hkv, gq, hd, bf16)
+    mid = torch.full((b,), LM_MID, dtype=torch.int32, device=dev)
+    got = held(q, k, v, mid, "timed inputs")
+    # the yardstick, never called by the port: SDPA on inputs already laid
+    # out (B, H, 1, hd) / (B, Hkv, S, hd), a boolean length mask, GQA
+    # grouping h = kv * G + g as the kernel's
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qs = q.reshape(b, hkv * gq, 1, hd)
+    ks, vs = (t.permute(0, 2, 1, 3).contiguous() for t in (k, v))
+    mask = (torch.arange(s, device=dev) < LM_MID).expand(b, 1, 1, s)
+    lib = sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True)
+    rec = {"name": "decode_attention", "route": "cuda",
+           "source": "src/repro_torch/csrc/decode_attention.cu",
+           "replaces": "src/repro/kernels/decode_attention/decode_attention.py:67",
+           "shape": f"bf16 q ({b}, {hkv}, {gq}, {hd}), k/v ({b}, {s}, {hkv}, "
+                    f"{hd}), all lengths {LM_MID}",
+           "max_abs_err": max(err.values()), "max_abs_err_f32": err[f32],
+           "max_abs_err_bf16": err[bf16], "max_ulps_bf16": worst_bf16[0],
+           "max_share_of_tolerance": {"f32": of_bound[f32], "bf16": of_bound[bf16]},
+           "library_max_abs_diff": float(
+               (got.float().reshape(b, hkv * gq, 1, hd) - lib.float()).abs().max()),
+           "ms": time_ms(lambda: da.decode_attention_cuda(q, k, v, mid), torch),
+           "plain_ms": time_ms(lambda: da.decode_attention_plain(q, k, v, mid),
+                               torch),
+           "library_ms": time_ms(
+               lambda: sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True), torch),
+           "library_call": "torch.nn.functional.scaled_dot_product_attention"
+                           "(enable_gqa=True, boolean mask)"}
+    kv_bytes = 2.0 * b * LM_MID * hkv * hd * 2
+    rec["bound_ms"], rec["bound_by"] = bound_ms(
+        kv_bytes + 2.0 * q.numel() * 2 + 4.0 * b, 4.0 * b * hkv * gq * hd * LM_MID)
+    record["decode_attention"] = rec
+    del q, k, v, ks, vs, qs, lib, got
+    cuda.reset_launches()
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path through hf, against numpy oracles
 # ---------------------------------------------------------------------------
@@ -553,15 +684,15 @@ def check_equal(got: dict, want: dict, tag: str, float_tol=None):
             assert np.array_equal(g, w), f"{tag}.{k} differs"
 
 
-def profile_query(torch, frame, cfg, path: str) -> dict:
-    """Run ``frame`` once under torch.profiler; write the per-op table to
+def profile_run(torch, fn, path: str) -> dict:
+    """Run ``fn()`` once under torch.profiler; write the per-op table to
     ``path`` and return device-time totals in ms: kernels, copies, wall."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        frame.collect(cfg)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     ka = prof.key_averages()
@@ -610,7 +741,7 @@ def query_runner(torch, hf, queries: dict, profile_dir: str | None):
                         "rows_out": int(len(next(iter(out.values()))))}
         log(f"{tag}: {queries[tag]}")
         if profile_dir:
-            prof = profile_query(torch, frame, cfg, os.path.join(
+            prof = profile_run(torch, lambda: frame.collect(cfg), os.path.join(
                 profile_dir, f"profile_{tag}.txt"))
             queries[tag]["profile"] = prof
             log(f"{tag} profile: {prof}")
@@ -856,6 +987,142 @@ def window_path(torch, hf, synth, queries: dict, profile_dir: str | None = None,
     queries["grouped_windows"]["rows_in"] = n
 
 
+def lm_serve(torch, cfg, keep: list, seed: int = 0) -> dict:
+    """Serve ``cfg`` as examples/serve_lm.py does, through the port's entry
+    points (launch/steps.py): random weights from ``seed`` on the card,
+    LM_BATCH prompts of LM_PROMPT token ids from numpy, one prefill into a
+    cache of LM_PROMPT + LM_NEW rows, then LM_NEW greedy decode steps.
+    Returns timings, the tokens, and the logits of requests ``keep`` at the
+    prefill's last position and at every decode step."""
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+
+    dev = torch.device("cuda")
+    b, s, t = LM_BATCH, LM_PROMPT, LM_NEW
+    model = lm.init_params(cfg, seed=seed, device=dev)
+    prompts = np.random.default_rng(seed).integers(0, cfg.vocab, (b, s))
+    tokens = torch.from_numpy(prompts.astype(np.int32)).to(dev)
+    prefill = steps.make_prefill_step(cfg, s + t)
+    step = steps.make_decode_step(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, caches = prefill(model, {"tokens": tokens})
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    peak_prefill = torch.cuda.max_memory_allocated()
+    kept, gen = [logits[keep]], []
+    tok = logits.argmax(-1)[:, None].to(torch.int32)
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(t + 1)]
+    t0 = time.perf_counter()
+    for i in range(t):
+        marks[i].record()
+        gen.append(tok)
+        logits, caches = step(model, tok, caches)
+        kept.append(logits[keep])
+        tok = logits.argmax(-1)[:, None].to(torch.int32)
+    marks[t].record()
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    step_ms = [marks[i].elapsed_time(marks[i + 1]) for i in range(t)]
+    assert caches["host_index"] == s + t
+    assert bool((caches["layers"]["index"] == s + t).all())
+    return {"model": model, "tokens": tokens, "gen": torch.cat(gen, 1),
+            "kept": torch.stack(kept, 1), "keep": keep,
+            "stats": {
+                "prefill_ms": round(t_prefill * 1e3, 3),
+                "prefill_tok_s": round(b * s / t_prefill, 1),
+                "decode_ms": round(t_decode * 1e3, 3),
+                "decode_step_median_ms": round(float(np.median(step_ms)), 4),
+                "decode_step_min_ms": round(float(np.min(step_ms)), 4),
+                "decode_tok_s": round(b * t / t_decode, 1),
+                "peak_prefill_gib": round(peak_prefill / 2**30, 3),
+                "peak_gib": round(torch.cuda.max_memory_allocated() / 2**30, 3)}}
+
+
+def lm_against_full_forward(torch, cfg, run: dict) -> float:
+    """The served logits of the kept requests (the prefill's last position
+    and every decode step) against the port's own no-cache full forward
+    over prompt + generated tokens; the largest absolute difference.  Also
+    holds the outputs' shapes, finiteness and token range."""
+    from repro_torch.models import lm
+
+    keep, gen, kept = run["keep"], run["gen"], run["kept"]
+    assert gen.shape == (LM_BATCH, LM_NEW)
+    assert bool(((gen >= 0) & (gen < cfg.vocab)).all())
+    assert kept.shape == (len(keep), LM_NEW + 1, cfg.vocab)
+    assert bool(torch.isfinite(kept.float()).all())
+    seq = torch.cat([run["tokens"][keep], gen[keep]], 1)
+    full = lm.forward(run["model"], seq, cfg)[0]
+    want = full[:, LM_PROMPT - 1:]
+    assert bool(torch.isfinite(want.float()).all())
+    return float((kept.float() - want.float()).abs().max())
+
+
+def lm_path(torch, queries: dict, runs: dict):
+    """The LM serving path: qwen3-0.6b as published (bf16 weights and
+    compute, 28 layers), random weights, requests 0 and LM_BATCH - 1 kept
+    for the checks after the path."""
+    from repro_torch.configs import get_config
+    cfg = get_config(LM_ARCH)
+    run = lm_serve(torch, cfg, keep=[0, LM_BATCH - 1])
+    queries["lm_serve"] = {"model": cfg.name, "requests": LM_BATCH,
+                           "prompt_tokens": LM_PROMPT, "new_tokens": LM_NEW,
+                           **run["stats"]}
+    log(f"lm_serve: {queries['lm_serve']}")
+    runs["lm"] = run
+
+
+def lm_checks(torch, run: dict, queries: dict, checks: dict,
+              profile_dir: str | None):
+    """After the counted path: (a) its bf16 logits against the no-cache
+    forward within 0.1 (the reference's own bound for its bf16 decode path,
+    tests/test_kernels_decode_attention.py:67); with ``profile_dir``, a
+    profile of a few decode steps; (b) the same path at qwen3-0.6b's widths
+    with 2 layers in float32 within 1e-3."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+
+    cfg = get_config(LM_ARCH)
+    d = lm_against_full_forward(torch, cfg, run)
+    checks["lm_bf16_28l_vs_full_forward"] = d
+    assert d <= 0.1, f"lm bf16: decode logits differ from the full forward by {d}"
+    log(f"lm bf16, {cfg.n_layers} layers: max |decode - full forward| = {d}")
+    if profile_dir:
+        # a fresh prefill, 4 warm decode steps, then 4 profiled ones
+        model, tokens = run["model"], run["tokens"]
+        logits, caches = steps.make_prefill_step(cfg, LM_PROMPT + 8)(
+            model, {"tokens": tokens})
+        step = steps.make_decode_step(cfg)
+        tok = logits.argmax(-1)[:, None].to(torch.int32)
+        state = {"tok": tok, "caches": caches}
+
+        def decode(n):
+            for _ in range(n):
+                lg, state["caches"] = step(model, state["tok"], state["caches"])
+                state["tok"] = lg.argmax(-1)[:, None].to(torch.int32)
+        decode(4)
+        prof = profile_run(torch, lambda: decode(4),
+                           os.path.join(profile_dir, "profile_lm_decode.txt"))
+        queries["lm_serve"]["profile_4_decode_steps"] = prof
+        log(f"lm decode profile (4 steps): {prof}")
+        del state, caches, logits
+    run.clear()
+    torch.cuda.empty_cache()
+
+    cfg32 = cfg.replace(n_layers=2, param_dtype="float32",
+                        compute_dtype="float32")
+    run32 = lm_serve(torch, cfg32, keep=[0, LM_BATCH - 1], seed=1)
+    d = lm_against_full_forward(torch, cfg32, run32)
+    checks["lm_f32_2l_vs_full_forward"] = d
+    queries["lm_serve_f32_2l"] = run32["stats"]
+    assert d <= 1e-3, f"lm float32: decode logits differ from the full forward by {d}"
+    log(f"lm float32, 2 layers: max |decode - full forward| = {d}; "
+        f"{run32['stats']}")
+    run32.clear()
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true")
@@ -870,6 +1137,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, os.path.join(here, "src"))
     try:
         from repro_torch import hiframes as hf
+        from repro_torch.configs import get_config
         from repro_torch.data import synth
         from repro_torch.kernels import cuda
     except ImportError as e:
@@ -898,6 +1166,7 @@ def main(argv=None) -> int:
     record: dict = {}
     kernel_phases(torch, sizes, record)
     window_kernel_phases(torch, sizes, record)
+    decode_attention_phases(torch, record)
     torch.cuda.synchronize()
     for r in record.values():
         log(f"{r['name']} [{r['shape']}]: kernel {r['ms']:.3f} ms, plain "
@@ -911,24 +1180,39 @@ def main(argv=None) -> int:
         # before it and read just after
         if args.profile:
             os.makedirs(args.profile, exist_ok=True)
-        paths = {"relational": (main_path, ("prefix_sum", "segment_sums")),
-                 "windows": (functools.partial(window_path, checks=checks),
-                             ("prefix_sum", "segment_scan", "segment_rank",
-                              "stencil1d", "stencil1d_exact",
-                              "segment_stencil"))}
+        # kernels each path must launch: None for at least once, a number
+        # for exactly that many (the LM path: one per layer and decode step)
+        lm_runs: dict = {}
+        paths = {
+            "relational": (lambda: main_path(torch, hf, synth, queries,
+                                             args.profile),
+                           dict.fromkeys(("prefix_sum", "segment_sums"))),
+            "windows": (lambda: window_path(torch, hf, synth, queries,
+                                            args.profile, checks),
+                        dict.fromkeys(("prefix_sum", "segment_scan",
+                                       "segment_rank", "stencil1d",
+                                       "stencil1d_exact", "segment_stencil"))),
+            "lm": (lambda: lm_path(torch, queries, lm_runs),
+                   {"decode_attention": get_config(LM_ARCH).n_layers * LM_NEW})}
         launched = {}
         for path, (drive, must) in paths.items():
             t0 = time.perf_counter()
             cuda.reset_launches()
-            drive(torch, hf, synth, queries, args.profile)
+            drive()
             torch.cuda.synchronize()
             launched[path] = dict(cuda.launches)
             log(f"{path} path: {time.perf_counter() - t0:.1f} s, launches "
                 f"{launched[path]}")
-            for name in must:
+            for name, count in must.items():
                 assert launched[path][name] > 0, \
                     f"{name} never launched on the {path} path"
-        log(f"window checks (max abs diff; bitwise): {checks}")
+                assert count is None or launched[path][name] == count, \
+                    f"{name}: {launched[path][name]} launches on the {path} " \
+                    f"path, expected {count}"
+        t0 = time.perf_counter()
+        lm_checks(torch, lm_runs["lm"], queries, checks, args.profile)
+        log(f"lm checks: {time.perf_counter() - t0:.1f} s")
+        log(f"checks (max abs diff; bitwise): {checks}")
         for r in record.values():
             by_path = {p: c[r["name"]] for p, c in launched.items()}
             r["launches"] = sum(by_path.values())

@@ -25,10 +25,11 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("prefix_sum", "bucket_scatter", "segment_sums", "segment_scan",
-           "segment_rank", "stencil1d")
+           "segment_rank", "stencil1d", "decode_attention")
 # registry names, one launch counter each
 KERNELS = ("prefix_sum", "bucket_scatter", "segment_sums", "segment_scan",
-           "segment_rank", "stencil1d", "stencil1d_exact", "segment_stencil")
+           "segment_rank", "stencil1d", "stencil1d_exact", "segment_stencil",
+           "decode_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -59,6 +60,8 @@ _SIGNATURES = {
                   "stencil1d_exact": (_VP, _VP, _VP, _VP, _LL, _INT, _F32, _VP),
                   "segment_stencil": (_VP, _VP, _VP, _VP, _LL, _INT, _INT, _INT,
                                       _F32, _VP)},
+    "decode_attention": {"decode_attention": (_VP, _VP, _VP, _VP, _VP, _INT, _INT,
+                                              _INT, _INT, _INT, _INT, _F32, _VP)},
 }
 
 
@@ -150,12 +153,15 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def require(name: str, t: torch.Tensor, dtypes: tuple, what: str) -> None:
-    """Check a kernel input: on the card, 1-D, contiguous, one of ``dtypes``."""
+def require(name: str, t: torch.Tensor, dtypes: tuple, what: str,
+            ndim: int = 1) -> None:
+    """Check a kernel input: on the card, ``ndim`` dimensions, contiguous,
+    one of ``dtypes``."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: {what} must be a CUDA tensor, got {t.device}")
-    if t.dim() != 1:
-        raise ValueError(f"{name}: {what} must be 1-D, got shape {tuple(t.shape)}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: {what} must be {ndim}-D, got shape "
+                         f"{tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: {what} must be contiguous")
     if t.dtype not in dtypes:

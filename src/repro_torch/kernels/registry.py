@@ -9,7 +9,9 @@ plans are identical either way.
 
 Contracts (the same names and contracts as the reference package's
 ``kernels/registry.py``; the primitives of the relational main path and of
-the window functions are registered here):
+the window functions are registered here, and the LM decode path's
+``decode_attention``, which the reference keeps outside its registry behind
+``cfg.attn_decode_kernel``: here dispatch by device stays one mechanism):
 
   prefix_sum(x)                         dtype-preserving inclusive scan
                                         (int32 / float32)
@@ -33,6 +35,11 @@ the window functions are registered here):
   segment_stencil(ext, ext_s, weights, center, exact)
                                         partition-masked stencil (+ fused
                                         renormalize when exact)
+  decode_attention(q, k, v, length)     single-token grouped-query attention:
+                                        q (B, Hkv, G, hd), k/v (B, S, Hkv,
+                                        hd), rows >= length (B,) int32
+                                        masked; float32 softmax, output in
+                                        q's dtype (float32 / bfloat16)
 """
 from __future__ import annotations
 
@@ -40,6 +47,7 @@ import functools
 from dataclasses import dataclass
 from typing import Callable
 
+from .decode_attention import decode_attention as _da
 from .hash_partition import hash_partition as _hp
 from .segment_rank import segment_rank as _rk
 from .segment_reduce import segment_reduce as _sr
@@ -118,3 +126,5 @@ register("stencil1d_exact", plain=_st.stencil1d_exact_plain,
          kernel=_st.stencil1d_exact_cuda)
 register("segment_stencil", plain=_st.segment_stencil_plain,
          kernel=_st.segment_stencil_cuda)
+register("decode_attention", plain=_da.decode_attention_plain,
+         kernel=_da.decode_attention_cuda)

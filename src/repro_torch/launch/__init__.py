@@ -1,0 +1,2 @@
+"""Serving entry points of the port's LM substrate."""
+from . import steps

@@ -17,7 +17,8 @@ from repro_torch.kernels import registry as treg  # noqa: E402
 
 SIZES = (0, 1, 2047, 2048, 2049, 5000)
 NAMES = ("prefix_sum", "bucket_scatter", "segment_sums", "segment_scan",
-         "segment_rank", "stencil1d", "stencil1d_exact", "segment_stencil")
+         "segment_rank", "stencil1d", "stencil1d_exact", "segment_stencil",
+         "decode_attention")
 P_BUCKETS = 8
 RANK_KINDS = ("row_number", "rank", "dense_rank")
 # (weights, center) of the stencil cases: K = 1, 3, 5 and 20 taps
@@ -74,6 +75,14 @@ def _cases(name, rng, n, dtype):
         return [(seg, ordb, kind) for kind in RANK_KINDS]
     if name == "stencil1d":
         return [(_values(rng, n + len(w) - 1, dtype), w) for w, _c in STENCILS]
+    if name == "decode_attention":
+        # n cache rows (S), B 2, Hkv 2, G 2, hd 32; lengths in [1, S]
+        if n == 0:
+            return []
+        q = _values(rng, 2 * 2 * 2 * 32, dtype).reshape(2, 2, 2, 32)
+        k, v = (_values(rng, 2 * n * 2 * 32, dtype).reshape(2, n, 2, 32)
+                for _ in range(2))
+        return [(q, k, v, rng.integers(1, n + 1, 2).astype(np.int32))]
     if name == "stencil1d_exact":
         out = []
         for w, c in STENCILS[:2] + STENCILS[3:]:
@@ -100,7 +109,8 @@ def _cases(name, rng, n, dtype):
 DTYPES = {"prefix_sum": (np.int32, np.float32), "bucket_scatter": (np.int32,),
           "segment_sums": (np.float32,), "segment_scan": (np.int32, np.float32),
           "segment_rank": (np.int32,), "stencil1d": (np.float32,),
-          "stencil1d_exact": (np.float32,), "segment_stencil": (np.float32,)}
+          "stencil1d_exact": (np.float32,), "segment_stencil": (np.float32,),
+          "decode_attention": (np.float32,)}
 
 
 def _to_torch(a):
@@ -116,7 +126,8 @@ def _np(x):
 def _assert_same(name, args, got, want):
     """Integers exact.  Floats: the stencils within rtol 1e-5, atol 1e-6
     (the same taps in the same order; the reference's Pallas kernel folds
-    its weights in as constants); segment_scan within 1e-5 of the running
+    its weights in as constants); decode_attention within 2e-5, the
+    reference's own between its kernel and its oracle; segment_scan within 1e-5 of the running
     sum of |x| (the plain version is a global cumsum minus the segment's
     base, so its rounding grows with that sum); the rest within the
     reference's own tolerance between its backends, rtol 1e-4, atol 1e-3."""
@@ -134,6 +145,8 @@ def _assert_same(name, args, got, want):
     elif name == "segment_scan":
         tol = 1e-5 * np.cumsum(np.abs(args[0].astype(np.float64))) + 1e-6
         assert np.all(np.abs(got.astype(np.float64) - want) <= tol)
+    elif name == "decode_attention":
+        np.testing.assert_allclose(got, want, rtol=0, atol=2e-5)
     elif name in ("stencil1d", "stencil1d_exact", "segment_stencil"):
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
     else:
@@ -170,3 +183,70 @@ def test_kernel_matches_plain_on_card(card, name, n):
             _assert_same(name, args, to_np(got), to_np(want))
             if name in BITWISE:
                 assert torch.equal(got, want), (name, n, args[2:])
+
+
+# decode_attention at the reference's shapes (B, S, Hkv, G, hd) and at the
+# LM decode path's (qwen3-0.6b, 32 requests, a 2304-row cache), with the
+# per-row lengths the kernel's loop must get right: one row, either side of
+# the reference's 512-row blocks, and the full cache.  Both compute in
+# float32 and round once to q's dtype: within 2e-5 (the reference's float32
+# tolerance between its kernel and its oracle) plus, in bfloat16, one
+# rounding step of the output, |got - want| <= 2^-7 |want| + 2e-5.
+DECODE_SHAPES = ((1, 128, 2, 2, 32), (2, 512, 2, 4, 64), (4, 1024, 8, 7, 64),
+                 (2, 700, 4, 1, 32), (32, 2304, 8, 2, 128))
+DECODE_LENGTHS = (1, 511, 512, 513, 2048, 2304)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("shape", DECODE_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_decode_attention_matches_plain_on_card(card, shape, dtype):
+    b, s, hkv, g, hd = shape
+    tdt, rtol = (torch.float32, 0.0) if dtype == "float32" else (torch.bfloat16, 2.0 ** -7)
+    gen = torch.Generator(device=card).manual_seed(b * s + g)
+    q = torch.randn((b, hkv, g, hd), device=card, generator=gen).to(tdt)
+    k, v = (torch.randn((b, s, hkv, hd), device=card, generator=gen).to(tdt)
+            for _ in range(2))
+    length = torch.randint(1, s + 1, (b,), device=card, generator=gen,
+                           dtype=torch.int32)
+    if s == 2304:
+        length[:len(DECODE_LENGTHS)] = torch.tensor(DECODE_LENGTHS)
+    for lens in (length, torch.full_like(length, s)):
+        spec = treg.get("decode_attention")
+        got, want = spec.kernel(q, k, v, lens), spec.plain(q, k, v, lens)
+        torch.cuda.synchronize()
+        assert got.dtype == tdt and got.shape == q.shape
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_lm_decode_on_card_matches_cpu(card):
+    """Two layers at qwen3-0.6b's widths in float32: prefill and four decode
+    steps on the card (the decode_attention kernel) agree with the same
+    weights on the CPU (its plain version) within 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+
+    cfg = get_config("qwen3-0.6b").replace(n_layers=2, vocab=4096,
+                                           param_dtype="float32",
+                                           compute_dtype="float32")
+    cpu_model = lm.init_params(cfg, seed=0, device="cpu")
+    card_model = lm.init_params(cfg, seed=0, device="cpu").to(card)
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(0, cfg.vocab, (2, 16)).astype(np.int32)
+    toks = [rng.integers(0, cfg.vocab, (2, 1)).astype(np.int32) for _ in range(4)]
+    outs = []
+    launched = cuda.launches["decode_attention"]
+    for model, dev in ((cpu_model, torch.device("cpu")), (card_model, card)):
+        logits, caches = steps.make_prefill_step(cfg, 20)(
+            model, {"tokens": torch.from_numpy(prompt).to(dev)})
+        out = [logits]
+        for t in toks:
+            logits, caches = steps.make_decode_step(cfg)(
+                model, torch.from_numpy(t).to(dev), caches)
+            out.append(logits)
+        outs.append(torch.stack(out, 1).cpu())
+    assert cuda.launches["decode_attention"] - launched == 4 * cfg.n_layers
+    torch.testing.assert_close(outs[1], outs[0], rtol=0, atol=1e-4)

@@ -1,6 +1,7 @@
-"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the card
-tests (tests/test_torch_cuda.py, run on the card's machine) import neither
-JAX nor anything of the reference package ``repro``."""
+"""The port stands alone: ``repro_torch`` (its LM serving path too),
+``chip_smoke.py`` and the card tests (tests/test_torch_cuda.py, run on the
+card's machine) import neither JAX (nor ``ml_dtypes``) nor anything of the
+reference package ``repro``."""
 import ast
 import os
 import subprocess
@@ -13,7 +14,7 @@ pytest.importorskip("torch")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "src", "repro_torch")
-BLOCKED = ("jax", "jaxlib", "repro")
+BLOCKED = ("jax", "jaxlib", "ml_dtypes", "repro")
 
 
 def _imported_modules(path):
@@ -49,7 +50,7 @@ def test_port_runs_with_jax_and_repro_blocked():
 
         class Block:
             def find_spec(self, name, path=None, target=None):
-                if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+                if name.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro"):
                     raise ImportError(f"blocked import of {name}")
                 return None
 
@@ -64,8 +65,21 @@ def test_port_runs_with_jax_and_repro_blocked():
         got = out.to_numpy()
         m = t["x"] < np.float32(0.5)
         assert got["n"].sum() == m.sum()
+
+        import torch
+        from repro_torch.configs import get_reduced
+        from repro_torch.launch import steps
+        from repro_torch.models import lm
+        cfg = get_reduced("qwen3-0.6b")
+        model = lm.init_params(cfg, seed=0, device="cpu")
+        tokens = torch.zeros((2, 4), dtype=torch.int32)
+        logits, caches = steps.make_prefill_step(cfg, 5)(model, {"tokens": tokens})
+        logits, caches = steps.make_decode_step(cfg)(
+            model, logits.argmax(-1)[:, None].to(torch.int32), caches)
+        assert logits.shape == (2, cfg.vocab) and caches["host_index"] == 5
+        assert bool(torch.isfinite(logits.float()).all())
         assert not [k for k in sys.modules
-                    if k.split(".")[0] in ("jax", "jaxlib", "repro")]
+                    if k.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro")]
         print("ISOLATED_OK")
     ''')
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
