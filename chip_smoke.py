@@ -16,7 +16,12 @@ Phases, in order; any failure raises and the exit code is not 0:
    events (median of 15 runs, each the mean of back-to-back calls filling
    ~2 ms) beside the plain version, one PyTorch library
    call where there is one, and its bound (the larger of bytes moved /
-   3.35 TB/s and operations / 67 TFLOP/s).
+   3.35 TB/s and operations / 67 TFLOP/s).  The two look-back scans
+   (prefix_sum, segment_rank) are also held on their hazards: sizes around
+   the 5120-row tile and the 4-row vector, views not 16-byte aligned, two
+   calls back to back, int32 sums past 2^31, one segment head at row 0 of
+   2^27 rows; torch.profiler shows each call running one kernel and at
+   most one memset.
 3. The three main paths, each with the launch counters zeroed just before
    it and read just after:
    - relational, through ``hf`` at P = 1: Fig. 8a filter, join and
@@ -45,7 +50,9 @@ Phases, in order; any failure raises and the exit code is not 0:
 register and shared-memory report: a short first check of new kernels.
 ``--profile DIR`` runs every query a second time under ``torch.profiler``
 and writes its per-op device-time table to ``DIR/profile_<query>.txt``, and
-profiles 4 LM decode steps (``DIR/profile_lm_decode.txt``).
+profiles 4 LM decode steps (``DIR/profile_lm_decode.txt``).  These traces
+come minutes after the process's first profiler session and may miss
+device events (see ``one_call_profiles``).
 """
 from __future__ import annotations
 
@@ -103,9 +110,93 @@ def bound_ms(bytes_moved: float, ops: float) -> tuple[float, str]:
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+def traced(torch, fn, margin: float = 0.02):
+    """Run ``fn()`` once under torch.profiler, ``margin`` seconds inside the
+    traced window.  Returns the profile, the device events it holds (name
+    -> count) and the number of host events."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(margin)
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(margin)
+    seen: dict = {}
+    host = 0
+    for e in prof.key_averages():
+        if not str(e.device_type).endswith("CUDA"):
+            host += e.count
+        elif not e.key.startswith("Activity Buffer"):
+            seen[e.key[:80]] = seen.get(e.key[:80], 0) + e.count
+    return prof, seen, host
+
+
+def one_launch(torch, fn, kernel: str, tag: str) -> dict:
+    """Profile one ``fn()`` (torch.profiler) and assert that the card ran
+    exactly one kernel whose name holds ``kernel``, at most one memset and
+    nothing else.  Returns the device events seen, name -> count.  The call
+    sits 20 ms inside the traced window.  A trace that holds no device
+    event at all, not even the memset, is taken again, up to five times:
+    the count is asserted on the first trace that holds any."""
+    for _ in range(5):
+        _, seen, host = traced(torch, fn)
+        if seen:
+            break
+        log(f"{tag}: the profiler recorded no device event ({host} host "
+            f"events); again")
+    mine = sum(c for k, c in seen.items() if kernel in k)
+    memsets = sum(c for k, c in seen.items() if "memset" in k.lower())
+    assert mine == 1 and memsets <= 1 and mine + memsets == sum(seen.values()), \
+        f"{tag}: one call ran {seen}"
+    return seen
+
+
+# The look-back scans of csrc/lookback.cuh (prefix_sum, segment_rank):
+# ragged sizes around the 5120-row tile and the 4-row vector, and one size
+# whose tiles look back past a window of 32.
+LOOKBACK_KERNEL = "scan_tiles"
+LOOKBACK_SIZES = (1, 3, 4, 5, 5119, 5120, 5121, 10239, 10241, 33 * 5120 + 5)
+
+
+def misaligned(t):
+    """A contiguous view of ``t``'s data one element in: not 16-byte
+    aligned, so the wrapper picks the kernel's WORDS fetch (4-byte loads)."""
+    v = t[1:]
+    assert v.data_ptr() % 16 != 0
+    return v
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
+
+def one_call_profiles(torch, n: int) -> dict:
+    """One call of each look-back wrapper under torch.profiler (prefix_sum
+    in int32 and float32, the three rank kinds; n rows): one scan_tiles
+    kernel and at most one memset each.  These must be the process's first
+    torch.profiler sessions, and are taken within a second of each other:
+    on an H100 (torch 2.11, CUDA 12.8) the device timestamps of a trace
+    drift from its host timeline from about 10 s after the process's first
+    session on, and within a minute most traces hold no device event at
+    all, with or without work in between (tools/profiler_probe.py)."""
+    from repro_torch.kernels.segment_rank import segment_rank as rk
+    from repro_torch.kernels.stream_compact import stream_compact as sc
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randint(-8, 9, (n,), device=dev, generator=g, dtype=torch.int32)
+    seg = (torch.rand(n, device=dev, generator=g) < 1 / 64).int()
+    seg[:1] = 1
+    ordb = seg | (torch.rand(n, device=dev, generator=g) < 0.3).int()
+    out = {"prefix_sum": {str(v.dtype): one_launch(
+        torch, lambda: sc.prefix_sum_cuda(v), LOOKBACK_KERNEL,
+        f"prefix_sum {v.dtype}") for v in (x, x.float())}}
+    out["segment_rank"] = {kind: one_launch(
+        torch, lambda: rk.segment_rank_cuda(seg, ordb, kind), LOOKBACK_KERNEL,
+        f"segment_rank {kind}") for kind in rk.KINDS}
+    log(f"one call each: {out}")
+    return out
+
 
 def kernel_phases(torch, sizes, record: dict):
     from repro_torch.kernels import cuda
@@ -136,8 +227,41 @@ def kernel_phases(torch, sizes, record: dict):
             assert bool((d <= tol).all()), f"prefix_sum f32 n={n}"
             err = max(err, float(d.max()))
         log(f"prefix_sum n={n}: ok")
+    # the look-back hazards: ragged sizes; views not 16-byte aligned (the
+    # WORDS fetch); two calls back to back on other inputs of one length
+    # (the second gets the first's freed status words from the allocator,
+    # which the kernel must clear); int32 sums that wrap past 2^31 (exact
+    # modulo 2^32).
+    def wrapped(x):
+        c = torch.cumsum(x.long(), 0)
+        return ((c + 2**31) % 2**32 - 2**31).int()
+
+    for n in LOOKBACK_SIZES + (sizes[-2],):
+        for dt in (torch.int32, torch.float32):
+            xs = [torch.randint(-8, 9, (n + 1,), device=dev, generator=g).to(dt)
+                  for _ in range(2)]
+            x = misaligned(xs[0])
+            assert torch.equal(sc.prefix_sum_cuda(x), sc.prefix_sum_plain(x)), \
+                f"prefix_sum {dt} misaligned n={n}"
+            a, b = (v[:n] for v in xs)
+            ga = sc.prefix_sum_cuda(a)
+            gb = sc.prefix_sum_cuda(b)
+            assert torch.equal(ga, sc.prefix_sum_plain(a)) and \
+                torch.equal(gb, sc.prefix_sum_plain(b)), \
+                f"prefix_sum {dt} back to back n={n}"
+    for n in LOOKBACK_SIZES + (sizes[-2], sizes[-1]):
+        xw = torch.randint(-2**30, 2**30, (n,), device=dev, generator=g,
+                           dtype=torch.int32)
+        got = sc.prefix_sum_cuda(xw)
+        assert torch.equal(got, wrapped(xw)), f"prefix_sum int32 wrap n={n}"
+        assert torch.equal(got, sc.prefix_sum_plain(xw)), \
+            f"prefix_sum int32 wrap against plain n={n}"
+    del xw, got
+    log(f"prefix_sum hazards: ok at sizes {LOOKBACK_SIZES}")
+
     n = sizes[-1]
     xi = (torch.rand(n, device=dev, generator=g) < 0.5).to(torch.int32)
+    xf = xi.float()
     rec = {"name": "prefix_sum", "route": "cuda",
            "source": "src/repro_torch/csrc/prefix_sum.cu",
            "replaces": "src/repro/kernels/stream_compact/stream_compact.py:36",
@@ -146,10 +270,12 @@ def kernel_phases(torch, sizes, record: dict):
            "plain_ms": time_ms(lambda: sc.prefix_sum_plain(xi), torch),
            "library_ms": time_ms(
                lambda: torch.cumsum(xi, 0, dtype=torch.int32), torch),
-           "library_call": "torch.cumsum(dtype=torch.int32)"}
+           "library_call": "torch.cumsum(dtype=torch.int32)",
+           "f32_ms": time_ms(lambda: sc.prefix_sum_cuda(xf), torch),
+           "f32_library_ms": time_ms(lambda: torch.cumsum(xf, 0), torch)}
     rec["bound_ms"], rec["bound_by"] = bound_ms(8.0 * n, n)
     record["prefix_sum"] = rec
-    del xi
+    del xi, xf
 
     # -- bucket_scatter: ranks exact where dest < P, counts exact.
     err = 0
@@ -346,24 +472,62 @@ def window_kernel_phases(torch, sizes, record: dict):
                                    rk.segment_rank_plain(seg, ordb, kind)), \
                     f"segment_rank {kind} n={n} L={mean_len}"
         log(f"segment_rank mean segment {mean_len}: ok at sizes {sizes}")
+
+    # the look-back hazards, every kind: ragged sizes; views not 16-byte
+    # aligned; two calls back to back on other inputs of one length; one
+    # segment head at row 0 and none after it (no tile restarts: the
+    # longest look-back chains), up to 2^27 rows.
+    def ranks_equal(seg, ordb, tag):
+        for kind in rk.KINDS:
+            assert torch.equal(rk.segment_rank_cuda(seg, ordb, kind),
+                               rk.segment_rank_plain(seg, ordb, kind)), \
+                f"segment_rank {kind} {tag}"
+
+    for n in LOOKBACK_SIZES + (sizes[-2],):
+        for mean_len in (1, 64, 1 << 16):
+            segs = [heads(n + 1, mean_len) for _ in range(2)]
+            ords = [s | (torch.rand(n + 1, device=dev, generator=g) < 0.3).int()
+                    for s in segs]
+            ranks_equal(misaligned(segs[0]), misaligned(ords[0]),
+                        f"misaligned n={n} L={mean_len}")
+            a = [rk.segment_rank_cuda(segs[i][:n], ords[i][:n], kind)
+                 for i in range(2) for kind in rk.KINDS]
+            b = [rk.segment_rank_plain(segs[i][:n], ords[i][:n], kind)
+                 for i in range(2) for kind in rk.KINDS]
+            assert all(map(torch.equal, a, b)), \
+                f"segment_rank back to back n={n} L={mean_len}"
+    for n in LOOKBACK_SIZES + (sizes[-2], sizes[-1]):
+        seg = torch.zeros(n, dtype=torch.int32, device=dev)
+        seg[0] = 1
+        ordb = seg | (torch.rand(n, device=dev, generator=g) < 0.125).int()
+        ranks_equal(seg, ordb, f"one head at row 0, n={n}")
+    single_head_ms = {kind: time_ms(
+        lambda: rk.segment_rank_cuda(seg, ordb, kind), torch)
+        for kind in rk.KINDS}
+    del seg, ordb
+    log(f"segment_rank hazards: ok at sizes {LOOKBACK_SIZES}")
+
     n = sizes[-1]
     seg = heads(n, GROUPS)
     ordb = seg | (torch.rand(n, device=dev, generator=g) < 0.125).int()
-    for kind in rk.KINDS:                    # the timed inputs
-        assert torch.equal(rk.segment_rank_cuda(seg, ordb, kind),
-                           rk.segment_rank_plain(seg, ordb, kind)), \
-            f"segment_rank {kind} timed inputs n={n}"
+    ranks_equal(seg, ordb, f"timed inputs n={n}")
+    by_kind = {}
+    for kind in rk.KINDS:
+        k = {"ms": time_ms(lambda: rk.segment_rank_cuda(seg, ordb, kind), torch),
+             "plain_ms": time_ms(lambda: rk.segment_rank_plain(seg, ordb, kind),
+                                 torch),
+             "one_head_at_row_0_ms": single_head_ms[kind]}
+        k["bound_ms"], k["bound_by"] = bound_ms(
+            (8.0 if kind == "row_number" else 12.0) * n, n)
+        by_kind[kind] = k
     rec = {"name": "segment_rank", "route": "cuda",
            "source": "src/repro_torch/csrc/segment_rank.cu",
            "replaces": "src/repro/kernels/segment_rank/segment_rank.py:67",
            "shape": f"rank, n={n}, mean segment {GROUPS}, runs of ~8",
-           "max_abs_err": 0.0,
-           "ms": time_ms(lambda: rk.segment_rank_cuda(seg, ordb, "rank"), torch),
-           "plain_ms": time_ms(lambda: rk.segment_rank_plain(seg, ordb, "rank"),
-                               torch),
+           "max_abs_err": 0.0, **by_kind["rank"],
            "library_ms": None, "library_call": None,
-           "library_note": "no one-call equivalent"}
-    rec["bound_ms"], rec["bound_by"] = bound_ms(12.0 * n, n)
+           "library_note": "no one-call equivalent",
+           "by_kind": by_kind}
     record["segment_rank"] = rec
     del seg, ordb
 
@@ -1164,9 +1328,12 @@ def main(argv=None) -> int:
     if not args.quick:
         sizes.append(1 << 27)
     record: dict = {}
+    profiled = one_call_profiles(torch, sizes[-2])
     kernel_phases(torch, sizes, record)
     window_kernel_phases(torch, sizes, record)
     decode_attention_phases(torch, record)
+    for name, seen in profiled.items():
+        record[name]["one_call"] = seen
     torch.cuda.synchronize()
     for r in record.values():
         log(f"{r['name']} [{r['shape']}]: kernel {r['ms']:.3f} ms, plain "

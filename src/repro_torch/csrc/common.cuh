@@ -14,19 +14,34 @@
 
 __device__ __forceinline__ int pad(int i) { return i + (i >> 5); }
 
-// __shfl_up_sync / __shfl_sync for any trivially copyable value whose size
-// is a multiple of 4 bytes (scalars and the small structs of the scan
-// monoids), one 32-bit word at a time.
-template <typename T>
-__device__ __forceinline__ T shfl_up_any(T v, int o) {
+// A warp shuffle of any trivially copyable value whose size is a multiple
+// of 4 bytes (scalars and the small structs of the scan monoids), one
+// 32-bit word at a time; `shfl(word)` shuffles one word.
+template <typename T, typename Shfl>
+__device__ __forceinline__ T shfl_words(T v, Shfl shfl) {
   static_assert(sizeof(T) % 4 == 0, "shuffled values are whole 32-bit words");
   constexpr int W = sizeof(T) / 4;
   int w[W];
   memcpy(w, &v, sizeof(T));
 #pragma unroll
-  for (int i = 0; i < W; ++i) w[i] = __shfl_up_sync(FULL_MASK, w[i], o);
+  for (int i = 0; i < W; ++i) w[i] = shfl(w[i]);
   memcpy(&v, w, sizeof(T));
   return v;
+}
+
+template <typename T>
+__device__ __forceinline__ T shfl_up_any(T v, int o) {
+  return shfl_words(v, [o](int w) { return __shfl_up_sync(FULL_MASK, w, o); });
+}
+
+template <typename T>
+__device__ __forceinline__ T shfl_down_any(T v, int o) {
+  return shfl_words(v, [o](int w) { return __shfl_down_sync(FULL_MASK, w, o); });
+}
+
+template <typename T>
+__device__ __forceinline__ T shfl_idx_any(T v, int lane) {
+  return shfl_words(v, [lane](int w) { return __shfl_sync(FULL_MASK, w, lane); });
 }
 
 // The sum monoid: the operator of the plain prefix sums.

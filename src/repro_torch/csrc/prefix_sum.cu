@@ -1,60 +1,72 @@
 // prefix_sum: inclusive, dtype-preserving prefix sum of a 1-D int32 or
 // float32 array.
 //
-// Replaces the TPU kernel kernels/stream_compact/stream_compact.py
+// Replaces the TPU kernel src/repro/kernels/stream_compact/stream_compact.py:36
 // (prefix_sum_pallas).  That kernel walks 2048-row blocks in order and
 // carries the running total in one VMEM cell; Hopper runs blocks in
 // parallel and in no order, so nothing can be carried from block to block.
-// Design: the reduce-then-scan skeleton of scan.cuh over 4096-row tiles
-// under the sum monoid (tile sums, a scan of the tile sums, then the in-tile
-// scan with the tile's offset in front).  The sum commutes, so pass 1 sums
-// its tile straight from global memory without staging it.
-// Bound: bytes.  The function reads n values and writes n values; the kernel
-// reads the input twice (passes 1 and 3).  A single-pass decoupled look-back
-// would read it once and is the later, faster design.
+// Design: the single-pass decoupled look-back scan of lookback.cuh over
+// 5120-row tiles under the sum monoid.  Each tile's 32-bit sum is published
+// in one 64-bit status word beside its flag; the look-back adds the sums of
+// the tiles before it until it meets an inclusive prefix.  Forward progress
+// comes from the atomic tile ticket, ordering from the packed word's
+// release store and acquire loads (see lookback.cuh).
+// Bound: bytes, 8 a row (the input read once, the output written once),
+// which is what this kernel moves.  The reduce-then-scan it replaces read
+// the input twice in three launches.
 //
 // int32 sums run in uint32 arithmetic, so wrap-around is defined and the
 // result is exact modulo 2^32 like the reference.  float32 sums are taken in
-// another order than a sequential scan; they agree within rounding.
+// another order than a sequential scan (in each chunk, then across the
+// chunks of a warp, the warps of a tile and the tiles of the look-back);
+// they agree within rounding.
 
-#include "scan.cuh"
+#include "lookback.cuh"
 
 namespace {
 
 template <typename V>
 struct PrefixSumOp : SumOp<V> {
   using T = V;
-  static constexpr bool commutative = true;
-  const V* x;
-  V* out;
-  __device__ __forceinline__ T load(long long g) const { return x[g]; }
-  __device__ __forceinline__ void store(long long g, T v) const { out[g] = v; }
+  static constexpr int INPUTS = 1;
+  __device__ __forceinline__ T load(uint32_t a, uint32_t, long long) const {
+    T v;
+    memcpy(&v, &a, 4);
+    return v;
+  }
+  __device__ __forceinline__ uint32_t store(T v, long long) const {
+    uint32_t r;
+    memcpy(&r, &v, 4);
+    return r;
+  }
+  __device__ __forceinline__ bool restarts(T) const { return false; }
+  __device__ __forceinline__ unsigned long long pack(T v) const {
+    return store(v, 0);
+  }
+  __device__ __forceinline__ T unpack(unsigned long long w) const {
+    return load(static_cast<uint32_t>(w), 0u, 0);
+  }
 };
-
-template <typename V>
-int launch(const void* x, void* out, void* scratch, long long n,
-           void* stream) {
-  PrefixSumOp<V> op;
-  op.x = static_cast<const V*>(x);
-  op.out = static_cast<V*>(out);
-  return scan::run(op, scratch, n, stream);
-}
 
 }  // namespace
 
 extern "C" {
 
-// Rows per tile; the caller allocates ceil(n / tile) scratch cells.
-int prefix_sum_tile() { return scan::TILE; }
+// Bytes of scratch a call over n rows needs.
+long long prefix_sum_scratch_bytes(long long n) {
+  return lookback::scratch_bytes(n);
+}
 
 int prefix_sum_i32(const void* x, void* out, void* scratch, long long n,
-                   void* stream) {
-  return launch<uint32_t>(x, out, scratch, n, stream);
+                   int load, void* stream) {
+  return lookback::run(PrefixSumOp<uint32_t>{}, x, nullptr, out, scratch, n,
+                       load, stream);
 }
 
 int prefix_sum_f32(const void* x, void* out, void* scratch, long long n,
-                   void* stream) {
-  return launch<float>(x, out, scratch, n, stream);
+                   int load, void* stream) {
+  return lookback::run(PrefixSumOp<float>{}, x, nullptr, out, scratch, n,
+                       load, stream);
 }
 
 }  // extern "C"

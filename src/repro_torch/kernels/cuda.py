@@ -40,11 +40,12 @@ _VP = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _INT = ctypes.c_int
 _F32 = ctypes.c_float
-# C signatures (argument types; every function returns int)
+# C signatures (argument types; every function returns int, except the
+# scratch sizes in _LONG)
 _SIGNATURES = {
-    "prefix_sum": {"prefix_sum_tile": (),
-                   "prefix_sum_i32": (_VP, _VP, _VP, _LL, _VP),
-                   "prefix_sum_f32": (_VP, _VP, _VP, _LL, _VP)},
+    "prefix_sum": {"prefix_sum_scratch_bytes": (_LL,),
+                   "prefix_sum_i32": (_VP, _VP, _VP, _LL, _INT, _VP),
+                   "prefix_sum_f32": (_VP, _VP, _VP, _LL, _INT, _VP)},
     "bucket_scatter": {"bucket_scatter_tile": (),
                        "bucket_scatter_max_p": (),
                        "bucket_scatter": (_VP, _VP, _VP, _VP, _LL, _INT, _VP)},
@@ -53,9 +54,9 @@ _SIGNATURES = {
                      "segment_scan_scratch_bytes": (),
                      "segment_scan_i32": (_VP, _VP, _VP, _VP, _LL, _VP),
                      "segment_scan_f32": (_VP, _VP, _VP, _VP, _LL, _VP)},
-    "segment_rank": {"segment_rank_tile": (),
-                     "segment_rank_scratch_bytes": (),
-                     "segment_rank": (_VP, _VP, _VP, _VP, _LL, _INT, _VP)},
+    "segment_rank": {"segment_rank_scratch_bytes": (_LL,),
+                     "segment_rank": (_VP, _VP, _VP, _VP, _LL, _INT, _INT,
+                                      _VP)},
     "stencil1d": {"stencil1d": (_VP, _VP, _VP, _LL, _INT, _VP),
                   "stencil1d_exact": (_VP, _VP, _VP, _VP, _LL, _INT, _F32, _VP),
                   "segment_stencil": (_VP, _VP, _VP, _VP, _LL, _INT, _INT, _INT,
@@ -63,6 +64,7 @@ _SIGNATURES = {
     "decode_attention": {"decode_attention": (_VP, _VP, _VP, _VP, _VP, _INT, _INT,
                                               _INT, _INT, _INT, _INT, _F32, _VP)},
 }
+_LONG = ("prefix_sum_scratch_bytes", "segment_rank_scratch_bytes")
 
 
 def build_dir() -> Path:
@@ -95,12 +97,18 @@ def _stale(name: str) -> bool:
     return lib.stat().st_mtime < newest
 
 
+def nvcc_command(src: Path, lib: Path, extra: tuple = ()) -> list[str]:
+    """The ``nvcc`` command that builds the library ``lib`` from the source
+    ``src``, with the headers beside it."""
+    return [_nvcc(), *NVCC_FLAGS, *extra, "-I", str(src.parent), "-o",
+            str(lib), str(src)]
+
+
 def _start_build(name: str, extra: tuple = ()) -> tuple[subprocess.Popen, Path]:
     out = build_dir()
     out.mkdir(parents=True, exist_ok=True)
     tmp = out / f"lib{name}.so.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, *extra, "-I", str(CSRC), "-o", str(tmp),
-           str(CSRC / f"{name}.cu")]
+    cmd = nvcc_command(CSRC / f"{name}.cu", tmp, extra)
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp
@@ -133,12 +141,19 @@ def load(name: str) -> ctypes.CDLL:
         return lib
     if _stale(name):
         _finish_build(name, *_start_build(name))
-    lib = ctypes.CDLL(str(_lib_path(name)))
+    lib = bind(_lib_path(name), name)
+    _libs[name] = lib
+    return lib
+
+
+def bind(path: Path, name: str) -> ctypes.CDLL:
+    """Load the library at ``path`` with the C signatures of kernel
+    ``name``."""
+    lib = ctypes.CDLL(str(path))
     for fn, argtypes in _SIGNATURES[name].items():
         f = getattr(lib, fn)
         f.argtypes = list(argtypes)
-        f.restype = ctypes.c_int
-    _libs[name] = lib
+        f.restype = _LL if fn in _LONG else ctypes.c_int
     return lib
 
 
@@ -166,6 +181,17 @@ def require(name: str, t: torch.Tensor, dtypes: tuple, what: str,
         raise ValueError(f"{name}: {what} must be contiguous")
     if t.dtype not in dtypes:
         raise ValueError(f"{name}: {what} dtype {t.dtype} not in {dtypes}")
+
+
+# how the look-back scans (csrc/lookback.cuh) fetch a tile into shared
+# memory: TMA bulk copies (16-byte aligned data) or 4-byte loads
+BULK, WORDS = 0, 1
+
+
+def scan_load(ts: tuple) -> int:
+    """The fetch of a look-back scan over ``ts``: BULK if every tensor's
+    data starts on a 16-byte boundary, else WORDS."""
+    return BULK if all(t.data_ptr() % 16 == 0 for t in ts) else WORDS
 
 
 def reset_launches() -> None:

@@ -7,8 +7,10 @@ physical layer's ``run_starts`` gives that), so ties share a rank.
 
 Replaces the TPU kernel ``kernels/segment_rank/segment_rank.py``
 (``segment_rank_pallas``) of the reference package.  The CUDA kernel is
-``csrc/segment_rank.cu`` (carry-free running maxima and a segmented count;
-see its header).  The registry hands CPU executors the plain version and
+``csrc/segment_rank.cu``: carry-free running maxima and a segmented count,
+in one launch of the single-pass decoupled look-back scan of
+``csrc/lookback.cuh``, which reads each mask once and writes the ranks once
+(see its header).  The registry hands CPU executors the plain version and
 CUDA executors the kernel, which raises on anything but CUDA tensors.
 """
 from __future__ import annotations
@@ -46,7 +48,9 @@ def segment_rank_plain(seg_b: torch.Tensor, ord_b: torch.Tensor,
 
 def segment_rank_cuda(seg_b: torch.Tensor, ord_b: torch.Tensor,
                       kind: str) -> torch.Tensor:
-    """Launch the CUDA kernel on two int32 head masks."""
+    """Launch the CUDA kernel on two int32 head masks.  Views whose data is
+    not 16-byte aligned run the same kernel with 4-byte loads in place of
+    its TMA bulk copies."""
     if kind not in KINDS:
         raise ValueError(f"unknown rank kind: {kind!r}")
     cuda.require("segment_rank", seg_b, (torch.int32,), "seg_b")
@@ -60,12 +64,13 @@ def segment_rank_cuda(seg_b: torch.Tensor, ord_b: torch.Tensor,
     if n == 0:
         return out
     lib = cuda.load("segment_rank")
-    ntiles = -(-n // lib.segment_rank_tile())
-    scratch = torch.empty(ntiles * lib.segment_rank_scratch_bytes(),
-                          dtype=torch.uint8, device=seg_b.device)
+    # tile status words and the ticket; the kernel clears them on the stream
+    scratch = torch.empty(lib.segment_rank_scratch_bytes(n), dtype=torch.uint8,
+                          device=seg_b.device)
     cuda.check(lib.segment_rank(seg_b.data_ptr(), ord_b.data_ptr(),
                                 out.data_ptr(), scratch.data_ptr(), n,
-                                KINDS.index(kind), cuda.stream_of(seg_b)),
-               "segment_rank")
+                                KINDS.index(kind),
+                                cuda.scan_load((seg_b, ord_b, out)),
+                                cuda.stream_of(seg_b)), "segment_rank")
     cuda.launches["segment_rank"] += 1
     return out

@@ -15,7 +15,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import registry as treg  # noqa: E402
 
-SIZES = (0, 1, 2047, 2048, 2049, 5000)
+# 0, the reference's 2048-row tile, and the look-back scans' ragged edges:
+# a 4-row vector (3, 4, 5) and their 5120-row tile (csrc/lookback.cuh)
+SIZES = (0, 1, 3, 4, 5, 2047, 2048, 2049, 5000, 5119, 5120, 5121, 10239, 10241)
 NAMES = ("prefix_sum", "bucket_scatter", "segment_sums", "segment_scan",
          "segment_rank", "stencil1d", "stencil1d_exact", "segment_stencil",
          "decode_attention")
@@ -250,3 +252,75 @@ def test_lm_decode_on_card_matches_cpu(card):
         outs.append(torch.stack(out, 1).cpu())
     assert cuda.launches["decode_attention"] - launched == 4 * cfg.n_layers
     torch.testing.assert_close(outs[1], outs[0], rtol=0, atol=1e-4)
+
+
+# The look-back scans (csrc/lookback.cuh: prefix_sum, segment_rank) on their
+# hazards, at every size above and at one whose tiles look back past a
+# window of 32: a view whose data is not 16-byte aligned (x[1:] of a fresh
+# tensor, the WORDS fetch); two calls back to back on other inputs of one
+# length (the freed status words come back from the allocator and must be
+# cleared); one segment head at row 0 and none after it (no tile
+# restarts); int32 sums that wrap past 2^31 (exact modulo 2^32).  Integer
+# values throughout, so float32 sums are exact and every comparison is
+# bitwise.
+HAZARDS = ("misaligned", "back_to_back", "one_head", "wrap")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", SIZES + (33 * 5120 + 5,))
+@pytest.mark.parametrize("hazard", HAZARDS)
+def test_lookback_hazards_on_card(card, hazard, n):
+    from repro_torch.kernels.segment_rank import segment_rank as rk
+    from repro_torch.kernels.stream_compact import stream_compact as sc
+
+    rng = np.random.default_rng(n * len(HAZARDS) + HAZARDS.index(hazard))
+
+    def values(m, dtype):
+        return torch.from_numpy(rng.integers(-50, 50, m).astype(dtype)).to(card)
+
+    def masks(m):
+        seg = _seg_mask(rng, m)
+        ordb = np.maximum(seg, (rng.random(m) < 0.3).astype(np.int32))
+        return torch.from_numpy(seg).to(card), torch.from_numpy(ordb).to(card)
+
+    def sums_equal(x, got):
+        assert torch.equal(got, sc.prefix_sum_plain(x)), (hazard, n, x.dtype)
+
+    def ranks_equal(seg, ordb, got):
+        for kind, g in zip(RANK_KINDS, got):
+            assert torch.equal(g, rk.segment_rank_plain(seg, ordb, kind)), \
+                (hazard, n, kind)
+
+    def ranks(seg, ordb):
+        return [rk.segment_rank_cuda(seg, ordb, kind) for kind in RANK_KINDS]
+
+    if hazard == "misaligned":
+        for dtype in (np.int32, np.float32):
+            x = values(n + 1, dtype)[1:]
+            assert n == 0 or x.data_ptr() % 16 != 0   # empty: no data
+            sums_equal(x, sc.prefix_sum_cuda(x))
+        seg, ordb = (t[1:] for t in masks(n + 1))
+        ranks_equal(seg, ordb, ranks(seg, ordb))
+    elif hazard == "back_to_back":
+        for dtype in (np.int32, np.float32):
+            xs = [values(n, dtype) for _ in range(2)]
+            got = [sc.prefix_sum_cuda(x) for x in xs]
+            for x, g in zip(xs, got):
+                sums_equal(x, g)
+        pairs = [masks(n) for _ in range(2)]
+        got = [ranks(*p) for p in pairs]
+        for p, g in zip(pairs, got):
+            ranks_equal(*p, g)
+    elif hazard == "one_head":
+        seg = torch.zeros(n, dtype=torch.int32, device=card)
+        seg[:1] = 1
+        ordb = seg | torch.from_numpy(
+            (rng.random(n) < 0.3).astype(np.int32)).to(card)
+        ranks_equal(seg, ordb, ranks(seg, ordb))
+    else:
+        x = torch.from_numpy(rng.integers(-2**30, 2**30, n).astype(np.int32)).to(card)
+        c = torch.cumsum(x.long(), 0)
+        want = ((c + 2**31) % 2**32 - 2**31).int()
+        got = sc.prefix_sum_cuda(x)
+        assert torch.equal(got, want), (hazard, n)
+        sums_equal(x, got)

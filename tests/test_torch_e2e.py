@@ -224,6 +224,48 @@ def test_overflow_retry_heals():
         == {"exchange"}
 
 
+# A skewed many-to-many join that both packages truncate (a reference fault,
+# logged in ROADMAP.md section 3): every row on key 0, so the join's
+# capacity doubles 82 -> 164 -> 328 -> 656 over auto_retry = 3 and stops
+# short of the rows the join needs (18 x 37 = 666; 40 x 40 = 1600).  Pinned
+# so that the port keeps the reference's answer, flag, attribution and
+# retries until both may be fixed together.
+@pytest.mark.parametrize("n_left,n_right", [(18, 37), (40, 40)])
+def test_skewed_join_truncation_matches_reference(n_left, n_right):
+    rng = np.random.default_rng(n_left * n_right)
+    left = {"id": np.zeros(n_left, np.int32),
+            "x": rng.normal(size=n_left).astype(np.float32)}
+    right = {"cid": np.zeros(n_right, np.int32),
+             "w": rng.normal(size=n_right).astype(np.float32)}
+    tabs = []
+    for hf, cfg in ((rhf, rhf.ExecConfig()), (thf, thf.ExecConfig(**TCFG))):
+        tabs.append(hf.join(hf.table(left), hf.table(right, "r"),
+                            on=("id", "cid")).collect(cfg))
+    rt, tt = tabs
+    rows = len(tt.to_numpy()["id"])
+    assert rows == len(rt.to_numpy()["id"]) < n_left * n_right
+    assert tt.overflow and rt.overflow
+
+    def attribution(t):
+        return {op: (r["kind"], r["strategy"], r["cap"], r["cap_req"])
+                for op, r in t.overflow_ops.items()}
+    assert attribution(tt) == attribution(rt)
+    assert [r[3] for r in attribution(tt).values()] == [n_left * n_right]
+    # the retries: (attempt, op, "kind cap a -> b"), then the give-up
+    ref_events = [(e.attempt, e.op_id, e.detail) for e in rt.events
+                  if e.kind == "retry"]
+    port_events = []
+    for e in tt.events[:-1]:
+        head, detail = e.split(": ", 1)
+        kind, op, rest = detail.split(" ", 2)
+        port_events.append((int(head.split()[1]), int(op.lstrip("#")),
+                            f"{kind} {rest}"))
+    assert port_events == ref_events
+    assert [e.kind for e in rt.events][-1] == "overflow_exhausted"
+    assert tt.events[-1].startswith(
+        f"overflow_exhausted after {rt.events[-1].attempt} retries")
+
+
 def test_cuda_default_refuses_to_run_without_a_card():
     import torch
     if torch.cuda.is_available():

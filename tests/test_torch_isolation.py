@@ -1,7 +1,7 @@
 """The port stands alone: ``repro_torch`` (its LM serving path too),
-``chip_smoke.py`` and the card tests (tests/test_torch_cuda.py, run on the
-card's machine) import neither JAX (nor ``ml_dtypes``) nor anything of the
-reference package ``repro``."""
+``chip_smoke.py``, the card-side scripts under ``tools/`` and the card tests
+(tests/test_torch_cuda.py), all run on the card's machine, import neither
+JAX (nor ``ml_dtypes``) nor anything of the reference package ``repro``."""
 import ast
 import os
 import subprocess
@@ -33,6 +33,10 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    tools = os.path.join(ROOT, "tools")
+    for f in sorted(os.listdir(tools)):
+        if f.endswith(".py"):
+            yield os.path.join(tools, f)
     yield os.path.join(ROOT, "tests", "test_torch_cuda.py")
 
 

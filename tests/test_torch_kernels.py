@@ -91,3 +91,17 @@ def test_kernel_wrapper_refuses_cpu_tensors(name):
     args = tuple(map(_to_torch, _cases(name, rng, 64, DTYPES[name][0])[0]))
     with pytest.raises(ValueError, match="CUDA tensor"):
         treg.get(name).kernel(*args)
+
+
+def test_lookback_fetch_follows_alignment():
+    """How the look-back scans (csrc/lookback.cuh) fetch a tile: TMA bulk
+    copies (BULK) when every tensor's data is 16-byte aligned, 4-byte loads
+    (WORDS) when any tensor is a view one element in."""
+    from repro_torch.kernels import cuda
+    x = torch.zeros(9, dtype=torch.int32)
+    v = x[1:]
+    assert x.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 4
+    assert cuda.scan_load((x,)) == cuda.BULK
+    assert cuda.scan_load((x, x.clone())) == cuda.BULK
+    assert cuda.scan_load((x, v)) == cuda.WORDS
+    assert cuda.scan_load((v,)) == cuda.WORDS
