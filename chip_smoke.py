@@ -16,12 +16,16 @@ Phases, in order; any failure raises and the exit code is not 0:
    events (median of 15 runs, each the mean of back-to-back calls filling
    ~2 ms) beside the plain version, one PyTorch library
    call where there is one, and its bound (the larger of bytes moved /
-   3.35 TB/s and operations / 67 TFLOP/s).  The two look-back scans
-   (prefix_sum, segment_rank) are also held on their hazards: sizes around
-   the 5120-row tile and the 4-row vector, views not 16-byte aligned, two
-   calls back to back, int32 sums past 2^31, one segment head at row 0 of
-   2^27 rows; torch.profiler shows each call running one kernel and at
-   most one memset.
+   3.35 TB/s and operations / 67 TFLOP/s).  The three look-back scans
+   (prefix_sum, segment_scan, segment_rank) are also held on their hazards:
+   sizes around the 5120-row tile and the 4-row vector, views not 16-byte
+   aligned, two calls back to back, int32 sums past 2^31, one segment head
+   at row 0 of 2^27 rows; torch.profiler shows each call running one
+   kernel and at most one memset; 20 calls of the float32 scans on
+   non-integer values give the same bits.  The stencils are held bitwise
+   (0 ulps) in every mode, also around their 4096-output tile, on ragged
+   ends, on views not 16-byte aligned and past the 1024 taps staged at
+   once.
 3. The three main paths, each with the launch counters zeroed just before
    it and read just after:
    - relational, through ``hf`` at P = 1: Fig. 8a filter, join and
@@ -43,8 +47,10 @@ Phases, in order; any failure raises and the exit code is not 0:
    (bucket_scatter runs only in exchanges at P > 1, which one card cannot
    host; phase 2 holds it.)
 4. Report: a JSON line of query wall times, LM serving times, peak memory
-   and the checks' largest differences, a JSON line of the nine kernel
-   records, and a last line ``{"ok": true, "device": {...}}``.
+   and the checks' largest differences (with a digest of the bytes of the
+   float32 cumsums, fig8b_cumsum's and the grouped one's, to compare two
+   runs), a JSON line of the nine kernel records, and a last line
+   ``{"ok": true, "device": {...}}``.
 
 ``--quick`` stops after phase 2 at sizes up to 1_000_003 and prints ptxas's
 register and shared-memory report: a short first check of new kernels.
@@ -57,6 +63,7 @@ device events (see ``one_call_profiles``).
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -152,9 +159,9 @@ def one_launch(torch, fn, kernel: str, tag: str) -> dict:
     return seen
 
 
-# The look-back scans of csrc/lookback.cuh (prefix_sum, segment_rank):
-# ragged sizes around the 5120-row tile and the 4-row vector, and one size
-# whose tiles look back past a window of 32.
+# The look-back scans of csrc/lookback.cuh (prefix_sum, segment_scan,
+# segment_rank): ragged sizes around the 5120-row tile and the 4-row vector,
+# and one size whose tiles look back past a window of 32.
 LOOKBACK_KERNEL = "scan_tiles"
 LOOKBACK_SIZES = (1, 3, 4, 5, 5119, 5120, 5121, 10239, 10241, 33 * 5120 + 5)
 
@@ -167,20 +174,42 @@ def misaligned(t):
     return v
 
 
+def wrapped(x):
+    """The int32 prefix sums of ``x`` modulo 2^32, from int64."""
+    c = x.long().cumsum(0)
+    return ((c + 2**31) % 2**32 - 2**31).int()
+
+
+def same_bits(torch, call, tag: str, times: int = 20) -> int:
+    """Call ``call()`` ``times`` times and assert that every float32 result
+    has the bits of the first; returns ``times``."""
+    bits = call().view(torch.int32)
+    for i in range(times - 1):
+        assert torch.equal(call().view(torch.int32), bits), \
+            f"{tag}: call {i + 2} of {times} differs from the first"
+    return times
+
+
+def digest(a: np.ndarray) -> str:
+    """A short hash of an array's bytes, to compare two runs' results."""
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 def one_call_profiles(torch, n: int) -> dict:
     """One call of each look-back wrapper under torch.profiler (prefix_sum
-    in int32 and float32, the three rank kinds; n rows): one scan_tiles
-    kernel and at most one memset each.  These must be the process's first
+    and segment_scan in int32 and float32, the three rank kinds; n rows):
+    one scan_tiles kernel and at most one memset each.  These must be the process's first
     torch.profiler sessions, and are taken within a second of each other:
     on an H100 (torch 2.11, CUDA 12.8) the device timestamps of a trace
     drift from its host timeline from about 10 s after the process's first
     session on, and within a minute most traces hold no device event at
     all, with or without work in between (tools/profiler_probe.py)."""
     from repro_torch.kernels.segment_rank import segment_rank as rk
+    from repro_torch.kernels.segment_scan import segment_scan as ss
     from repro_torch.kernels.stream_compact import stream_compact as sc
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(2)
@@ -191,6 +220,9 @@ def one_call_profiles(torch, n: int) -> dict:
     out = {"prefix_sum": {str(v.dtype): one_launch(
         torch, lambda: sc.prefix_sum_cuda(v), LOOKBACK_KERNEL,
         f"prefix_sum {v.dtype}") for v in (x, x.float())}}
+    out["segment_scan"] = {str(v.dtype): one_launch(
+        torch, lambda: ss.segment_scan_cuda(v, seg), LOOKBACK_KERNEL,
+        f"segment_scan {v.dtype}") for v in (x, x.float())}
     out["segment_rank"] = {kind: one_launch(
         torch, lambda: rk.segment_rank_cuda(seg, ordb, kind), LOOKBACK_KERNEL,
         f"segment_rank {kind}") for kind in rk.KINDS}
@@ -232,10 +264,6 @@ def kernel_phases(torch, sizes, record: dict):
     # (the second gets the first's freed status words from the allocator,
     # which the kernel must clear); int32 sums that wrap past 2^31 (exact
     # modulo 2^32).
-    def wrapped(x):
-        c = torch.cumsum(x.long(), 0)
-        return ((c + 2**31) % 2**32 - 2**31).int()
-
     for n in LOOKBACK_SIZES + (sizes[-2],):
         for dt in (torch.int32, torch.float32):
             xs = [torch.randint(-8, 9, (n + 1,), device=dev, generator=g).to(dt)
@@ -401,6 +429,7 @@ def window_kernel_phases(torch, sizes, record: dict):
     from repro_torch.kernels.segment_rank import segment_rank as rk
     from repro_torch.kernels.segment_scan import segment_scan as ss
     from repro_torch.kernels.stencil1d import stencil1d as st
+    from repro_torch.kernels.stream_compact import stream_compact as sc
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
@@ -460,6 +489,68 @@ def window_kernel_phases(torch, sizes, record: dict):
     rec["bound_ms"], rec["bound_by"] = bound_ms(12.0 * n, n)
     record["segment_scan"] = rec
     del b, xn
+
+    # the look-back hazards, as prefix_sum's and segment_rank's: ragged
+    # sizes; views not 16-byte aligned; two calls back to back on other
+    # inputs of one length; int32 sums that wrap past 2^31 (exact modulo
+    # 2^32); one segment head at row 0 and none after it (no tile restarts:
+    # the longest look-back chains), up to 2^27 rows.  Integer values, so
+    # the float32 sums are exact too: every comparison is bitwise.
+    def scans_equal(x, b, tag):
+        assert torch.equal(ss.segment_scan_cuda(x, b),
+                           ss.segment_scan_plain(x, b)), f"segment_scan {tag}"
+
+    for n in LOOKBACK_SIZES + (sizes[-2],):
+        for mean_len in (1, 64, 1 << 16):
+            for dt in (torch.int32, torch.float32):
+                tag = f"{dt} n={n} L={mean_len}"
+                bs = [heads(n + 1, mean_len) for _ in range(2)]
+                xs = [torch.randint(-8, 9, (n + 1,), device=dev,
+                                    generator=g).to(dt) for _ in range(2)]
+                scans_equal(misaligned(xs[0]), misaligned(bs[0]),
+                            f"misaligned {tag}")
+                a = [ss.segment_scan_cuda(x[:n], h[:n]) for x, h in zip(xs, bs)]
+                want = [ss.segment_scan_plain(x[:n], h[:n])
+                        for x, h in zip(xs, bs)]
+                assert all(map(torch.equal, a, want)), \
+                    f"segment_scan back to back {tag}"
+    for n in LOOKBACK_SIZES + (sizes[-2], sizes[-1]):
+        one = torch.zeros(n, dtype=torch.int32, device=dev)
+        one[0] = 1
+        xw = torch.randint(-2**30, 2**30, (n,), device=dev, generator=g,
+                           dtype=torch.int32)
+        got = ss.segment_scan_cuda(xw, one)
+        assert torch.equal(got, wrapped(xw)), f"segment_scan int32 wrap n={n}"
+        scans_equal(xw, one, f"int32 wrap, one head at row 0, n={n}")
+        scans_equal(xw, heads(n, 64), f"int32 wrap n={n}")
+        xf = torch.randint(-8, 9, (n,), device=dev, generator=g).float()
+        scans_equal(xf, one, f"f32 one head at row 0, n={n}")
+    xn = torch.randn(n, device=dev, generator=g)
+    record["segment_scan"]["one_head_at_row_0_ms"] = time_ms(
+        lambda: ss.segment_scan_cuda(xn, one), torch)
+    del one, xw, got, xf, xn
+    log(f"segment_scan hazards: ok at sizes {LOOKBACK_SIZES}")
+
+    # float32 look-back scans give the same bits on every call: 20 calls
+    # each on normal values, prefix_sum and segment_scan (heads of the main
+    # path's mean length and one head at row 0)
+    repeats = {"prefix_sum": {}, "segment_scan": {}}
+    for n in (LOOKBACK_SIZES[-1], sizes[-1]):
+        xn = torch.randn(n, device=dev, generator=g)
+        b = heads(n, GROUPS)
+        one = torch.zeros(n, dtype=torch.int32, device=dev)
+        one[0] = 1
+        repeats["prefix_sum"][n] = same_bits(
+            torch, lambda: sc.prefix_sum_cuda(xn), f"prefix_sum f32 n={n}")
+        repeats["segment_scan"][n] = min(
+            same_bits(torch, lambda: ss.segment_scan_cuda(xn, b),
+                      f"segment_scan f32 n={n}"),
+            same_bits(torch, lambda: ss.segment_scan_cuda(xn, one),
+                      f"segment_scan f32 one head n={n}"))
+        log(f"f32 prefix_sum, segment_scan n={n}: 20 calls each, the same bits")
+    for name, r in repeats.items():
+        record[name]["f32_calls_bitwise_equal"] = r
+    del xn, b, one
 
     # -- segment_rank: all three kinds exact, ties in the order key (run
     # heads ~ 3 rows apart inside segments).
@@ -534,9 +625,9 @@ def window_kernel_phases(torch, sizes, record: dict):
     # -- the stencils: K in {1, 3, 5, 7, 20} at centres 0 and K // 2, and
     # the main path's (K, centre) pairs: (3, 1) of the SMA, the WMA and the
     # partitioned WMA, (20, 19) of the exact rolling mean, (7, 6) of the
-    # grouped exact rolling mean.  stencil1d and non-exact segment_stencil
-    # bitwise equal to the plain version (the same float32 operations in
-    # the same order); the exact modes within 2 float32 ulps.
+    # grouped exact rolling mean.  Every mode bitwise equal to the plain
+    # version (the same float32 operations in the same order, the exact
+    # modes' divide too): 0 ulps.
     centres = {1: (0,), 3: (0, 1), 5: (0, 2), 7: (0, 3, 6), 20: (0, 10, 19)}
 
     def layout(n, k, c, mean_len=64):
@@ -555,19 +646,27 @@ def window_kernel_phases(torch, sizes, record: dict):
         return ext, ext_m, ext_s
 
     errs = {"stencil1d": 0.0, "stencil1d_exact": 0.0, "segment_stencil": 0.0}
-    worst = {"stencil1d_exact": 0, "segment_stencil": 0}
+    worst = {"stencil1d": 0, "stencil1d_exact": 0, "segment_stencil": 0}
 
-    def held(name, got, want, exact, tag):
-        """One kernel call against its plain version: within 2 ulps for an
-        exact mode, else bitwise; folded into the kernel's own record."""
-        if exact:
-            u = ulps(torch, got, want)
-            assert u <= 2, f"{tag}: {u} ulps"
-            worst[name] = max(worst[name], u)
-        else:
-            assert torch.equal(got, want), tag
+    def held(name, got, want, tag):
+        """One kernel call against its plain version: bitwise, folded into
+        the kernel's own record."""
+        u = ulps(torch, got, want)
+        worst[name] = max(worst[name], u)
+        assert torch.equal(got, want), f"{tag}: {u} ulps"
         if got.numel():
             errs[name] = max(errs[name], float((got - want).abs().max()))
+
+    def all_modes(ext, ext_m, ext_s, w, wpos, c, tag):
+        held("stencil1d", st.stencil1d_cuda(ext, w),
+             st.stencil1d_plain(ext, w), f"stencil1d {tag}")
+        held("stencil1d_exact", st.stencil1d_exact_cuda(ext, ext_m, wpos),
+             st.stencil1d_exact_plain(ext, ext_m, wpos), f"stencil1d_exact {tag}")
+        for exact, ww in ((False, w), (True, wpos)):
+            held("segment_stencil",
+                 st.segment_stencil_cuda(ext, ext_s, ww, c, exact),
+                 st.segment_stencil_plain(ext, ext_s, ww, c, exact),
+                 f"segment_stencil exact={exact} {tag}")
 
     for k, cs in centres.items():
         w = [float(v) for v in wrng.normal(size=k)]
@@ -575,22 +674,27 @@ def window_kernel_phases(torch, sizes, record: dict):
         for n in sizes:
             ext = torch.randn(n + k - 1, device=dev, generator=g)
             held("stencil1d", st.stencil1d_cuda(ext, w),
-                 st.stencil1d_plain(ext, w), False, f"stencil1d K={k} n={n}")
+                 st.stencil1d_plain(ext, w), f"stencil1d K={k} n={n}")
             for c in cs:
-                tag = f"K={k} c={c} n={n}"
-                ext, ext_m, ext_s = layout(n, k, c)
-                held("stencil1d", st.stencil1d_cuda(ext, w),
-                     st.stencil1d_plain(ext, w), False, f"stencil1d {tag}")
-                held("stencil1d_exact", st.stencil1d_exact_cuda(ext, ext_m, wpos),
-                     st.stencil1d_exact_plain(ext, ext_m, wpos), True,
-                     f"stencil1d_exact {tag}")
-                for exact, ww in ((False, w), (True, wpos)):
-                    held("segment_stencil",
-                         st.segment_stencil_cuda(ext, ext_s, ww, c, exact),
-                         st.segment_stencil_plain(ext, ext_s, ww, c, exact),
-                         exact, f"segment_stencil exact={exact} {tag}")
+                all_modes(*layout(n, k, c), w, wpos, c, f"K={k} c={c} n={n}")
         log(f"stencils K={k} centres {cs}: ok at sizes {sizes}")
-    log(f"stencils: exact modes within {worst} ulps; the others bitwise")
+    # around the kernel's 4096-output tile and at a few tiles, ragged ends,
+    # and views not 16-byte aligned (the WORDS fetch); K = 4 (one whole step
+    # of the register window) and K = 1100 (staged again past the 1024 taps
+    # a block holds at once, with a centre beyond them)
+    edges = (4095, 4096, 4097, 3 * 4096 + 5, 10 * 4096 + 3)
+    for k, cs in {**centres, 4: (0, 2, 3), 1100: (0, 550, 1099)}.items():
+        w = [float(v) for v in wrng.normal(size=k)]
+        wpos = [abs(v) + 0.05 for v in w]
+        for n in edges:
+            for c in cs:
+                arrays = layout(n, k, c)
+                all_modes(*arrays, w, wpos, c, f"K={k} c={c} n={n}")
+                views = [misaligned(torch.cat([t[:1], t])) for t in arrays]
+                all_modes(*views, w, wpos, c, f"misaligned K={k} c={c} n={n}")
+        log(f"stencils K={k}: ok around the tile, on ragged ends and "
+            f"misaligned views at sizes {edges}")
+    log(f"stencils: every mode within {worst} ulps")
 
     # The main path's calls at 2^27 rows, each held against its plain
     # version on the timed inputs.  fig8b_wma's: K = 3.
@@ -600,7 +704,7 @@ def window_kernel_phases(torch, sizes, record: dict):
     wt = torch.tensor(w3, device=dev).view(1, 1, 3)
     conv = torch.nn.functional.conv1d
     got = st.stencil1d_cuda(ext, w3)
-    held("stencil1d", got, st.stencil1d_plain(ext, w3), False,
+    held("stencil1d", got, st.stencil1d_plain(ext, w3),
          f"stencil1d timed inputs K=3 n={n}")
     lib = conv(ext.view(1, 1, -1), wt).view(-1)
     rec = {"name": "stencil1d", "route": "cuda",
@@ -621,7 +725,7 @@ def window_kernel_phases(torch, sizes, record: dict):
     del _s
     w20 = [0.05] * 20
     held("stencil1d_exact", st.stencil1d_exact_cuda(ext, ext_m, w20),
-         st.stencil1d_exact_plain(ext, ext_m, w20), True,
+         st.stencil1d_exact_plain(ext, ext_m, w20),
          f"stencil1d_exact timed inputs K=20 c=19 n={n}")
     rec = {"name": "stencil1d_exact", "route": "cuda",
            "source": "src/repro_torch/csrc/stencil1d.cu",
@@ -645,7 +749,7 @@ def window_kernel_phases(torch, sizes, record: dict):
     ext, _m, ext_s = layout(n, 3, 1, GROUPS)
     del _m
     held("segment_stencil", st.segment_stencil_cuda(ext, ext_s, w3, 1),
-         st.segment_stencil_plain(ext, ext_s, w3, 1), False,
+         st.segment_stencil_plain(ext, ext_s, w3, 1),
          f"segment_stencil timed inputs K=3 c=1 n={n}")
     rec = {"name": "segment_stencil", "route": "cuda",
            "source": "src/repro_torch/csrc/stencil1d.cu",
@@ -662,7 +766,7 @@ def window_kernel_phases(torch, sizes, record: dict):
     del _m
     w7 = [1.0 / 7] * 7
     held("segment_stencil", st.segment_stencil_cuda(ext, ext_s, w7, 6, True),
-         st.segment_stencil_plain(ext, ext_s, w7, 6, True), True,
+         st.segment_stencil_plain(ext, ext_s, w7, 6, True),
          f"segment_stencil timed inputs K=7 c=6 exact n={n}")
     k7 = {"shape": f"K=7, centre 6, exact, n={n}, mean segment {GROUPS}",
           "ms": time_ms(lambda: st.segment_stencil_cuda(ext, ext_s, w7, 6, True),
@@ -1038,15 +1142,17 @@ def window_path(torch, hf, synth, queries: dict, profile_dir: str | None = None,
     x64 = x.astype(np.float64)
     csum = np.cumsum(x64)
 
-    # fig8b_cumsum: float32 reduce-then-scan against a float64 oracle.  The
+    # fig8b_cumsum: float32 look-back scan against a float64 oracle.  The
     # scan adds in another order; its error grows with the magnitude of the
     # partial sums (|S| reaches ~3.5e4), so: within 1e-5 of the running max
-    # |S| (+1e-3), ~40 float32 roundings of that magnitude.
+    # |S| (+1e-3), ~40 float32 roundings of that magnitude.  The order is
+    # fixed, so the digest of the result is the same in every run.
     out = run("fig8b_cumsum", hf.cumsum(df, df["x"], out="c"))
     assert np.array_equal(out["x"], x)
     scale = np.maximum.accumulate(np.abs(csum))
     checks["fig8b_cumsum"] = check_close("fig8b_cumsum", out["c"], csum,
                                          0.0, 1e-5 * scale + 1e-3)
+    checks["fig8b_cumsum_digest"] = digest(out["c"])
     queries["fig8b_cumsum"]["rows_in"] = n
     del out, scale
 
@@ -1133,6 +1239,7 @@ def window_path(torch, hf, synth, queries: dict, profile_dir: str | None = None,
     checks["grouped_cumsum"] = check_close("grouped_cumsum", out["c"],
                                            cs - base, 0.0,
                                            1e-5 * (ca - abase) + 1e-4)
+    checks["grouped_cumsum_digest"] = digest(out["c"])
     # exact rolling mean over the min(pos + 1, 7) rows of the group: 7 taps
     lo = np.maximum(first, idx - 6)
     win = cs - np.where(lo > 0, cs[np.maximum(lo - 1, 0)], 0.0)

@@ -44,6 +44,48 @@ __device__ __forceinline__ T shfl_idx_any(T v, int lane) {
   return shfl_words(v, [lane](int w) { return __shfl_sync(FULL_MASK, w, lane); });
 }
 
+// TMA bulk copies into shared memory, completing on an mbarrier (the
+// look-back scans and the stencils stage their tiles this way).
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// One thread: make `bar` an mbarrier that completes a phase on one arrival.
+__device__ __forceinline__ void bar_init(void* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+               ::"r"(smem_addr(bar)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// The same thread, once per phase: arrive on `bar` and expect `bytes` of
+// bulk copies to complete on it.
+__device__ __forceinline__ void bar_expect(void* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// One TMA bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) into shared memory, completing on the mbarrier `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          int bytes, void* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)), "l"(src), "r"(bytes),
+      "r"(smem_addr(bar)) : "memory");
+}
+
+// Wait until the phase of `bar` with this parity (0 for its first, then
+// alternating) has completed.
+__device__ __forceinline__ void bar_wait(void* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;"
+        " selp.u32 %0, 1, 0, p; }"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  }
+}
+
 // The sum monoid: the operator of the plain prefix sums.
 template <typename T>
 struct SumOp {

@@ -1,14 +1,14 @@
 // Single-pass scan with decoupled look-back under any associative operator:
-// the skeleton of prefix_sum.cu and segment_rank.cu.
+// the skeleton of prefix_sum.cu, segment_scan.cu and segment_rank.cu.
 //
 // The TPU kernels it serves (src/repro/kernels/stream_compact/
-// stream_compact.py:36, src/repro/kernels/segment_rank/segment_rank.py:67)
-// walk their blocks in order and carry the running value from one block to
-// the next in VMEM.  Hopper runs blocks in parallel and in no order.  The
-// reduce-then-scan of scan.cuh answers that with three launches that read
-// the input twice; here one launch reads every input row once and writes
-// every output row once, which is what bounds these scans (bytes: 8 a row
-// for prefix_sum, 12 for segment_rank, 8 for its row_number).
+// stream_compact.py:36, src/repro/kernels/segment_scan/segment_scan.py:48,
+// src/repro/kernels/segment_rank/segment_rank.py:67) walk their blocks in
+// order and carry the running value from one block to the next in VMEM.
+// Hopper runs blocks in parallel and in no order.  Here one launch reads
+// every input row once and writes every output row once, which is what
+// bounds these scans (bytes: 8 a row for prefix_sum, 12 for segment_scan and
+// segment_rank, 8 for its row_number).
 //
 // Each block scans one tile of TILE rows:
 //   1. It takes its tile id from an atomic ticket, not from blockIdx: every
@@ -29,6 +29,24 @@
 //      needs nothing from before it) publishes its inclusive prefix at once.
 //   4. Every thread combines the tile's exclusive prefix in front of its
 //      rows and stores them, 16 bytes a chunk.
+//
+// Repeatable float sums (Op::ORDERED).  Float addition does not associate,
+// so the bits of a float scan depend on the order of its additions.  Inside
+// a tile that order is fixed (steps 2 and 4).  Across tiles, an ORDERED
+// operator's look-back folds left to right, serially: from the latest
+// inclusive prefix it finds, P(s), it combines the aggregates A(s+1), ...,
+// A(t-1) one after another in tile order, and the tile publishes
+// P(t) = combine(P(t-1), A(t)).  By induction every published inclusive
+// prefix is the serial fold A(0) + A(1) + ... + A(t), whichever tile a
+// look-back stopped at (a tile that restarts publishes A(t), which equals
+// combine(P(t-1), A(t)) for such an operator), and a look-back that meets
+// a later tile's inclusive prefix while folding takes it, since it holds
+// the same bits.  So every call gives the same bits, whatever order the
+// hardware runs the tiles in.  The fold walks back first, keeping the
+// status words it passes, then forward; it needs an identity that is
+// exact on either side (-0.0 for float sums).  Integer operators (ORDERED
+// false) are exact under any association and combine each window of 32
+// status words with a shuffle tree instead, which is shorter.
 //
 // Load: a block waits in the look-back for the tiles before it to publish
 // (microseconds on a loaded H100), holding its tile all the while, so what
@@ -55,7 +73,9 @@
 // An operator `Op` supplies the monoid, its I/O and its status packing:
 //   using T                        the scanned value
 //   static constexpr int INPUTS    4-byte input arrays read (1 or 2)
-//   T identity()                   neutral element
+//   static constexpr bool ORDERED  fold the look-back serially (float sums)
+//   T identity()                   neutral element (ORDERED: bit for bit,
+//                                  combine(x, identity()) == x and back)
 //   T combine(T earlier, T later)  associative
 //   T load(uint32_t a, uint32_t b, long long g)
 //                                  row g's element from its input words
@@ -102,63 +122,96 @@ __device__ __forceinline__ unsigned long long observe(
   return w;
 }
 
-// Warp 0 of tile `tile` > 0: the combination of every row before the tile.
-// Lane l watches tile j - 31 + l of the window ending at j.  The warp waits
-// only for the tiles after the latest inclusive prefix in the window; lanes
-// below it are ignored.
+// Warp 0: the status words of the window of 32 tiles ending at tile j (lane
+// l watches tile j - 31 + l; tiles before 0 read as an inclusive
+// identity), re-read until every tile after the window's latest inclusive
+// prefix has published.  `inc` receives the lanes holding an inclusive
+// prefix; lanes below the latest are not waited for.
+template <class Op>
+__device__ __forceinline__ unsigned long long window(
+    const Op& op, const unsigned long long* status, int j, unsigned& inc) {
+  const int idx = j - 31 + static_cast<int>(threadIdx.x & 31);
+  unsigned long long w = idx >= 0 ? observe(status + idx)
+                                  : INCLUSIVE | op.pack(op.identity());
+  for (;;) {
+    inc = __ballot_sync(FULL_MASK, (w >> 62) == 2);
+    const unsigned none = __ballot_sync(FULL_MASK, (w >> 62) == 0);
+    const int hi = inc ? 31 - __clz(inc) : -1;
+    if (hi == 31 || (none >> (hi + 1)) == 0u) return w;
+    if ((w >> 62) == 0) w = observe(status + idx);
+  }
+}
+
+// Warp 0, for an ORDERED operator: fold the 32 status words `w` of one
+// window into `acc` in tile order, starting afresh from the window's latest
+// inclusive prefix if `inc` shows one.  Lanes before it give the identity,
+// which is exact on either side (for floats -0.0: x + -0.0 == x for every
+// x), so the fold is one fixed chain of 32 combines, its shuffles free to
+// run ahead.
+template <class Op>
+__device__ __forceinline__ typename Op::T fold(const Op& op,
+                                               typename Op::T acc,
+                                               unsigned long long w,
+                                               unsigned inc) {
+  using T = typename Op::T;
+  const int lane = threadIdx.x & 31;
+  const int start = inc ? 31 - __clz(inc) : -1;
+  const T v = lane < start ? op.identity() : op.unpack(w & VALUE);
+  if (start >= 0) acc = op.identity();
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc = op.combine(acc, shfl_idx_any(v, i));
+  return acc;
+}
+
+// Warp 0 of tile `tile` > 0: the combination of every row before the tile,
+// the same in every lane.
 template <class Op>
 __device__ typename Op::T look_back(const Op& op,
                                     const unsigned long long* status,
                                     int tile) {
   using T = typename Op::T;
   const int lane = threadIdx.x & 31;
-  T excl = op.identity();
-  for (int j = tile - 1;; j -= 32) {
-    const int idx = j - 31 + lane;
-    unsigned long long w = idx >= 0 ? observe(status + idx)
-                                    : INCLUSIVE | op.pack(op.identity());
-    unsigned inc;
+  unsigned inc;
+  if constexpr (Op::ORDERED) {
+    // back to the latest window holding an inclusive prefix, keeping the
+    // words of the first SAVED windows passed, then forward from it: the
+    // serial fold, whose bits do not depend on where it starts
+    constexpr int SAVED = 4;
+    __shared__ unsigned long long s_saved[SAVED][32];
+    int j = tile - 1, k = 0;
+    unsigned long long w;
+    for (;; j -= 32, ++k) {
+      w = window(op, status, j, inc);
+      if (inc) break;
+      if (k < SAVED) s_saved[k][lane] = w;
+    }
+    T acc = op.identity();
     for (;;) {
-      inc = __ballot_sync(FULL_MASK, (w >> 62) == 2);
-      const unsigned none = __ballot_sync(FULL_MASK, (w >> 62) == 0);
-      const int hi = inc ? 31 - __clz(inc) : -1;
-      if (hi == 31 || (none >> (hi + 1)) == 0u) break;
-      if ((w >> 62) == 0) w = observe(status + idx);
+      acc = fold(op, acc, w, inc);
+      j += 32;
+      if (j >= tile) return acc;
+      if (--k < SAVED) {   // a window passed: every tile in it had published
+        w = s_saved[k][lane];
+        inc = 0u;
+      } else {
+        w = window(op, status, j, inc);
+      }
     }
-    const int start = inc ? 31 - __clz(inc) : 0;
-    T v = lane >= start ? op.unpack(w & VALUE) : op.identity();
-    // ordered reduction: lane i ends with lanes [i, i + 2o) combined
+  } else {
+    T excl = op.identity();
+    for (int j = tile - 1;; j -= 32) {
+      const unsigned long long w = window(op, status, j, inc);
+      const int start = inc ? 31 - __clz(inc) : 0;
+      T v = lane >= start ? op.unpack(w & VALUE) : op.identity();
+      // ordered reduction: lane i ends with lanes [i, i + 2o) combined
 #pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const T y = shfl_down_any(v, o);
-      if (lane + o < 32) v = op.combine(v, y);
+      for (int o = 1; o < 32; o <<= 1) {
+        const T y = shfl_down_any(v, o);
+        if (lane + o < 32) v = op.combine(v, y);
+      }
+      excl = op.combine(shfl_idx_any(v, 0), excl);
+      if (inc) return excl;
     }
-    excl = op.combine(shfl_idx_any(v, 0), excl);
-    if (inc) return excl;
-  }
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Thread 0: one TMA bulk copy of `bytes` (a multiple of 16, both addresses
-// 16-byte aligned) into shared memory, completing on the mbarrier `bar`.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          int bytes, void* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)), "l"(src), "r"(bytes),
-      "r"(smem_addr(bar)) : "memory");
-}
-
-__device__ __forceinline__ void wait_phase0(void* bar) {
-  unsigned done = 0;
-  while (!done) {
-    asm volatile(
-        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;"
-        " selp.u32 %0, 1, 0, p; }"
-        : "=r"(done) : "r"(smem_addr(bar)) : "memory");
   }
 }
 
@@ -182,11 +235,8 @@ scan_tiles(Op op, const uint32_t* in0, const uint32_t* in1,
     s_tile = t;
     const long long tb = static_cast<long long>(t) * TILE;
     if (LOAD == BULK && tb + TILE <= n) {   // 2. (BULK) the copies go out
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
-                   ::"r"(smem_addr(&s_bar)) : "memory");
-      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-                   ::"r"(smem_addr(&s_bar)), "r"(NIN * TILE * 4) : "memory");
+      bar_init(&s_bar);
+      bar_expect(&s_bar, NIN * TILE * 4);
 #pragma unroll
       for (int p = 0; p < NIN; ++p)
         bulk_copy(s_in[p], in[p] + tb, TILE * 4, &s_bar);
@@ -200,7 +250,7 @@ scan_tiles(Op op, const uint32_t* in0, const uint32_t* in1,
 
   // 2. fetch the tile into shared memory
   if (LOAD == BULK && full) {
-    wait_phase0(&s_bar);
+    bar_wait(&s_bar, 0);
   } else {
     for (int i = threadIdx.x; i < TILE; i += THREADS) {
       const long long g = tile_base + i;

@@ -18,8 +18,11 @@
 // int32 sums run in uint32 arithmetic, so wrap-around is defined and the
 // result is exact modulo 2^32 like the reference.  float32 sums are taken in
 // another order than a sequential scan (in each chunk, then across the
-// chunks of a warp, the warps of a tile and the tiles of the look-back);
-// they agree within rounding.
+// chunks of a warp, the warps of a tile and the tiles in order); they agree
+// within rounding, and the order is fixed, so every call gives the same
+// bits (the operator is ORDERED: see lookback.cuh).
+
+#include <type_traits>
 
 #include "lookback.cuh"
 
@@ -29,6 +32,11 @@ template <typename V>
 struct PrefixSumOp : SumOp<V> {
   using T = V;
   static constexpr int INPUTS = 1;
+  static constexpr bool ORDERED = std::is_floating_point<V>::value;
+  // -0.0 for floats: x + -0.0 is x for every x, +0.0 included
+  __device__ __forceinline__ T identity() const {
+    return T(ORDERED ? -0.0f : 0.0f);
+  }
   __device__ __forceinline__ T load(uint32_t a, uint32_t, long long) const {
     T v;
     memcpy(&v, &a, 4);

@@ -45,6 +45,7 @@ template <bool USE_ORD>
 struct HeadOp {
   using T = Heads;
   static constexpr int INPUTS = USE_ORD ? 2 : 1;
+  static constexpr bool ORDERED = false;   // integers: any order is exact
   __device__ __forceinline__ T identity() const { return T{0, 0}; }
   __device__ __forceinline__ T combine(T a, T b) const {
     return T{max(a.s, b.s), max(a.o, b.o)};
@@ -79,6 +80,7 @@ struct Runs {
 struct DenseOp {
   using T = Runs;
   static constexpr int INPUTS = 2;
+  static constexpr bool ORDERED = false;
   __device__ __forceinline__ T identity() const { return T{0u, 0u}; }
   __device__ __forceinline__ T combine(T a, T b) const {
     return T{b.f ? b.v : a.v + b.v, a.f | b.f};

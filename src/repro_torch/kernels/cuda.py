@@ -50,21 +50,22 @@ _SIGNATURES = {
                        "bucket_scatter_max_p": (),
                        "bucket_scatter": (_VP, _VP, _VP, _VP, _LL, _INT, _VP)},
     "segment_sums": {"segment_sums": (_VP, _VP, _VP, _VP, _LL, _INT, _VP)},
-    "segment_scan": {"segment_scan_tile": (),
-                     "segment_scan_scratch_bytes": (),
-                     "segment_scan_i32": (_VP, _VP, _VP, _VP, _LL, _VP),
-                     "segment_scan_f32": (_VP, _VP, _VP, _VP, _LL, _VP)},
+    "segment_scan": {"segment_scan_scratch_bytes": (_LL,),
+                     "segment_scan_i32": (_VP, _VP, _VP, _VP, _LL, _INT, _VP),
+                     "segment_scan_f32": (_VP, _VP, _VP, _VP, _LL, _INT, _VP)},
     "segment_rank": {"segment_rank_scratch_bytes": (_LL,),
                      "segment_rank": (_VP, _VP, _VP, _VP, _LL, _INT, _INT,
                                       _VP)},
-    "stencil1d": {"stencil1d": (_VP, _VP, _VP, _LL, _INT, _VP),
-                  "stencil1d_exact": (_VP, _VP, _VP, _VP, _LL, _INT, _F32, _VP),
+    "stencil1d": {"stencil1d": (_VP, _VP, _VP, _LL, _INT, _INT, _VP),
+                  "stencil1d_exact": (_VP, _VP, _VP, _VP, _LL, _INT, _F32, _INT,
+                                      _VP),
                   "segment_stencil": (_VP, _VP, _VP, _VP, _LL, _INT, _INT, _INT,
-                                      _F32, _VP)},
+                                      _F32, _INT, _VP)},
     "decode_attention": {"decode_attention": (_VP, _VP, _VP, _VP, _VP, _INT, _INT,
                                               _INT, _INT, _INT, _INT, _F32, _VP)},
 }
-_LONG = ("prefix_sum_scratch_bytes", "segment_rank_scratch_bytes")
+_LONG = ("prefix_sum_scratch_bytes", "segment_scan_scratch_bytes",
+         "segment_rank_scratch_bytes")
 
 
 def build_dir() -> Path:
@@ -183,14 +184,15 @@ def require(name: str, t: torch.Tensor, dtypes: tuple, what: str,
         raise ValueError(f"{name}: {what} dtype {t.dtype} not in {dtypes}")
 
 
-# how the look-back scans (csrc/lookback.cuh) fetch a tile into shared
-# memory: TMA bulk copies (16-byte aligned data) or 4-byte loads
+# how the look-back scans (csrc/lookback.cuh) and the stencils
+# (csrc/stencil1d.cu) fetch a tile into shared memory: TMA bulk copies
+# (16-byte aligned data) or 4-byte loads
 BULK, WORDS = 0, 1
 
 
 def scan_load(ts: tuple) -> int:
-    """The fetch of a look-back scan over ``ts``: BULK if every tensor's
-    data starts on a 16-byte boundary, else WORDS."""
+    """The fetch of a kernel over ``ts``: BULK if every tensor's data starts
+    on a 16-byte boundary, else WORDS."""
     return BULK if all(t.data_ptr() % 16 == 0 for t in ts) else WORDS
 
 

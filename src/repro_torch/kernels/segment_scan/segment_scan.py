@@ -6,9 +6,12 @@
 
 Replaces the TPU kernel ``kernels/segment_scan/segment_scan.py``
 (``segment_scan_pallas``) of the reference package.  The CUDA kernel is
-``csrc/segment_scan.cu`` (reduce-then-scan under the segmented monoid; see
-its header).  The registry hands CPU executors the plain version and CUDA
-executors the kernel, which raises on anything but CUDA tensors.
+``csrc/segment_scan.cu``: the segmented monoid in one launch of the
+single-pass decoupled look-back scan of ``csrc/lookback.cuh``, which reads
+x and boundary once and writes the sums once (see its header).  Its float32
+sums come out with the same bits on every call.  The registry hands CPU
+executors the plain version and CUDA executors the kernel, which raises on
+anything but CUDA tensors.
 """
 from __future__ import annotations
 
@@ -35,7 +38,9 @@ def segment_scan_plain(x: torch.Tensor, boundary: torch.Tensor) -> torch.Tensor:
 
 
 def segment_scan_cuda(x: torch.Tensor, boundary: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel: int32/float32 ``x``, int32 ``boundary``."""
+    """Launch the CUDA kernel: int32/float32 ``x``, int32 ``boundary``.
+    Views whose data is not 16-byte aligned run the same kernel with 4-byte
+    loads in place of its TMA bulk copies."""
     cuda.require("segment_scan", x, DTYPES, "x")
     cuda.require("segment_scan", boundary, (torch.int32,), "boundary")
     n = x.numel()
@@ -45,11 +50,12 @@ def segment_scan_cuda(x: torch.Tensor, boundary: torch.Tensor) -> torch.Tensor:
     if n == 0:
         return out
     lib = cuda.load("segment_scan")
-    ntiles = -(-n // lib.segment_scan_tile())
-    scratch = torch.empty(ntiles * lib.segment_scan_scratch_bytes(),
-                          dtype=torch.uint8, device=x.device)
+    # tile status words and the ticket; the kernel clears them on the stream
+    scratch = torch.empty(lib.segment_scan_scratch_bytes(n), dtype=torch.uint8,
+                          device=x.device)
     fn = lib.segment_scan_i32 if x.dtype == torch.int32 else lib.segment_scan_f32
     cuda.check(fn(x.data_ptr(), boundary.data_ptr(), out.data_ptr(),
-                  scratch.data_ptr(), n, cuda.stream_of(x)), "segment_scan")
+                  scratch.data_ptr(), n, cuda.scan_load((x, boundary, out)),
+                  cuda.stream_of(x)), "segment_scan")
     cuda.launches["segment_scan"] += 1
     return out

@@ -16,11 +16,13 @@ Replace the TPU kernels ``stencil1d_pallas``, ``stencil1d_exact_pallas`` and
 ``segment_stencil_pallas`` of the reference package's
 ``kernels/stencil1d/stencil1d.py``.  All three CUDA kernels are one template
 in ``csrc/stencil1d.cu``, with the weights as a run-time device array, so K
-is unbounded.  The plain versions are the reference's tap loops in the same
-tap order, each tap a separate float32 multiply and add, and the kernels
-compute the same operations.  The registry hands CPU executors the plain
-versions and CUDA executors the kernels, which raise on anything but CUDA
-tensors.
+is unbounded; each block stages its span by TMA bulk copies (16-byte aligned
+data) or 4-byte loads (views that are not) and slides a register window
+along it (see its header).  The plain versions are the reference's tap
+loops in the same tap order, each tap a separate float32 multiply and add,
+and the kernels compute the same operations, bit for bit.  The registry
+hands CPU executors the plain versions and CUDA executors the kernels, which
+raise on anything but CUDA tensors.
 """
 from __future__ import annotations
 
@@ -110,7 +112,8 @@ def stencil1d_cuda(ext: torch.Tensor, weights: Sequence[float]) -> torch.Tensor:
     lib = cuda.load("stencil1d")
     wd = _weights_on(w, ext.device)
     cuda.check(lib.stencil1d(ext.data_ptr(), wd.data_ptr(), out.data_ptr(), n,
-                             len(w), cuda.stream_of(ext)), "stencil1d")
+                             len(w), cuda.scan_load((ext, out)),
+                             cuda.stream_of(ext)), "stencil1d")
     cuda.launches["stencil1d"] += 1
     return out
 
@@ -131,7 +134,9 @@ def stencil1d_exact_cuda(ext: torch.Tensor, ext_m: torch.Tensor,
     wd = _weights_on(w, ext.device)
     cuda.check(lib.stencil1d_exact(ext.data_ptr(), ext_m.data_ptr(),
                                    wd.data_ptr(), out.data_ptr(), n, len(w),
-                                   _total(weights), cuda.stream_of(ext)),
+                                   _total(weights),
+                                   cuda.scan_load((ext, ext_m, out)),
+                                   cuda.stream_of(ext)),
                "stencil1d_exact")
     cuda.launches["stencil1d_exact"] += 1
     return out
@@ -158,7 +163,9 @@ def segment_stencil_cuda(ext: torch.Tensor, ext_s: torch.Tensor,
     cuda.check(lib.segment_stencil(ext.data_ptr(), ext_s.data_ptr(),
                                    wd.data_ptr(), out.data_ptr(), n, len(w),
                                    int(center), int(bool(exact)),
-                                   _total(weights), cuda.stream_of(ext)),
+                                   _total(weights),
+                                   cuda.scan_load((ext, ext_s, out)),
+                                   cuda.stream_of(ext)),
                "segment_stencil")
     cuda.launches["segment_stencil"] += 1
     return out

@@ -15,9 +15,11 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import registry as treg  # noqa: E402
 
-# 0, the reference's 2048-row tile, and the look-back scans' ragged edges:
-# a 4-row vector (3, 4, 5) and their 5120-row tile (csrc/lookback.cuh)
-SIZES = (0, 1, 3, 4, 5, 2047, 2048, 2049, 5000, 5119, 5120, 5121, 10239, 10241)
+# 0, the reference's 2048-row tile, the stencils' 4096-output tile
+# (csrc/stencil1d.cu), and the look-back scans' ragged edges: a 4-row
+# vector (3, 4, 5) and their 5120-row tile (csrc/lookback.cuh)
+SIZES = (0, 1, 3, 4, 5, 2047, 2048, 2049, 4095, 4096, 4097, 5000, 5119, 5120,
+         5121, 10239, 10241)
 NAMES = ("prefix_sum", "bucket_scatter", "segment_sums", "segment_scan",
          "segment_rank", "stencil1d", "stencil1d_exact", "segment_stencil",
          "decode_attention")
@@ -31,6 +33,13 @@ SEGMENT_STENCILS = (((0.25, 0.5, 0.25), 1, False), ((0.25, 0.5, 0.25), 1, True),
                     ((0.1, -0.4, 2.0, 0.3, 0.7), 0, False), ((1.0,) * 5, 2, True),
                     ((1.0,), 0, False), (tuple(np.linspace(0.05, 1.0, 20)), 19, True),
                     ((1.0 / 7,) * 7, 6, True))
+# and, at the sizes around the stencils' tile and at a few tiles, every K of
+# 1, 3, 7 and 20 taps at centres 0, K // 2 and K - 1, exact on and off
+STENCIL_EDGES = (4095, 4096, 4097, 10241)
+SEGMENT_STENCIL_GRID = tuple(
+    (tuple(np.linspace(0.05, 1.0, k)) if k > 1 else (1.5,), c, exact)
+    for k in (1, 3, 7, 20) for c in sorted({0, k // 2, k - 1})
+    for exact in (False, True))
 
 
 def _values(rng, n, dtype):
@@ -96,7 +105,8 @@ def _cases(name, rng, n, dtype):
             out.append((ext, ext_m, tuple(abs(v) for v in w)))
         return out
     out = []                          # segment_stencil, as segment_stencil1d
-    for w, c, exact in SEGMENT_STENCILS:  # builds it: -2 halo, -1 invalid
+    grid = SEGMENT_STENCIL_GRID if n in STENCIL_EDGES else ()
+    for w, c, exact in SEGMENT_STENCILS + grid:  # builds it: -2 halo, -1 invalid
         k = len(w)
         ext = np.zeros(n + k - 1, dtype)
         ext[c:c + n] = _values(rng, n, dtype)
@@ -254,15 +264,15 @@ def test_lm_decode_on_card_matches_cpu(card):
     torch.testing.assert_close(outs[1], outs[0], rtol=0, atol=1e-4)
 
 
-# The look-back scans (csrc/lookback.cuh: prefix_sum, segment_rank) on their
-# hazards, at every size above and at one whose tiles look back past a
-# window of 32: a view whose data is not 16-byte aligned (x[1:] of a fresh
-# tensor, the WORDS fetch); two calls back to back on other inputs of one
-# length (the freed status words come back from the allocator and must be
-# cleared); one segment head at row 0 and none after it (no tile
-# restarts); int32 sums that wrap past 2^31 (exact modulo 2^32).  Integer
-# values throughout, so float32 sums are exact and every comparison is
-# bitwise.
+# The look-back scans (csrc/lookback.cuh: prefix_sum, segment_scan,
+# segment_rank) on their hazards, at every size above and at one whose
+# tiles look back past a window of 32: a view whose data is not 16-byte
+# aligned (x[1:] of a fresh tensor, the WORDS fetch); two calls back to back
+# on other inputs of one length (the freed status words come back from the
+# allocator and must be cleared); one segment head at row 0 and none after
+# it (no tile restarts); int32 sums that wrap past 2^31 (exact modulo 2^32).
+# Integer values throughout, so float32 sums are exact and every comparison
+# is bitwise.
 HAZARDS = ("misaligned", "back_to_back", "one_head", "wrap")
 
 
@@ -271,6 +281,7 @@ HAZARDS = ("misaligned", "back_to_back", "one_head", "wrap")
 @pytest.mark.parametrize("hazard", HAZARDS)
 def test_lookback_hazards_on_card(card, hazard, n):
     from repro_torch.kernels.segment_rank import segment_rank as rk
+    from repro_torch.kernels.segment_scan import segment_scan as ss
     from repro_torch.kernels.stream_compact import stream_compact as sc
 
     rng = np.random.default_rng(n * len(HAZARDS) + HAZARDS.index(hazard))
@@ -294,6 +305,10 @@ def test_lookback_hazards_on_card(card, hazard, n):
     def ranks(seg, ordb):
         return [rk.segment_rank_cuda(seg, ordb, kind) for kind in RANK_KINDS]
 
+    def scans_equal(x, seg, got):
+        assert torch.equal(got, ss.segment_scan_plain(x, seg)), \
+            (hazard, n, x.dtype)
+
     if hazard == "misaligned":
         for dtype in (np.int32, np.float32):
             x = values(n + 1, dtype)[1:]
@@ -301,6 +316,9 @@ def test_lookback_hazards_on_card(card, hazard, n):
             sums_equal(x, sc.prefix_sum_cuda(x))
         seg, ordb = (t[1:] for t in masks(n + 1))
         ranks_equal(seg, ordb, ranks(seg, ordb))
+        for dtype in (np.int32, np.float32):
+            x = values(n + 1, dtype)[1:]
+            scans_equal(x, seg, ss.segment_scan_cuda(x, seg))
     elif hazard == "back_to_back":
         for dtype in (np.int32, np.float32):
             xs = [values(n, dtype) for _ in range(2)]
@@ -311,12 +329,20 @@ def test_lookback_hazards_on_card(card, hazard, n):
         got = [ranks(*p) for p in pairs]
         for p, g in zip(pairs, got):
             ranks_equal(*p, g)
+        for dtype in (np.int32, np.float32):
+            xs = [values(n, dtype) for _ in range(2)]
+            got = [ss.segment_scan_cuda(x, p[0]) for x, p in zip(xs, pairs)]
+            for x, p, g in zip(xs, pairs, got):
+                scans_equal(x, p[0], g)
     elif hazard == "one_head":
         seg = torch.zeros(n, dtype=torch.int32, device=card)
         seg[:1] = 1
         ordb = seg | torch.from_numpy(
             (rng.random(n) < 0.3).astype(np.int32)).to(card)
         ranks_equal(seg, ordb, ranks(seg, ordb))
+        for dtype in (np.int32, np.float32):
+            x = values(n, dtype)
+            scans_equal(x, seg, ss.segment_scan_cuda(x, seg))
     else:
         x = torch.from_numpy(rng.integers(-2**30, 2**30, n).astype(np.int32)).to(card)
         c = torch.cumsum(x.long(), 0)
@@ -324,3 +350,37 @@ def test_lookback_hazards_on_card(card, hazard, n):
         got = sc.prefix_sum_cuda(x)
         assert torch.equal(got, want), (hazard, n)
         sums_equal(x, got)
+        # one head at row 0: the segmented sums are the same wrapped sums
+        seg = torch.zeros(n, dtype=torch.int32, device=card)
+        seg[:1] = 1
+        got = ss.segment_scan_cuda(x, seg)
+        assert torch.equal(got, want), (hazard, n, "segment_scan")
+        scans_equal(x, seg, got)
+
+
+# f32 look-back scans give the same bits on every call (csrc/lookback.cuh,
+# ORDERED): 20 calls on non-integer values over many tiles, the segmented
+# scan with heads every ~64 rows and with one head at row 0.
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", (4 * 5120 + 3, 40 * 5120 + 17))
+@pytest.mark.parametrize("name", ("prefix_sum", "segment_scan", "segment_scan_one_head"))
+def test_f32_scans_repeat_bitwise_on_card(card, name, n):
+    from repro_torch.kernels.segment_scan import segment_scan as ss
+    from repro_torch.kernels.stream_compact import stream_compact as sc
+
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(card)
+    seg = torch.from_numpy(_seg_mask(rng, n, 1 / 64)).to(card)
+    if name == "segment_scan_one_head":
+        seg.zero_()
+        seg[0] = 1
+    call = (lambda: sc.prefix_sum_cuda(x)) if name == "prefix_sum" \
+        else (lambda: ss.segment_scan_cuda(x, seg))
+    first = call()
+    bits = first.view(torch.int32)
+    for _ in range(19):
+        assert torch.equal(call().view(torch.int32), bits), (name, n)
+    want = (sc.prefix_sum_plain(x) if name == "prefix_sum"
+            else ss.segment_scan_plain(x, seg))
+    tol = 1e-5 * torch.cumsum(x.abs().double(), 0) + 1e-4
+    assert bool(((first.double() - want.double()).abs() <= tol).all()), (name, n)

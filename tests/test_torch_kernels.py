@@ -1,16 +1,19 @@
 """Kernel parity: the port's plain versions against the reference's ref
 backends AND its Pallas kernels in interpret mode, on the same numpy inputs.
 
-Sizes include 0 and the tile edges around 2048; dtypes int32 and float32,
+Sizes include 0 and the tile edges around 2048 (the reference's), 4096 (the
+stencil kernel's) and 5120 (the look-back scans'); dtypes int32 and float32,
 with bool covered through the physical layer; stencils with 1, 3, 5 and 20
-taps, rank kinds all three.  Integers are exact; the tolerances of floats
-are stated at ``_assert_same`` in tests/test_torch_cuda.py (the window
-kernels' tighter than the reference's rtol=1e-4, atol=1e-3 between its
-backends, tests/test_kernel_registry.py).  ``segment_sums`` is compared on
-the valid prefix only (the reference's Pallas wrapper leaves other slots
-undefined) and ``bucket_scatter`` slots only where ``dest < P``.  The
-inputs and comparisons are shared with tests/test_torch_cuda.py, which
-holds the CUDA kernels against these plain versions on a card.
+taps, and at the 4096 edges every segment stencil of 1, 3, 7 and 20 taps at
+centres 0, K // 2 and K - 1, exact on and off; rank kinds all three.
+Integers are exact; the tolerances of floats are stated at ``_assert_same``
+in tests/test_torch_cuda.py (the window kernels' tighter than the
+reference's rtol=1e-4, atol=1e-3 between its backends,
+tests/test_kernel_registry.py). ``segment_sums`` is compared on the valid
+prefix only (the reference's Pallas wrapper leaves other slots undefined)
+and ``bucket_scatter`` slots only where ``dest < P``. The inputs and
+comparisons are shared with tests/test_torch_cuda.py, which holds the CUDA
+kernels against these plain versions on a card.
 """
 import numpy as np
 import pytest
@@ -96,7 +99,8 @@ def test_kernel_wrapper_refuses_cpu_tensors(name):
 def test_lookback_fetch_follows_alignment():
     """How the look-back scans (csrc/lookback.cuh) fetch a tile: TMA bulk
     copies (BULK) when every tensor's data is 16-byte aligned, 4-byte loads
-    (WORDS) when any tensor is a view one element in."""
+    (WORDS) when any tensor is a view one element in.  segment_scan passes
+    its three tensors (x, boundary, out)."""
     from repro_torch.kernels import cuda
     x = torch.zeros(9, dtype=torch.int32)
     v = x[1:]
@@ -105,3 +109,10 @@ def test_lookback_fetch_follows_alignment():
     assert cuda.scan_load((x, x.clone())) == cuda.BULK
     assert cuda.scan_load((x, v)) == cuda.WORDS
     assert cuda.scan_load((v,)) == cuda.WORDS
+    xf = torch.zeros(9, dtype=torch.float32)
+    b, out = torch.zeros(9, dtype=torch.int32), torch.empty(9)
+    assert cuda.scan_load((xf, b, out)) == cuda.BULK
+    for i in range(3):
+        ts = [xf, b, out]
+        ts[i] = ts[i][1:]
+        assert cuda.scan_load(tuple(ts)) == cuda.WORDS

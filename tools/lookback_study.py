@@ -4,17 +4,24 @@ card, against each other and against ``torch.cumsum``:
     python tools/lookback_study.py [--n N]
 
 Each variant is the shipped source with a few lines replaced (the tile's
-warps and chunks, the fetch, the status loads, no look-back at all), built
-with nvcc into its own directory under the build directory and called
-through its own C entry points, apart from the libraries the package
-loads.  The variants run in turns, forward then backward, on one set of
-inputs: int32 keep flags for ``prefix_sum`` and the timed masks of
-``chip_smoke.py`` (a segment head every 11585 rows, run heads every ~8) for
-the three ``segment_rank`` kinds.  Every variant but ``no_lookback`` (whose
-answers are wrong by design: it measures what the look-back costs) is held
-bitwise against the plain versions first.  Prints the card's name and power
-limit, then one JSON line per variant and round: milliseconds per call,
-timed as ``chip_smoke.time_ms`` times them.
+warps and chunks, the fetch, the status loads, the float look-back's
+serial fold, no look-back at all), built with nvcc into its own directory
+under the build directory and called through its own C entry points, apart
+from the libraries the package loads.  The variants run in turns, forward
+then backward, on one set of inputs: int32 keep flags and normal float32
+values for ``prefix_sum``, the float32 values with a segment head every
+11585 rows for ``segment_scan``, and the timed masks of ``chip_smoke.py``
+(the same heads, run heads every ~8) for the three ``segment_rank`` kinds.
+Every variant but ``no_lookback`` (whose answers are wrong by design: it
+measures what the look-back costs) is held against the plain versions
+first: the integer scans bitwise, the float32 ones within 1e-5 of the
+running sum of |x|.  In the first round each variant's float32 scans are
+called 20 times: ``differing_of_20`` counts the calls whose bits differ
+from the first (0 with the shipped serial fold; ``tree``, which combines
+float windows with the integer scans' shuffle tree, shows why it is not
+shipped).  Prints the card's name and power limit, then one JSON line per
+variant and round: milliseconds per call, timed as ``chip_smoke.time_ms``
+times them.
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ import torch  # noqa: E402
 from chip_smoke import nvidia_smi_line, time_ms  # noqa: E402
 from repro_torch.kernels import cuda  # noqa: E402
 from repro_torch.kernels.segment_rank import segment_rank as rk  # noqa: E402
+from repro_torch.kernels.segment_scan import segment_scan as ss  # noqa: E402
 from repro_torch.kernels.stream_compact import stream_compact as sc  # noqa: E402
 
 WARPS = "constexpr int THREADS = 160;"
@@ -45,7 +53,7 @@ REGISTERS = (
      "__shared__ __align__(128) uint32_t s_in[NIN][4];"),
     ("if (LOAD == BULK && tb + TILE <= n) {", "if (false) {"),
     ("""  if (LOAD == BULK && full) {
-    wait_phase0(&s_bar);
+    bar_wait(&s_bar, 0);
   } else {
     for (int i = threadIdx.x; i < TILE; i += THREADS) {
       const long long g = tile_base + i;
@@ -89,8 +97,12 @@ VARIANTS = {
     "bulk_relaxed_loads": ((("ld.acquire.gpu.u64", "ld.relaxed.gpu.u64"),),
                            cuda.BULK),
     "no_lookback": ((("excl = look_back(op, status, tile);", ""),), cuda.BULK),
+    "tree": ((("if constexpr (Op::ORDERED) {", "if constexpr (false) {"),),
+             cuda.BULK),
 }
-LIBS = ("prefix_sum", "segment_rank")
+LIBS = ("prefix_sum", "segment_scan", "segment_rank")
+# the float32 scans, called 20 times each in a variant's first round
+F32 = ("prefix_sum_f32", "segment_scan_f32")
 
 
 def build(root: Path) -> dict:
@@ -119,19 +131,29 @@ def build(root: Path) -> dict:
                    for lib in LIBS} for name in VARIANTS}
 
 
-def calls(libs: dict, load: int, x, seg, ordb) -> dict:
-    """The variant's four scans as the wrappers make them: fresh output and
+def calls(libs: dict, load: int, x, xf, seg, ordb) -> dict:
+    """The variant's seven scans as the wrappers make them: fresh output and
     scratch each call, on the current stream."""
-    ps, sr = libs["prefix_sum"], libs["segment_rank"]
+    ps, sg, sr = libs["prefix_sum"], libs["segment_scan"], libs["segment_rank"]
     stream = cuda.stream_of(x)
 
-    def prefix_sum():
-        out = torch.empty_like(x)
-        scratch = torch.empty(ps.prefix_sum_scratch_bytes(x.numel()),
-                              dtype=torch.uint8, device=x.device)
-        cuda.check(ps.prefix_sum_i32(x.data_ptr(), out.data_ptr(),
-                                     scratch.data_ptr(), x.numel(), load,
-                                     stream), "prefix_sum")
+    def prefix_sum(v):
+        out = torch.empty_like(v)
+        scratch = torch.empty(ps.prefix_sum_scratch_bytes(v.numel()),
+                              dtype=torch.uint8, device=v.device)
+        fn = ps.prefix_sum_i32 if v.dtype == torch.int32 else ps.prefix_sum_f32
+        cuda.check(fn(v.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                      v.numel(), load, stream), "prefix_sum")
+        return out
+
+    def segment_scan():
+        out = torch.empty_like(xf)
+        scratch = torch.empty(sg.segment_scan_scratch_bytes(xf.numel()),
+                              dtype=torch.uint8, device=xf.device)
+        cuda.check(sg.segment_scan_f32(xf.data_ptr(), seg.data_ptr(),
+                                       out.data_ptr(), scratch.data_ptr(),
+                                       xf.numel(), load, stream),
+                   "segment_scan")
         return out
 
     def rank(kind):
@@ -144,9 +166,19 @@ def calls(libs: dict, load: int, x, seg, ordb) -> dict:
                                    stream), "segment_rank")
         return out
 
-    fns = {"prefix_sum": prefix_sum}
+    fns = {"prefix_sum": lambda: prefix_sum(x),
+           "prefix_sum_f32": lambda: prefix_sum(xf),
+           "segment_scan_f32": segment_scan}
     fns.update({k: (lambda k=k: rank(k)) for k in rk.KINDS})
     return fns
+
+
+def differing(fn, times: int = 20) -> int:
+    """How many of ``times`` float32 results differ in their bits from the
+    first."""
+    bits = fn().view(torch.int32)
+    return sum(not torch.equal(fn().view(torch.int32), bits)
+               for _ in range(times - 1))
 
 
 def main(argv=None) -> int:
@@ -160,23 +192,36 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     x = (torch.rand(n, device=dev, generator=g) < 0.5).to(torch.int32)
+    xf = torch.randn(n, device=dev, generator=g)
     seg = (torch.rand(n, device=dev, generator=g) < 1 / 11585).int()
     seg[0] = 1
     ordb = seg | (torch.rand(n, device=dev, generator=g) < 0.125).int()
-    want = {"prefix_sum": sc.prefix_sum_plain(x)}
+    want = {"prefix_sum": sc.prefix_sum_plain(x),
+            "prefix_sum_f32": sc.prefix_sum_plain(xf),
+            "segment_scan_f32": ss.segment_scan_plain(xf, seg)}
     want.update({k: rk.segment_rank_plain(seg, ordb, k) for k in rk.KINDS})
+    tol = 1e-5 * torch.cumsum(xf.abs().double(), 0) + 1e-4
     order = list(VARIANTS) + list(VARIANTS)[::-1]
     for rnd, name in enumerate(order):
-        fns = calls(libs[name], VARIANTS[name][1], x, seg, ordb)
+        fns = calls(libs[name], VARIANTS[name][1], x, xf, seg, ordb)
+        rec = {"variant": name, "round": rnd // len(VARIANTS)}
         if name != "no_lookback":
             for k, fn in fns.items():
-                assert torch.equal(fn(), want[k]), f"{name}: {k} differs"
-        rec = {"variant": name, "round": rnd // len(VARIANTS)}
+                got = fn()
+                if k in F32:
+                    d = (got.double() - want[k].double()).abs()
+                    assert bool((d <= tol).all()), f"{name}: {k} off"
+                else:
+                    assert torch.equal(got, want[k]), f"{name}: {k} differs"
+            if rec["round"] == 0:
+                rec["differing_of_20"] = {k: differing(fns[k]) for k in F32}
         rec.update({k: time_ms(fn, torch) for k, fn in fns.items()})
         rec["torch.cumsum"] = time_ms(
             lambda: torch.cumsum(x, 0, dtype=torch.int32), torch)
+        rec["torch.cumsum_f32"] = time_ms(lambda: torch.cumsum(xf, 0), torch)
         print(json.dumps(rec), flush=True)
     return 0
+
 
 
 if __name__ == "__main__":
