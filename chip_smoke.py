@@ -22,11 +22,15 @@ Phases, in order; any failure raises and the exit code is not 0:
    aligned, two calls back to back, int32 sums past 2^31, one segment head
    at row 0 of 2^27 rows; torch.profiler shows each call running one
    kernel and at most one memset; 20 calls of the float32 scans on
-   non-integer values give the same bits.  The stencils are held bitwise
+   non-integer values give the same bits.  bucket_scatter (a look-back
+   over P counts) is held exactly at P = 1 .. 2048, around its tile, on one
+   bucket, all rows invalid, an invalid tail, misaligned views and back to
+   back calls, profiled as one kernel plus one memset, and timed at P = 8
+   and 256 beside torch.sort(stable=True).  The stencils are held bitwise
    (0 ulps) in every mode, also around their 4096-output tile, on ragged
    ends, on views not 16-byte aligned and past the 1024 taps staged at
    once.
-3. The three main paths, each with the launch counters zeroed just before
+3. The four main paths, each with the launch counters zeroed just before
    it and read just after:
    - relational, through ``hf`` at P = 1: Fig. 8a filter, join and
      aggregate and TPCx-BB Q26 / Q26-multikey against numpy oracles;
@@ -37,6 +41,12 @@ Phases, in order; any failure raises and the exit code is not 0:
      row_number) over 2^27 rows in 11585 groups, against numpy oracles;
      prefix_sum, segment_scan, segment_rank, stencil1d, stencil1d_exact and
      segment_stencil must have launched;
+   - exchange_p2, two ranks on the one card joined by gloo (NCCL refuses
+     two ranks on one card; gloo stages CUDA tensors through the host):
+     Fig. 8a join at 2^24 x 2^20 rows and Q26 through ``hf`` at P = 2,
+     rows against the same numpy oracles, all_to_all calls against the
+     plan's shuffle census; bucket_scatter must have launched in each rank,
+     prefix_sum in the sum over the ranks;
    - lm, through ``repro_torch.launch.steps`` as examples/serve_lm.py
      drives the reference: qwen3-0.6b (28 layers, bf16, random weights from
      a seed) serves 32 prompts of 2048 tokens with 256 greedy new tokens;
@@ -44,8 +54,6 @@ Phases, in order; any failure raises and the exit code is not 0:
      path, the served logits of two requests are held against the port's
      own no-cache forward (within 0.1), and the same path at 2 layers in
      float32 (within 1e-3).
-   (bucket_scatter runs only in exchanges at P > 1, which one card cannot
-   host; phase 2 holds it.)
 4. Report: a JSON line of query wall times, LM serving times, peak memory
    and the checks' largest differences (with a digest of the bytes of the
    float32 cumsums, fig8b_cumsum's and the grouped one's, to compare two
@@ -201,13 +209,15 @@ def digest(a: np.ndarray) -> str:
 
 def one_call_profiles(torch, n: int) -> dict:
     """One call of each look-back wrapper under torch.profiler (prefix_sum
-    and segment_scan in int32 and float32, the three rank kinds; n rows):
-    one scan_tiles kernel and at most one memset each.  These must be the process's first
+    and segment_scan in int32 and float32, the three rank kinds,
+    bucket_scatter at P = 8 and 256; n rows): one scan_tiles (or
+    scatter_tiles) kernel and at most one memset each.  These must be the process's first
     torch.profiler sessions, and are taken within a second of each other:
     on an H100 (torch 2.11, CUDA 12.8) the device timestamps of a trace
     drift from its host timeline from about 10 s after the process's first
     session on, and within a minute most traces hold no device event at
     all, with or without work in between (tools/profiler_probe.py)."""
+    from repro_torch.kernels.hash_partition import hash_partition as hp
     from repro_torch.kernels.segment_rank import segment_rank as rk
     from repro_torch.kernels.segment_scan import segment_scan as ss
     from repro_torch.kernels.stream_compact import stream_compact as sc
@@ -226,8 +236,98 @@ def one_call_profiles(torch, n: int) -> dict:
     out["segment_rank"] = {kind: one_launch(
         torch, lambda: rk.segment_rank_cuda(seg, ordb, kind), LOOKBACK_KERNEL,
         f"segment_rank {kind}") for kind in rk.KINDS}
+    dest = {P: torch.randint(0, P + 1, (n,), device=dev, generator=g,
+                             dtype=torch.int32) for P in BUCKET_TIMED_PS}
+    out["bucket_scatter"] = {f"P={P}": one_launch(
+        torch, lambda: hp.bucket_scatter_cuda(dest[P], P), BUCKET_KERNEL,
+        f"bucket_scatter P={P}") for P in BUCKET_TIMED_PS}
     log(f"one call each: {out}")
     return out
+
+
+# bucket_scatter (csrc/bucket_scatter.cu): the bucket counts it is held at,
+# and the two it is timed at (a node of 8 cards; a 256-rank deployment)
+BUCKET_PS = (1, 2, 8, 255, 256, 1024, 2048)
+BUCKET_TIMED_PS = (8, 256)
+BUCKET_KERNEL = "scatter_tiles"
+
+
+def bucket_scatter_phases(torch, sizes, record: dict):
+    """bucket_scatter against its plain version: counts exact, slots exact
+    wherever dest < P (the rest are don't-care), at every P of BUCKET_PS,
+    at ``sizes`` and around the kernel's tile (T - 1, T, T + 1, a few tiles
+    and 40 tiles with ragged ends); on its hazards: every row in one
+    bucket, every row invalid, invalid rows scattered and as a tail, a view
+    not 16-byte aligned (the WORDS fetch), two calls back to back (the
+    second gets the first's freed status words, which the kernel must
+    clear).  Then timed at n = sizes[-1] for P in BUCKET_TIMED_PS beside
+    the plain version, its bound and torch.sort(stable=True) (a reference
+    point: it sorts, and is not the same function)."""
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.hash_partition import hash_partition as hp
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    lib = cuda.load("bucket_scatter")
+    tiles = {P: lib.bucket_scatter_tile(P) for P in BUCKET_PS}
+
+    def held(dest, P, tag, got=None):
+        r1, c1 = got if got is not None else hp.bucket_scatter_cuda(dest, P)
+        r2, c2 = hp.bucket_scatter_plain(dest, P)
+        ok = (dest >= 0) & (dest < P)
+        assert torch.equal(c1, c2), f"bucket_scatter counts P={P} {tag}"
+        assert torch.equal(r1[ok], r2[ok]), f"bucket_scatter slots P={P} {tag}"
+
+    def ids(n, P, invalid=0.0):
+        """Bucket ids in [0, P), a share ``invalid`` of them P."""
+        d = torch.randint(0, P, (n,), device=dev, generator=g, dtype=torch.int32)
+        if invalid:
+            d[torch.rand(n, device=dev, generator=g) < invalid] = P
+        return d
+
+    for P in BUCKET_PS:
+        tile = tiles[P]
+        edges = (tile - 1, tile, tile + 1, 3 * tile + 5, 40 * tile + 3)
+        for n in sizes + list(edges):
+            held(ids(n, P, 1 / (P + 1)), P, f"n={n}")
+        for n in edges + (sizes[-2],):
+            held(torch.full((n,), P - 1, dtype=torch.int32, device=dev), P,
+                 f"one bucket n={n}")
+            held(torch.full((n,), P, dtype=torch.int32, device=dev), P,
+                 f"all invalid n={n}")
+            d = ids(n, P, 1 / 6)
+            d[n - n // 5:] = P
+            held(d, P, f"invalid scattered and as a tail n={n}")
+            held(misaligned(ids(n + 1, P, 1 / 6)), P, f"misaligned n={n}")
+            a, b = ids(n, P, 1 / 6), ids(n, P)
+            ga, gb = hp.bucket_scatter_cuda(a, P), hp.bucket_scatter_cuda(b, P)
+            held(a, P, f"back to back (first) n={n}", ga)
+            held(b, P, f"back to back (second) n={n}", gb)
+        log(f"bucket_scatter P={P}: ok at sizes {sizes} and {edges}, one "
+            f"bucket, all invalid, invalid tail, misaligned, back to back")
+
+    n = sizes[-1]
+    by_p = {}
+    for P in BUCKET_TIMED_PS:
+        dest = ids(n, P)
+        held(dest, P, f"timed inputs n={n}")
+        k = {"ms": time_ms(lambda: hp.bucket_scatter_cuda(dest, P), torch),
+             "plain_ms": time_ms(lambda: hp.bucket_scatter_plain(dest, P),
+                                 torch),
+             "stable_sort_ms": time_ms(
+                 lambda: torch.sort(dest, stable=True), torch)}
+        k["bound_ms"], k["bound_by"] = bound_ms(8.0 * n + 4 * P, n)
+        by_p[P] = k
+        del dest
+    rec = {"name": "bucket_scatter", "route": "cuda",
+           "source": "src/repro_torch/csrc/bucket_scatter.cu",
+           "replaces": "src/repro/kernels/hash_partition/hash_partition.py:44",
+           "shape": f"int32 dest, n={n}, P=256", "max_abs_err": 0.0,
+           **by_p[256], "library_ms": None, "library_call": None,
+           "library_note": "no one-call equivalent; stable_sort_ms is "
+                           "torch.sort(dest, stable=True), a reference point",
+           "tile_rows_by_p": tiles, "by_p": by_p}
+    record["bucket_scatter"] = rec
 
 
 def kernel_phases(torch, sizes, record: dict):
@@ -305,34 +405,7 @@ def kernel_phases(torch, sizes, record: dict):
     record["prefix_sum"] = rec
     del xi, xf
 
-    # -- bucket_scatter: ranks exact where dest < P, counts exact.
-    err = 0
-    for P in (2, 8, 256):
-        for n in sizes:
-            dest = torch.randint(0, P + 1, (n,), device=dev, generator=g,
-                                 dtype=torch.int32)        # P = invalid row
-            r1, c1 = hp.bucket_scatter_cuda(dest, P)
-            r2, c2 = hp.bucket_scatter_plain(dest, P)
-            ok = dest < P
-            assert torch.equal(c1, c2), f"bucket_scatter counts P={P} n={n}"
-            assert torch.equal(r1[ok], r2[ok]), f"bucket_scatter P={P} n={n}"
-            err = max(err, int((c1 - c2).abs().max()))
-            if bool(ok.any()):
-                err = max(err, int((r1[ok] - r2[ok]).abs().max()))
-        log(f"bucket_scatter P={P}: ok at sizes {sizes}")
-    n, P = sizes[-1], 256
-    dest = torch.randint(0, P, (n,), device=dev, generator=g, dtype=torch.int32)
-    rec = {"name": "bucket_scatter", "route": "cuda",
-           "source": "src/repro_torch/csrc/bucket_scatter.cu",
-           "replaces": "src/repro/kernels/hash_partition/hash_partition.py:44",
-           "shape": f"int32 dest, n={n}, P={P}", "max_abs_err": float(err),
-           "ms": time_ms(lambda: hp.bucket_scatter_cuda(dest, P), torch),
-           "plain_ms": time_ms(lambda: hp.bucket_scatter_plain(dest, P), torch),
-           "library_ms": None, "library_call": None,
-           "main_path": "exchange at P > 1 only; not run at P = 1"}
-    rec["bound_ms"], rec["bound_by"] = bound_ms(8.0 * n + 4 * P, n)
-    record["bucket_scatter"] = rec
-    del dest
+    bucket_scatter_phases(torch, sizes, record)
 
     # -- segment_sums: every slot within 1e-4 of the segment's sum of |x|
     # (+1e-5); slots past the last segment exactly 0.
@@ -385,7 +458,23 @@ def kernel_phases(torch, sizes, record: dict):
                               f"partial stage n={n}"))
     log(f"segment_sums partial-stage shape n={n}: ok")
     del prefix
+    # two one-call yardsticks: a contended-atomic index_add_ into num slots,
+    # and torch.segment_reduce over the sorted segments' lengths (built
+    # outside the timed call; its 4096 sums held against the kernel's)
     idx = seg.long()
+    lengths = torch.bincount(idx, minlength=groups)
+    reduce = torch.segment_reduce(vals, "sum", lengths=lengths, unsafe=True)
+    mine = sr.segment_sums_cuda(vals, seg, valid, num)[:groups]
+    mag = sr.segment_sums_plain(vals.abs(), seg, valid, num)[:groups]
+    assert bool(((reduce - mine).abs() <= 1e-4 * mag + 1e-5).all()), \
+        "segment_sums against torch.segment_reduce"
+    yard = {"Tensor.index_add_": time_ms(
+                lambda: torch.zeros(num, device=dev).index_add_(0, idx, vals),
+                torch),
+            "torch.segment_reduce(sum, lengths, unsafe=True)": time_ms(
+                lambda: torch.segment_reduce(vals, "sum", lengths=lengths,
+                                             unsafe=True), torch)}
+    fastest = min(yard, key=yard.get)
     rec = {"name": "segment_sums", "route": "cuda",
            "source": "src/repro_torch/csrc/segment_sums.cu",
            "replaces": "src/repro/kernels/segment_reduce/segment_reduce.py:33",
@@ -395,13 +484,12 @@ def kernel_phases(torch, sizes, record: dict):
                          torch),
            "plain_ms": time_ms(
                lambda: sr.segment_sums_plain(vals, seg, valid, num), torch),
-           "library_ms": time_ms(
-               lambda: torch.zeros(num, device=dev).index_add_(0, idx, vals),
-               torch),
-           "library_call": "Tensor.index_add_"}
+           "library_ms": yard[fastest], "library_call": fastest,
+           "library_calls_ms": yard,
+           "segment_reduce_max_abs_diff": float((reduce - mine).abs().max())}
     rec["bound_ms"], rec["bound_by"] = bound_ms(9.0 * n + 4.0 * num, n)
     record["segment_sums"] = rec
-    del seg, valid, vals, idx
+    del seg, valid, vals, idx, lengths, reduce, mine, mag
     cuda.reset_launches()
 
 
@@ -923,6 +1011,57 @@ def q26_multikey(hf, ss, dim, min_count=4):
     return per_key[per_key["n"] > min_count]
 
 
+def join_tables(n_left: int, n_right: int):
+    """Fig. 8a join's tables (bench_relational.py:43): every left id in
+    [0, n_right), the right ids an arange."""
+    rng = np.random.default_rng(1)
+    left = {"id": rng.integers(0, n_right, n_left).astype(np.int32),
+            "x": rng.normal(size=n_left).astype(np.float32)}
+    right = {"cid": np.arange(n_right, dtype=np.int32),
+             "w": rng.normal(size=n_right).astype(np.float32)}
+    return left, right
+
+
+def join_want(left, right) -> dict:
+    """Every left row matches right row id (cid is an arange), in left
+    order."""
+    return {"id": left["id"], "x": left["x"], "w": right["w"][left["id"]]}
+
+
+# TPCx-BB Q26 at scale 64 of bench_tpcx.run (bench_tpcx.py:126)
+Q26_SCALE = 64
+
+
+def q26_tables(synth, sf: int = Q26_SCALE):
+    """store_sales and item at scale ``sf``, and the number of customers."""
+    n_sales, n_items, n_cust = 400_000 * sf, 20_000 * sf, 50_000 * sf
+    ss = synth.store_sales(n_sales, n_items, n_cust, seed=10)
+    it = synth.item(n_items, seed=11)
+    return ss, it, n_cust
+
+
+def q26_want(ss, it, n_cust: int) -> dict:
+    """Q26's rows from numpy bincounts, in customer order."""
+    cls = it["i_class_id"][ss["ss_item_sk"]]
+    cust = ss["ss_customer_sk"]
+    n_c = np.bincount(cust, minlength=n_cust)
+    want = {"ss_customer_sk": np.flatnonzero(n_c > 4).astype(np.int32)}
+    k = want["ss_customer_sk"]
+    want["c_i_count"] = n_c[k].astype(np.int32)
+    for c in (1, 2, 3):
+        want[f"id{c}"] = np.bincount(cust, weights=(cls == c),
+                                     minlength=n_cust)[k].astype(np.int32)
+    return want
+
+
+def sorted_rows(cols: dict, by) -> dict:
+    """The rows of ``cols`` ordered by the columns ``by`` (lexicographic,
+    the first most significant), to compare results whose row order
+    depends on P."""
+    order = np.lexsort([cols[k] for k in reversed(by)])
+    return {k: v[order] for k, v in cols.items()}
+
+
 def region_tables(ss, it, n_regions=4, seed=13):
     """The region column and (item, region) dimension of bench_tpcx.py:50."""
     rng = np.random.default_rng(seed)
@@ -1032,18 +1171,12 @@ def main_path(torch, hf, synth, queries: dict, profile_dir: str | None = None):
     del t, df, out, m
 
     # Fig. 8a join (bench_relational.py:43): 2^26 left rows, 2^22 right
-    n_left, n_right = 2**26, 2**22
-    rng = np.random.default_rng(1)
-    left = {"id": rng.integers(0, n_right, n_left).astype(np.int32),
-            "x": rng.normal(size=n_left).astype(np.float32)}
-    right = {"cid": np.arange(n_right, dtype=np.int32),
-             "w": rng.normal(size=n_right).astype(np.float32)}
+    left, right = join_tables(2**26, 2**22)
     out = run("fig8a_join", hf.join(hf.table(left, "l"), hf.table(right, "r"),
                                      on=("id", "cid")))
-    # every left row matches right row id (cid is arange); left order kept
-    check_equal(out, {"id": left["id"], "x": left["x"],
-                      "w": right["w"][left["id"]]}, "join")
-    queries["fig8a_join"]["rows_in"] = n_left + n_right
+    # left order kept at P = 1
+    check_equal(out, join_want(left, right), "join")
+    queries["fig8a_join"]["rows_in"] = 2**26 + 2**22
     del left, right, out
 
     # Fig. 8a aggregate (bench_relational.py:64): sum(x), mean(y) by id
@@ -1065,28 +1198,16 @@ def main_path(torch, hf, synth, queries: dict, profile_dir: str | None = None):
     del t, df, out
 
     # TPCx-BB Q26 at scale 64 of bench_tpcx.run (bench_tpcx.py:126)
-    sf = 64
-    n_sales, n_items, n_cust = 400_000 * sf, 20_000 * sf, 50_000 * sf
-    ss = synth.store_sales(n_sales, n_items, n_cust, seed=10)
-    it = synth.item(n_items, seed=11)
+    ss, it, n_cust = q26_tables(synth)
     out = run("fig11_q26", q26(hf, ss, it))
-    cls = it["i_class_id"][ss["ss_item_sk"]]
-    cust = ss["ss_customer_sk"]
-    n_c = np.bincount(cust, minlength=n_cust)
-    want = {"ss_customer_sk": np.flatnonzero(n_c > 4).astype(np.int32)}
-    k = want["ss_customer_sk"]
-    want["c_i_count"] = n_c[k].astype(np.int32)
-    for c in (1, 2, 3):
-        want[f"id{c}"] = np.bincount(cust, weights=(cls == c),
-                                     minlength=n_cust)[k].astype(np.int32)
-    check_equal(out, want, "q26")
-    queries["fig11_q26"]["rows_in"] = n_sales + n_items
-    del out, cls, cust
+    check_equal(out, q26_want(ss, it, n_cust), "q26")
+    queries["fig11_q26"]["rows_in"] = len(ss["ss_item_sk"]) + len(it["i_item_sk"])
+    del out
 
     ssr, dim = region_tables(ss, it)
     out = run("fig11_q26_multikey", q26_multikey(hf, ssr, dim))
     key = ssr["ss_item_sk"].astype(np.int64) * 4 + ssr["ss_region"]
-    nk = n_items * 4
+    nk = len(it["i_item_sk"]) * 4
     n_k = np.bincount(key, minlength=nk)
     sel = np.flatnonzero(n_k > 4)
     cls = it["i_class_id"][ssr["ss_item_sk"]]
@@ -1256,6 +1377,106 @@ def window_path(torch, hf, synth, queries: dict, profile_dir: str | None = None,
         assert np.array_equal(out[k], want.astype(np.int32)), \
             f"grouped_windows.{k} differs"
     queries["grouped_windows"]["rows_in"] = n
+
+
+# The exchange path: two ranks on the one card, joined by gloo (NCCL refuses
+# two ranks on one card; gloo stages CUDA tensors through the host, so the
+# walls are gloo's, not NCCL's).  Fig. 8a join at a quarter of the
+# relational path's rows, cut for that staging, and Q26 at its scale.
+P2_JOIN = (2**24, 2**20)
+P2_WORLD = 2
+
+
+def exchange_rank(rank: int, world: int, port: int, out_dir: str) -> None:
+    """One rank of the exchange path (started by torch.multiprocessing):
+    both queries through ``hf`` on the card at P = world, each with the
+    all_to_all calls counted; rank 0 holds the rows against the numpy
+    oracles.  Writes its walls, counts and launches to out_dir."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import hiframes as hf
+    from repro_torch.data import synth
+    from repro_torch.kernels import cuda
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank)
+    calls = [0]
+    a2a = dist.all_to_all_single
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return a2a(*a, **k)
+    dist.all_to_all_single = counted
+    cfg = hf.ExecConfig()          # the card
+    left, right = join_tables(*P2_JOIN)
+    ss, it, n_cust = q26_tables(synth)
+    runs = {"p2_fig8a_join": (hf.join(hf.table(left, "l"), hf.table(right, "r"),
+                                      on=("id", "cid")),
+                              ("id", "x"), lambda: join_want(left, right),
+                              sum(P2_JOIN)),
+            "p2_fig11_q26": (q26(hf, ss, it), ("ss_customer_sk",),
+                             lambda: q26_want(ss, it, n_cust),
+                             len(ss["ss_item_sk"]) + len(it["i_item_sk"]))}
+    res = {"rank": rank, "queries": {}}
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    for tag, (frame, key, want, rows_in) in runs.items():
+        calls[0] = 0
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t = frame.collect(cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        assert not t.overflow, f"{tag}: capacity overflow {t.overflow_ops}"
+        out = t.to_numpy()
+        census = frame.physical_plan(cfg).shuffle_census(P=world)["all_to_all"]
+        assert calls[0] == census, f"{tag}: {calls[0]} all_to_all, census {census}"
+        if rank == 0:
+            check_equal(sorted_rows(out, key), sorted_rows(want(), key), tag)
+        res["queries"][tag] = {
+            "wall_s": round(wall, 4), "rows_in": rows_in,
+            "rows_out": int(len(next(iter(out.values())))),
+            "all_to_all": calls[0], "census": census, "nshards": t.nshards}
+    torch.cuda.synchronize()
+    res["launches"] = dict(cuda.launches)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def exchange_path(torch, queries: dict) -> dict:
+    """The exchange path: P2_WORLD processes on the one card, each running
+    ``exchange_rank``; bucket_scatter must have launched in every rank.
+    Returns the launch counts summed over the ranks."""
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as mp
+    torch.cuda.empty_cache()       # leave the card's memory to the ranks
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory() as out_dir:
+        mp.spawn(exchange_rank, args=(P2_WORLD, port, out_dir),
+                 nprocs=P2_WORLD, join=True)
+        ranks = []
+        for r in range(P2_WORLD):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    for r in ranks:
+        assert r["launches"]["bucket_scatter"] > 0, \
+            f"bucket_scatter never launched in rank {r['rank']}"
+    for tag in ranks[0]["queries"]:
+        per = [r["queries"][tag] for r in ranks]
+        queries[tag] = {**per[0], "wall_s_by_rank": [q["wall_s"] for q in per],
+                        "wall_s": max(q["wall_s"] for q in per),
+                        "transport": f"gloo over tcp://localhost, {P2_WORLD} "
+                                     f"ranks on one card (host staging)"}
+        log(f"{tag}: {queries[tag]}")
+    queries["exchange_p2_launches_by_rank"] = [r["launches"] for r in ranks]
+    return {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
 
 
 def lm_serve(torch, cfg, keep: list, seed: int = 0) -> dict:
@@ -1450,7 +1671,7 @@ def main(argv=None) -> int:
     queries: dict = {}
     checks: dict = {}
     if not args.quick:
-        # phase 3: the two main paths, each with the counters zeroed just
+        # phase 3: the main paths, each with the counters zeroed just
         # before it and read just after
         if args.profile:
             os.makedirs(args.profile, exist_ok=True)
@@ -1466,15 +1687,19 @@ def main(argv=None) -> int:
                         dict.fromkeys(("prefix_sum", "segment_scan",
                                        "segment_rank", "stencil1d",
                                        "stencil1d_exact", "segment_stencil"))),
+            # counted in its ranks (each must launch bucket_scatter) and
+            # summed over them; Q26's sums are integer (no segment_sums)
+            "exchange_p2": (lambda: exchange_path(torch, queries),
+                            dict.fromkeys(("bucket_scatter", "prefix_sum"))),
             "lm": (lambda: lm_path(torch, queries, lm_runs),
                    {"decode_attention": get_config(LM_ARCH).n_layers * LM_NEW})}
         launched = {}
         for path, (drive, must) in paths.items():
             t0 = time.perf_counter()
             cuda.reset_launches()
-            drive()
+            counted = drive()
             torch.cuda.synchronize()
-            launched[path] = dict(cuda.launches)
+            launched[path] = counted or dict(cuda.launches)
             log(f"{path} path: {time.perf_counter() - t0:.1f} s, launches "
                 f"{launched[path]}")
             for name, count in must.items():

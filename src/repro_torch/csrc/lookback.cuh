@@ -122,6 +122,21 @@ __device__ __forceinline__ unsigned long long observe(
   return w;
 }
 
+// The same for 32-bit status words that carry their whole value
+// (bucket_scatter.cu's): a reader needs nothing that the writer stored
+// before the word, so relaxed accesses do, and a thread may keep several
+// loads in flight (an acquire load holds back every later load of the
+// thread until it completes).
+__device__ __forceinline__ void publish(unsigned* p, unsigned w) {
+  asm volatile("st.relaxed.gpu.u32 [%0], %1;" ::"l"(p), "r"(w) : "memory");
+}
+
+__device__ __forceinline__ unsigned observe(const unsigned* p) {
+  unsigned w;
+  asm volatile("ld.relaxed.gpu.u32 %0, [%1];" : "=r"(w) : "l"(p) : "memory");
+  return w;
+}
+
 // Warp 0: the status words of the window of 32 tiles ending at tile j (lane
 // l watches tile j - 31 + l; tiles before 0 read as an inclusive
 // identity), re-read until every tile after the window's latest inclusive

@@ -46,9 +46,11 @@ _SIGNATURES = {
     "prefix_sum": {"prefix_sum_scratch_bytes": (_LL,),
                    "prefix_sum_i32": (_VP, _VP, _VP, _LL, _INT, _VP),
                    "prefix_sum_f32": (_VP, _VP, _VP, _LL, _INT, _VP)},
-    "bucket_scatter": {"bucket_scatter_tile": (),
+    "bucket_scatter": {"bucket_scatter_tile": (_INT,),
                        "bucket_scatter_max_p": (),
-                       "bucket_scatter": (_VP, _VP, _VP, _VP, _LL, _INT, _VP)},
+                       "bucket_scatter_scratch_bytes": (_LL, _INT),
+                       "bucket_scatter": (_VP, _VP, _VP, _VP, _LL, _INT, _INT,
+                                          _VP)},
     "segment_sums": {"segment_sums": (_VP, _VP, _VP, _VP, _LL, _INT, _VP)},
     "segment_scan": {"segment_scan_scratch_bytes": (_LL,),
                      "segment_scan_i32": (_VP, _VP, _VP, _VP, _LL, _INT, _VP),
@@ -65,7 +67,7 @@ _SIGNATURES = {
                                               _INT, _INT, _INT, _INT, _F32, _VP)},
 }
 _LONG = ("prefix_sum_scratch_bytes", "segment_scan_scratch_bytes",
-         "segment_rank_scratch_bytes")
+         "segment_rank_scratch_bytes", "bucket_scatter_scratch_bytes")
 
 
 def build_dir() -> Path:
@@ -171,22 +173,23 @@ def stream_of(t: torch.Tensor) -> int:
 
 def require(name: str, t: torch.Tensor, dtypes: tuple, what: str,
             ndim: int = 1) -> None:
-    """Check a kernel input: on the card, ``ndim`` dimensions, contiguous,
-    one of ``dtypes``."""
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: {what} must be a CUDA tensor, got {t.device}")
+    """Check a kernel input: one of ``dtypes``, ``ndim`` dimensions,
+    contiguous, on the card (in this order, so that every refusal but the
+    last shows without a card)."""
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name}: {what} dtype {t.dtype} not in {dtypes}")
     if t.dim() != ndim:
         raise ValueError(f"{name}: {what} must be {ndim}-D, got shape "
                          f"{tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: {what} must be contiguous")
-    if t.dtype not in dtypes:
-        raise ValueError(f"{name}: {what} dtype {t.dtype} not in {dtypes}")
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: {what} must be a CUDA tensor, got {t.device}")
 
 
-# how the look-back scans (csrc/lookback.cuh) and the stencils
-# (csrc/stencil1d.cu) fetch a tile into shared memory: TMA bulk copies
-# (16-byte aligned data) or 4-byte loads
+# how the look-back scans (csrc/lookback.cuh), bucket_scatter and the
+# stencils (csrc/stencil1d.cu) fetch a tile into shared memory: TMA bulk
+# copies (16-byte aligned data) or 4-byte loads
 BULK, WORDS = 0, 1
 
 

@@ -384,3 +384,80 @@ def test_f32_scans_repeat_bitwise_on_card(card, name, n):
             else ss.segment_scan_plain(x, seg))
     tol = 1e-5 * torch.cumsum(x.abs().double(), 0) + 1e-4
     assert bool(((first.double() - want.double()).abs() <= tol).all()), (name, n)
+
+
+# bucket_scatter (csrc/bucket_scatter.cu: one launch, a look-back over P
+# counts across tiles of 12288 rows, 16384 above 256 buckets) at its tile's
+# edges and at 40 tiles (long look-backs), for P from 1 to the kernel's
+# limit: random ids with invalid rows (dest == P) scattered and as a tail;
+# every row in one bucket; every row invalid; a view not 16-byte aligned
+# (the WORDS fetch); two calls back to back on other inputs of one length
+# (the freed status words come back from the allocator and must be
+# cleared).  Counts exact, slots exact wherever dest < P.
+def bucket_tile(P):
+    return 12288 if P <= 256 else 16384
+
+
+BUCKET_SIZES = {"one": lambda t: 1, "tile-1": lambda t: t - 1,
+                "tile": lambda t: t, "tile+1": lambda t: t + 1,
+                "3tiles+5": lambda t: 3 * t + 5, "40tiles+3": lambda t: 40 * t + 3}
+BUCKET_PS = (1, 2, 8, 256, 2048)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", list(BUCKET_SIZES))
+@pytest.mark.parametrize("P", BUCKET_PS)
+def test_bucket_scatter_hazards_on_card(card, P, size):
+    from repro_torch.kernels.hash_partition import hash_partition as hp
+
+    n = BUCKET_SIZES[size](bucket_tile(P))
+    rng = np.random.default_rng(P * 1009 + n)
+
+    def ids(m, invalid=1 / 6):
+        d = rng.integers(0, P, m).astype(np.int32)
+        d[rng.random(m) < invalid] = P
+        return torch.from_numpy(d).to(card)
+
+    def held(d, got=None):
+        r1, c1 = got if got is not None else hp.bucket_scatter_cuda(d, P)
+        r2, c2 = hp.bucket_scatter_plain(d, P)
+        ok = d < P
+        assert torch.equal(c1, c2), (P, n)
+        assert torch.equal(r1[ok], r2[ok]), (P, n)
+
+    tail = ids(n)
+    tail[n - n // 5:] = P
+    for d in (ids(n), tail, ids(n, 0.0),
+              torch.full((n,), P - 1, dtype=torch.int32, device=card),
+              torch.full((n,), P, dtype=torch.int32, device=card)):
+        held(d)
+    v = ids(n + 1)[1:]
+    assert v.data_ptr() % 16 != 0
+    held(v)
+    a, b = ids(n), ids(n, 0.0)
+    ga, gb = hp.bucket_scatter_cuda(a, P), hp.bucket_scatter_cuda(b, P)
+    held(a, ga)
+    held(b, gb)
+
+
+@pytest.mark.cuda
+def test_bucket_scatter_limits_on_card(card):
+    """The library's tiles and bucket limit are the ones the wrapper and
+    these tests assume; P above the limit is refused; an empty input gives
+    zero counts; one call counts one launch."""
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.hash_partition import hash_partition as hp
+
+    lib = cuda.load("bucket_scatter")
+    assert all(lib.bucket_scatter_tile(P) == bucket_tile(P)
+               for P in BUCKET_PS + (255, 257))
+    assert lib.bucket_scatter_max_p() == hp.MAX_P
+    d = torch.zeros(100, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="outside"):
+        hp.bucket_scatter_cuda(d, hp.MAX_P + 1)
+    slot, counts = hp.bucket_scatter_cuda(d[:0], 5)
+    assert slot.shape == (0,) and counts.tolist() == [0] * 5
+    before = cuda.launches["bucket_scatter"]
+    slot, counts = hp.bucket_scatter_cuda(d, hp.MAX_P)
+    assert cuda.launches["bucket_scatter"] == before + 1
+    assert counts[0].item() == 100 and slot.tolist() == list(range(100))
