@@ -22,7 +22,13 @@ Phases, in order; any failure raises and the exit code is not 0:
    aligned, two calls back to back, int32 sums past 2^31, one segment head
    at row 0 of 2^27 rows; torch.profiler shows each call running one
    kernel and at most one memset; 20 calls of the float32 scans on
-   non-integer values give the same bits.  bucket_scatter (a look-back
+   non-integer values give the same bits.  segment_sums (a look-back that
+   reads only the valid prefix below its count and writes only run totals)
+   is held on the slots the runs name, on the hazards of that contract
+   around its 5120-row tile, on misaligned views and back to back, profiled
+   as one kernel plus one memset, 20 calls with the same bits, and timed at
+   the aggregate's partial and final stages and with every row its own run
+   beside torch.segment_reduce.  bucket_scatter (a look-back
    over P counts) is held exactly at P = 1 .. 2048, around its tile, on one
    bucket, all rows invalid, an invalid tail, misaligned views and back to
    back calls, profiled as one kernel plus one memset, and timed at P = 8
@@ -56,8 +62,9 @@ Phases, in order; any failure raises and the exit code is not 0:
      float32 (within 1e-3).
 4. Report: a JSON line of query wall times, LM serving times, peak memory
    and the checks' largest differences (with a digest of the bytes of the
-   float32 cumsums, fig8b_cumsum's and the grouped one's, to compare two
-   runs), a JSON line of the nine kernel records, and a last line
+   float32 cumsums, fig8b_cumsum's and the grouped one's, and of
+   fig8a_aggregate's sums and means, to compare two runs), a JSON line of
+   the nine kernel records, and a last line
    ``{"ok": true, "device": {...}}``.
 
 ``--quick`` stops after phase 2 at sizes up to 1_000_003 and prints ptxas's
@@ -210,8 +217,9 @@ def digest(a: np.ndarray) -> str:
 def one_call_profiles(torch, n: int) -> dict:
     """One call of each look-back wrapper under torch.profiler (prefix_sum
     and segment_scan in int32 and float32, the three rank kinds,
-    bucket_scatter at P = 8 and 256; n rows): one scan_tiles (or
-    scatter_tiles) kernel and at most one memset each.  These must be the process's first
+    bucket_scatter at P = 8 and 256, segment_sums at its partial and final
+    stages; n rows): one scan_tiles (or scatter_tiles, sum_tiles) kernel and
+    at most one memset each.  These must be the process's first
     torch.profiler sessions, and are taken within a second of each other:
     on an H100 (torch 2.11, CUDA 12.8) the device timestamps of a trace
     drift from its host timeline from about 10 s after the process's first
@@ -219,6 +227,7 @@ def one_call_profiles(torch, n: int) -> dict:
     all, with or without work in between (tools/profiler_probe.py)."""
     from repro_torch.kernels.hash_partition import hash_partition as hp
     from repro_torch.kernels.segment_rank import segment_rank as rk
+    from repro_torch.kernels.segment_reduce import segment_reduce as sr
     from repro_torch.kernels.segment_scan import segment_scan as ss
     from repro_torch.kernels.stream_compact import stream_compact as sc
     dev = torch.device("cuda")
@@ -241,6 +250,16 @@ def one_call_profiles(torch, n: int) -> dict:
     out["bucket_scatter"] = {f"P={P}": one_launch(
         torch, lambda: hp.bucket_scatter_cuda(dest[P], P), BUCKET_KERNEL,
         f"bucket_scatter P={P}") for P in BUCKET_TIMED_PS}
+    # the partial stage's shape (sorted ids in 4096 groups, count = n) and
+    # the final stage's (4096 rows of n, count = 4096)
+    sid = (torch.arange(n, device=dev) * SUMS_GROUPS // n).to(torch.int32)
+    vals = x.float()
+    every = torch.ones(n, dtype=torch.bool, device=dev)
+    counts = {stage: torch.tensor(c, dtype=torch.int32, device=dev)
+              for stage, c in (("partial", n), ("final", SUMS_GROUPS))}
+    out["segment_sums"] = {stage: one_launch(
+        torch, lambda: sr.segment_sums_cuda(vals, sid, every, n, c),
+        SUMS_KERNEL, f"segment_sums {stage}") for stage, c in counts.items()}
     log(f"one call each: {out}")
     return out
 
@@ -332,8 +351,6 @@ def bucket_scatter_phases(torch, sizes, record: dict):
 
 def kernel_phases(torch, sizes, record: dict):
     from repro_torch.kernels import cuda
-    from repro_torch.kernels.hash_partition import hash_partition as hp
-    from repro_torch.kernels.segment_reduce import segment_reduce as sr
     from repro_torch.kernels.stream_compact import stream_compact as sc
 
     dev = torch.device("cuda")
@@ -407,91 +424,203 @@ def kernel_phases(torch, sizes, record: dict):
 
     bucket_scatter_phases(torch, sizes, record)
 
-    # -- segment_sums: every slot within 1e-4 of the segment's sum of |x|
-    # (+1e-5); slots past the last segment exactly 0.
-    def check_sums(vals, seg, valid, num, n_seg, tag) -> float:
-        got = sr.segment_sums_cuda(vals, seg, valid, num)
-        want = sr.segment_sums_plain(vals, seg, valid, num)
-        mag = sr.segment_sums_plain(vals.abs(), seg, valid, num)
-        d = (got - want).abs()
-        assert bool((d <= 1e-4 * mag + 1e-5).all()), f"segment_sums {tag}"
-        assert bool((got[n_seg:] == 0).all()), f"segment_sums {tag} tail"
-        return float(d.max()) if num else 0.0
+    segment_sums_phases(torch, sizes, record)
+    cuda.reset_launches()
 
+
+# segment_sums (csrc/segment_sums.cu): the main path's shapes, n = 2^27 rows
+# in 4096 groups.  The partial stage of Fig. 8a's aggregate reduces n sorted
+# rows (num_segments = cap_out = n); the final stage, after the exchange,
+# 4096 partial rows at the front of an n-row buffer (count = 4096).
+SUMS_KERNEL = "sum_tiles"
+SUMS_GROUPS = 4096
+SUMS_HAZARDS = ("count_0", "count_short", "count_past", "no_count",
+                "padding_valid", "one_run", "each_row", "all_invalid",
+                "overflow", "holes")
+
+
+def sums_case(torch, g, hazard: str, n: int):
+    """One hazard of segment_sums' contract on the card: (values, seg_id,
+    valid, num_segments, count) with sorted ids consecutive from 0 (a run
+    every ~50 rows) and count a 0-d int32 tensor or None: the prefix empty,
+    ending inside a run, past n, not given; padding rows after the groups,
+    valid but with id num_segments; one run; every row its own run; every
+    row invalid; fewer slots than runs; invalid rows inside runs and runs of
+    invalid rows only."""
+    dev = torch.device("cuda")
+    vals = torch.randn(n, device=dev, generator=g)
+    head = torch.rand(n, device=dev, generator=g) < 0.02
+    head[:1] = True
+    seg = torch.cumsum(head.int(), 0, dtype=torch.int32) - 1
+    nseg = int(seg[-1]) + 1 if n else 0
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    num, count = nseg + 3, n
+    if hazard == "count_0":
+        count = 0
+    elif hazard == "count_short":
+        count = n - n // 3 - 1 if n > 1 else n
+    elif hazard == "count_past":
+        count = n + 5
+    elif hazard == "no_count":
+        count = None
+    elif hazard == "padding_valid":
+        pad = n // 5
+        if n - pad:
+            num = int(seg[n - pad - 1]) + 1
+        seg[n - pad:] = num
+    elif hazard == "one_run":
+        seg.zero_()
+        num = 1
+    elif hazard == "each_row":
+        seg = torch.arange(n, dtype=torch.int32, device=dev)
+        num = max(n, 1)
+    elif hazard == "all_invalid":
+        valid.zero_()
+    elif hazard == "overflow":
+        num = max(nseg // 2, 1)
+    elif hazard == "holes":
+        valid = (torch.rand(n, device=dev, generator=g) < 0.7) & (seg % 5 != 2)
+    c = None if count is None else torch.tensor(count, dtype=torch.int32,
+                                                device=dev)
+    return vals, seg, valid, num, c
+
+
+def sums_named(torch, seg, num: int, count):
+    """The slots a row of the prefix names (the rest are undefined)."""
+    m = seg.numel() if count is None else max(0, min(int(count), seg.numel()))
+    ids = seg[:m]
+    return torch.unique(ids[(ids >= 0) & (ids < num)]).long()
+
+
+def sums_held(torch, args, tag: str, got=None) -> float:
+    """segment_sums' kernel against its plain version on the named slots:
+    within 1e-4 of the run's sum of |x| (+1e-5).  Returns the largest
+    difference."""
+    from repro_torch.kernels.segment_reduce import segment_reduce as sr
+    vals, seg, valid, num, count = args
+    if got is None:
+        got = sr.segment_sums_cuda(*args)
+    slots = sums_named(torch, seg, num, count)
+    want = sr.segment_sums_plain(*args)[slots]
+    mag = sr.segment_sums_plain(vals.abs(), seg, valid, num, count)[slots]
+    d = (got[slots] - want).abs()
+    assert bool((d <= 1e-4 * mag + 1e-5).all()), f"segment_sums {tag}"
+    return float(d.max()) if slots.numel() else 0.0
+
+
+def segment_sums_phases(torch, sizes, record: dict):
+    """segment_sums against its plain version on the named slots: at
+    ``sizes`` in 4096 and 2^20 groups, with and without count; on its
+    hazards (sums_case) around the 5120-row tile, on views not 16-byte
+    aligned and back to back; at the main path's partial and final stages
+    (the final stage with count, and without: the padding then dropped by
+    its id, invalid as the main path gives it and valid); 20 calls of the
+    partial stage and of one run over 2^27 rows with the same bits; timed at
+    the partial stage (count = n, as segment_aggregate passes it), the final
+    stage (count = 4096) and with every row its own run, beside the plain
+    version, index_add_ and torch.segment_reduce (its lengths built outside
+    the timed call), each shape's bound from the bytes the contract moves: 9
+    a row of the prefix read, 4 a run written."""
+    from repro_torch.kernels.segment_reduce import segment_reduce as sr
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
     err = 0.0
-    for groups in (4096, 1 << 20):
+    for groups in (SUMS_GROUPS, 1 << 20):
         for n in sizes:
-            seg = torch.sort(torch.randint(0, max(groups, 1), (n,), device=dev,
+            seg = torch.sort(torch.randint(0, groups, (n,), device=dev,
                                            generator=g)).values
             # renumber to consecutive ids, like segment_aggregate's seg_id
             head = torch.ones(n, dtype=torch.bool, device=dev)
             head[1:] = seg[1:] != seg[:-1]
-            seg = (torch.cumsum(head.int(), 0, dtype=torch.int32) - 1)
+            seg = torch.cumsum(head.int(), 0, dtype=torch.int32) - 1
             n_seg = int(seg[-1]) + 1 if n else 0
             valid = torch.rand(n, device=dev, generator=g) < 0.9
             vals = torch.randn(n, device=dev, generator=g)
-            err = max(err, check_sums(vals, seg, valid, n_seg + 7, n_seg,
-                                      f"groups={groups} n={n}"))
+            for c in (None, torch.tensor(n, dtype=torch.int32, device=dev)):
+                err = max(err, sums_held(torch, (vals, seg, valid, n_seg + 7, c),
+                                         f"groups={groups} n={n}"))
         log(f"segment_sums groups={groups}: ok at sizes {sizes}")
-    # The main path's shapes, num_segments = cap_out = n.  The final stage
-    # of the aggregate (segment_aggregate after the exchange) sees a sorted
-    # prefix of 4096 partial rows, one per group, then padding rows whose
-    # seg_id is num_segments, which the kernel must drop: the padding is
-    # tried invalid, as the main path gives it, and valid, so that only its
-    # id drops it.
-    n, groups = sizes[-1], 4096
-    num = n
-    seg = torch.full((n,), num, dtype=torch.int32, device=dev)
-    seg[:groups] = torch.arange(groups, dtype=torch.int32, device=dev)
+    for n in LOOKBACK_SIZES + (sizes[-2],):
+        for hazard in SUMS_HAZARDS:
+            args = sums_case(torch, g, hazard, n)
+            err = max(err, sums_held(torch, args, f"{hazard} n={n}"))
+            vals, seg, valid, num, c = args
+            views = [torch.cat([t[:1], t])[1:] for t in (vals, seg, valid)]
+            assert views[0].data_ptr() % 16 != 0
+            sums_held(torch, (*views, num, c), f"{hazard} misaligned n={n}")
+            other = sums_case(torch, g, hazard, n)
+            ga, gb = sr.segment_sums_cuda(*args), sr.segment_sums_cuda(*other)
+            sums_held(torch, args, f"{hazard} back to back n={n}", ga)
+            sums_held(torch, other, f"{hazard} back to back n={n}", gb)
+    log(f"segment_sums hazards {SUMS_HAZARDS}: ok at sizes "
+        f"{LOOKBACK_SIZES + (sizes[-2],)}")
+
+    n, groups = sizes[-1], SUMS_GROUPS
     vals = torch.randn(n, device=dev, generator=g)
-    prefix = torch.arange(n, device=dev) < groups
-    for pad_valid in (False, True):
-        valid = prefix | pad_valid
-        err = max(err, check_sums(vals, seg, valid, num, groups,
-                                  f"final stage n={n} pad_valid={pad_valid}"))
+    rows = torch.arange(n, device=dev)
+    every = torch.ones(n, dtype=torch.bool, device=dev)
+    count_n = torch.tensor(n, dtype=torch.int32, device=dev)
+    count_g = torch.tensor(groups, dtype=torch.int32, device=dev)
+    final = torch.full((n,), n, dtype=torch.int32, device=dev)
+    final[:groups] = torch.arange(groups, dtype=torch.int32, device=dev)
+    for c, pad_valid in ((count_g, False), (None, False), (None, True)):
+        err = max(err, sums_held(
+            torch, (vals, final, (rows < groups) | pad_valid, n, c),
+            f"final stage n={n} count={c is not None} pad_valid={pad_valid}"))
     log(f"segment_sums final-stage shape n={n}: ok")
-    # the partial stage: n sorted rows of 4096 groups; also the timed inputs
-    seg = (torch.arange(n, device=dev, dtype=torch.int64) * groups // n
-           ).to(torch.int32)
-    valid = torch.ones(n, dtype=torch.bool, device=dev)
-    err = max(err, check_sums(vals, seg, valid, num, groups,
-                              f"partial stage n={n}"))
-    log(f"segment_sums partial-stage shape n={n}: ok")
-    del prefix
-    # two one-call yardsticks: a contended-atomic index_add_ into num slots,
-    # and torch.segment_reduce over the sorted segments' lengths (built
-    # outside the timed call; its 4096 sums held against the kernel's)
+    seg = (rows * groups // n).to(torch.int32)
+    partial = (vals, seg, every, n, count_n)
+    err = max(err, sums_held(torch, partial, f"partial stage n={n}"))
+    # one run of 2^27 rows: held within its own tolerance (1e-4 of the sum
+    # of |x|, ~1.1e4), its difference kept apart from the others
+    zeros = torch.zeros(n, dtype=torch.int32, device=dev)
+    one_run = (vals, zeros, every, n, count_n)
+    one_run_err = sums_held(torch, one_run, f"one run n={n}")
+    each_row = (vals, rows.to(torch.int32), every, n, count_n)
+    err = max(err, sums_held(torch, each_row, f"each row n={n}"))
+    repeats = {tag: same_bits(torch, lambda a=a, k=k: sr.segment_sums_cuda(*a)[:k],
+                              f"segment_sums {tag}")
+               for tag, a, k in (("partial", partial, groups),
+                                 ("one_run", one_run, 1))}
+    log(f"segment_sums partial-stage shape n={n}: ok; same bits {repeats}")
+    # one-call yardsticks at the partial stage: a contended-atomic index_add_
+    # into num slots, and torch.segment_reduce over the sorted segments'
+    # lengths (its 4096 sums held against the kernel's)
     idx = seg.long()
     lengths = torch.bincount(idx, minlength=groups)
     reduce = torch.segment_reduce(vals, "sum", lengths=lengths, unsafe=True)
-    mine = sr.segment_sums_cuda(vals, seg, valid, num)[:groups]
-    mag = sr.segment_sums_plain(vals.abs(), seg, valid, num)[:groups]
+    mine = sr.segment_sums_cuda(*partial)[:groups]
+    mag = sr.segment_sums_plain(vals.abs(), seg, every, n)[:groups]
     assert bool(((reduce - mine).abs() <= 1e-4 * mag + 1e-5).all()), \
         "segment_sums against torch.segment_reduce"
     yard = {"Tensor.index_add_": time_ms(
-                lambda: torch.zeros(num, device=dev).index_add_(0, idx, vals),
+                lambda: torch.zeros(n, device=dev).index_add_(0, idx, vals),
                 torch),
             "torch.segment_reduce(sum, lengths, unsafe=True)": time_ms(
                 lambda: torch.segment_reduce(vals, "sum", lengths=lengths,
                                              unsafe=True), torch)}
     fastest = min(yard, key=yard.get)
+    final_args = (vals, final, rows < groups, n, count_g)
     rec = {"name": "segment_sums", "route": "cuda",
            "source": "src/repro_torch/csrc/segment_sums.cu",
            "replaces": "src/repro/kernels/segment_reduce/segment_reduce.py:33",
-           "shape": f"f32 values, n={n}, {groups} groups, num_segments={num}",
+           "shape": f"partial stage: f32 values, n={n}, {groups} groups, "
+                    f"num_segments={n}, count={n}",
            "max_abs_err": err,
-           "ms": time_ms(lambda: sr.segment_sums_cuda(vals, seg, valid, num),
-                         torch),
-           "plain_ms": time_ms(
-               lambda: sr.segment_sums_plain(vals, seg, valid, num), torch),
+           "ms": time_ms(lambda: sr.segment_sums_cuda(*partial), torch),
+           "plain_ms": time_ms(lambda: sr.segment_sums_plain(*partial), torch),
            "library_ms": yard[fastest], "library_call": fastest,
            "library_calls_ms": yard,
-           "segment_reduce_max_abs_diff": float((reduce - mine).abs().max())}
-    rec["bound_ms"], rec["bound_by"] = bound_ms(9.0 * n + 4.0 * num, n)
+           "segment_reduce_max_abs_diff": float((reduce - mine).abs().max()),
+           "final_stage_ms": time_ms(lambda: sr.segment_sums_cuda(*final_args),
+                                     torch),
+           "each_row_ms": time_ms(lambda: sr.segment_sums_cuda(*each_row),
+                                  torch),
+           "same_bits_of_calls": repeats, "one_run_max_abs_err": one_run_err}
+    rec["bound_ms"], rec["bound_by"] = bound_ms(9.0 * n + 4.0 * groups, n)
+    rec["final_stage_bound_ms"] = bound_ms(13.0 * groups, groups)[0]
+    rec["each_row_bound_ms"] = bound_ms(13.0 * n, n)[0]
     record["segment_sums"] = rec
-    del seg, valid, vals, idx, lengths, reduce, mine, mag
-    cuda.reset_launches()
-
 
 def ulps(torch, a, b) -> int:
     """Largest distance of two float32 or bfloat16 tensors (of one dtype) in
@@ -1156,9 +1285,12 @@ def query_runner(torch, hf, queries: dict, profile_dir: str | None):
     return run
 
 
-def main_path(torch, hf, synth, queries: dict, profile_dir: str | None = None):
-    """The relational path: Fig. 8a and TPCx-BB Q26."""
+def main_path(torch, hf, synth, queries: dict, profile_dir: str | None = None,
+              checks: dict | None = None):
+    """The relational path: Fig. 8a and TPCx-BB Q26; the digest of the
+    aggregate's float sums and means goes into ``checks``."""
     run = query_runner(torch, hf, queries, profile_dir)
+    checks = {} if checks is None else checks
     n8a = 2**27
 
     # Fig. 8a filter (bench_relational.py:27)
@@ -1194,6 +1326,10 @@ def main_path(torch, hf, synth, queries: dict, profile_dir: str | None = None):
     check_equal(out, {"id": keys, "s": sx[keys].astype(np.float32),
                       "m": (sy[keys] / cnt[keys]).astype(np.float32)},
                 "aggregate", float_tol={"s": (1e-4, 1e-2), "m": (1e-4, 1e-6)})
+    # segment_sums folds its tiles in order, so the bits are the same in
+    # every run
+    checks["fig8a_aggregate_digest"] = digest(np.concatenate([out["s"],
+                                                              out["m"]]))
     queries["fig8a_aggregate"]["rows_in"] = n8a
     del t, df, out
 
@@ -1680,7 +1816,7 @@ def main(argv=None) -> int:
         lm_runs: dict = {}
         paths = {
             "relational": (lambda: main_path(torch, hf, synth, queries,
-                                             args.profile),
+                                             args.profile, checks),
                            dict.fromkeys(("prefix_sum", "segment_sums"))),
             "windows": (lambda: window_path(torch, hf, synth, queries,
                                             args.profile, checks),

@@ -500,7 +500,8 @@ def segment_aggregate(keys_sorted, count, values: dict[str, tuple],
     nunique entries whose values arrive sorted within each key run.  The
     reference's ``jax.ops.segment_*`` become ``scatter_reduce``/``index_add_``
     into ``cap_out + 1`` slots (the last collects padding), then a slice;
-    float sums go through the registry's ``segment_sums``.
+    float sums go through the registry's ``segment_sums`` over the valid
+    prefix (``count``).
     Returns ``({__key0__..., **aggs}, n_groups, overflow)``.
     """
     if not isinstance(keys_sorted, (tuple, list)):
@@ -509,6 +510,7 @@ def segment_aggregate(keys_sorted, count, values: dict[str, tuple],
     cap = keys_sorted[0].shape[0]
     dev = keys_sorted[0].device
     valid = valid_mask(count, cap)
+    n_valid = count.reshape(()).to(torch.int32)
     seg_start = valid & _run_heads(keys_sorted)
     seg_id = torch.cumsum(seg_start.to(torch.int32), 0, dtype=torch.int32) - 1
     seg_id = torch.where(valid, seg_id, cap_out)          # padding -> dropped
@@ -529,8 +531,9 @@ def segment_aggregate(keys_sorted, count, values: dict[str, tuple],
         if x.dtype == torch.bool:
             x = x.to(torch.int32)      # sum(:x < 1.0) counts True rows
         if x.is_floating_point():
+            # slots past the last group are undefined: masked by gvalid below
             return _K(kernels, x).segment_sums(x.contiguous(), seg_id, v,
-                                               cap_out)
+                                               cap_out, n_valid)
         # integer sums stay exact on the plain path, as in the reference
         return isum(_zero_where_not(v, x, 0))
 

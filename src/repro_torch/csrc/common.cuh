@@ -74,6 +74,13 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
       "r"(smem_addr(bar)) : "memory");
 }
 
+// Order this thread's earlier accesses to shared memory, and those the block
+// barrier before it made visible, before its later bulk copies: a block
+// that refills a buffer it has read calls this before the copies.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
 // Wait until the phase of `bar` with this parity (0 for its first, then
 // alternating) has completed.
 __device__ __forceinline__ void bar_wait(void* bar, unsigned parity) {

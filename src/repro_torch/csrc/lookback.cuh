@@ -1,5 +1,6 @@
 // Single-pass scan with decoupled look-back under any associative operator:
-// the skeleton of prefix_sum.cu, segment_scan.cu and segment_rank.cu.
+// the skeleton of prefix_sum.cu, segment_scan.cu and segment_rank.cu, and
+// the pieces segment_sums.cu and bucket_scatter.cu build their own on.
 //
 // The TPU kernels it serves (src/repro/kernels/stream_compact/
 // stream_compact.py:36, src/repro/kernels/segment_scan/segment_scan.py:48,
@@ -87,6 +88,8 @@
 //   uint64_t pack(T) / T unpack(uint64_t)
 //                                  to and from at most 62 bits
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -229,6 +232,52 @@ __device__ typename Op::T look_back(const Op& op,
     }
   }
 }
+
+// The segmented sum monoid of segment_scan.cu and segment_sums.cu,
+//     (v1, f1) + (v2, f2) = (f2 ? v2 : v1 + v2, f1 | f2):
+// the sum since the span's last segment head, and whether it holds one.
+// INPUTS, load and store serve scan_tiles (x and a boundary word a row);
+// the status word packs the 32 value bits beside the flag bit.
+template <typename V>
+struct Seg {
+  V v;          // sum since the last segment head (or since the start)
+  uint32_t f;   // 1 if a segment head lies in the span
+};
+
+template <typename V>
+struct SegScanOp {
+  using T = Seg<V>;
+  static constexpr int INPUTS = 2;
+  static constexpr bool ORDERED = std::is_floating_point<V>::value;
+  // -0.0 for floats: x + -0.0 is x for every x, +0.0 included
+  __device__ __forceinline__ T identity() const {
+    return T{V(ORDERED ? -0.0f : 0.0f), 0u};
+  }
+  __device__ __forceinline__ T combine(T a, T b) const {
+    return T{b.f ? b.v : a.v + b.v, a.f | b.f};
+  }
+  __device__ __forceinline__ T load(uint32_t x, uint32_t boundary,
+                                    long long) const {
+    V v;
+    memcpy(&v, &x, 4);
+    return T{v, boundary != 0u ? 1u : 0u};
+  }
+  __device__ __forceinline__ uint32_t store(T t, long long) const {
+    uint32_t r;
+    memcpy(&r, &t.v, 4);
+    return r;
+  }
+  __device__ __forceinline__ bool restarts(T a) const { return a.f != 0u; }
+  __device__ __forceinline__ unsigned long long pack(T t) const {
+    return static_cast<unsigned long long>(store(t, 0)) |
+           static_cast<unsigned long long>(t.f) << 32;
+  }
+  __device__ __forceinline__ T unpack(unsigned long long w) const {
+    T t = load(static_cast<uint32_t>(w), 0u, 0);
+    t.f = static_cast<uint32_t>(w >> 32) & 1u;
+    return t;
+  }
+};
 
 template <class Op, int LOAD>
 __global__ void __launch_bounds__(THREADS)

@@ -8,7 +8,8 @@
 // value to the next block in one VMEM cell, which needs the TPU's in-order
 // grid.  Here the same monoid
 //     (v1, f1) + (v2, f2) = (f2 ? v2 : v1 + v2, f1 | f2)
-// runs through the single-pass decoupled look-back scan of lookback.cuh:
+// (lookback::SegScanOp, shared with segment_sums.cu) runs through the
+// single-pass decoupled look-back scan of lookback.cuh:
 // each tile publishes its aggregate (the sum since its last head, and
 // whether it holds a head) in one 64-bit status word, 32 value bits beside
 // the flag bit.  A tile holding a head needs nothing from before it
@@ -25,54 +26,7 @@
 // each segment); they agree within rounding of the running sum of |x|.  The
 // float32 operator is ORDERED, so every call gives the same bits.
 
-#include <type_traits>
-
 #include "lookback.cuh"
-
-namespace {
-
-template <typename V>
-struct Seg {
-  V v;          // sum since the last segment head (or since the start)
-  uint32_t f;   // 1 if a segment head lies in the span
-};
-
-template <typename V>
-struct SegScanOp {
-  using T = Seg<V>;
-  static constexpr int INPUTS = 2;
-  static constexpr bool ORDERED = std::is_floating_point<V>::value;
-  // -0.0 for floats: x + -0.0 is x for every x, +0.0 included
-  __device__ __forceinline__ T identity() const {
-    return T{V(ORDERED ? -0.0f : 0.0f), 0u};
-  }
-  __device__ __forceinline__ T combine(T a, T b) const {
-    return T{b.f ? b.v : a.v + b.v, a.f | b.f};
-  }
-  __device__ __forceinline__ T load(uint32_t x, uint32_t boundary,
-                                    long long) const {
-    V v;
-    memcpy(&v, &x, 4);
-    return T{v, boundary != 0u ? 1u : 0u};
-  }
-  __device__ __forceinline__ uint32_t store(T t, long long) const {
-    uint32_t r;
-    memcpy(&r, &t.v, 4);
-    return r;
-  }
-  __device__ __forceinline__ bool restarts(T a) const { return a.f != 0u; }
-  __device__ __forceinline__ unsigned long long pack(T t) const {
-    return static_cast<unsigned long long>(store(t, 0)) |
-           static_cast<unsigned long long>(t.f) << 32;
-  }
-  __device__ __forceinline__ T unpack(unsigned long long w) const {
-    T t = load(static_cast<uint32_t>(w), 0u, 0);
-    t.f = static_cast<uint32_t>(w >> 32) & 1u;
-    return t;
-  }
-};
-
-}  // namespace
 
 extern "C" {
 
@@ -83,14 +37,14 @@ long long segment_scan_scratch_bytes(long long n) {
 
 int segment_scan_i32(const void* x, const void* boundary, void* out,
                      void* scratch, long long n, int load, void* stream) {
-  return lookback::run(SegScanOp<uint32_t>{}, x, boundary, out, scratch, n,
-                       load, stream);
+  return lookback::run(lookback::SegScanOp<uint32_t>{}, x, boundary, out,
+                       scratch, n, load, stream);
 }
 
 int segment_scan_f32(const void* x, const void* boundary, void* out,
                      void* scratch, long long n, int load, void* stream) {
-  return lookback::run(SegScanOp<float>{}, x, boundary, out, scratch, n,
-                       load, stream);
+  return lookback::run(lookback::SegScanOp<float>{}, x, boundary, out,
+                       scratch, n, load, stream);
 }
 
 }  // extern "C"

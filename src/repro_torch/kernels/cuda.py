@@ -51,7 +51,9 @@ _SIGNATURES = {
                        "bucket_scatter_scratch_bytes": (_LL, _INT),
                        "bucket_scatter": (_VP, _VP, _VP, _VP, _LL, _INT, _INT,
                                           _VP)},
-    "segment_sums": {"segment_sums": (_VP, _VP, _VP, _VP, _LL, _INT, _VP)},
+    "segment_sums": {"segment_sums_scratch_bytes": (_LL,),
+                     "segment_sums": (_VP, _VP, _VP, _VP, _VP, _VP, _LL, _INT,
+                                      _INT, _VP)},
     "segment_scan": {"segment_scan_scratch_bytes": (_LL,),
                      "segment_scan_i32": (_VP, _VP, _VP, _VP, _LL, _INT, _VP),
                      "segment_scan_f32": (_VP, _VP, _VP, _VP, _LL, _INT, _VP)},
@@ -67,7 +69,8 @@ _SIGNATURES = {
                                               _INT, _INT, _INT, _INT, _F32, _VP)},
 }
 _LONG = ("prefix_sum_scratch_bytes", "segment_scan_scratch_bytes",
-         "segment_rank_scratch_bytes", "bucket_scatter_scratch_bytes")
+         "segment_rank_scratch_bytes", "bucket_scatter_scratch_bytes",
+         "segment_sums_scratch_bytes")
 
 
 def build_dir() -> Path:
@@ -187,9 +190,9 @@ def require(name: str, t: torch.Tensor, dtypes: tuple, what: str,
         raise ValueError(f"{name}: {what} must be a CUDA tensor, got {t.device}")
 
 
-# how the look-back scans (csrc/lookback.cuh), bucket_scatter and the
-# stencils (csrc/stencil1d.cu) fetch a tile into shared memory: TMA bulk
-# copies (16-byte aligned data) or 4-byte loads
+# how the look-back scans (csrc/lookback.cuh), segment_sums, bucket_scatter
+# and the stencils (csrc/stencil1d.cu) fetch a tile into shared memory: TMA
+# bulk copies (16-byte aligned data) or guarded loads of 4 (1) bytes
 BULK, WORDS = 0, 1
 
 

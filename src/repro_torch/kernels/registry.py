@@ -21,9 +21,12 @@ the window functions are registered here, and the LM decode path's
   segment_rank(seg_b, ord_b, kind)      1-based in-segment ranks (int32);
                                         kind in row_number / rank /
                                         dense_rank
-  segment_sums(values, seg_id, valid, num_segments)
+  segment_sums(values, seg_id, valid, num_segments, count=None)
                                         per-segment sums of the valid rows
-                                        (float32 on the card)
+                                        of the prefix below count (a 0-d
+                                        int32 tensor; None: every row),
+                                        float32 on the card; slots no row
+                                        of the prefix names are undefined
   bucket_scatter(dest, P)               (slot, send_counts): stable
                                         within-bucket slot of every row at
                                         its ORIGINAL position; dest == P

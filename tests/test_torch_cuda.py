@@ -118,6 +118,59 @@ def _cases(name, rng, n, dtype):
     return out
 
 
+# segment_sums' contract (csrc/segment_sums.cu): rows at or past count are
+# not read, ids outside [0, num_segments) are dropped, and only the slots a
+# row of the prefix names are defined.  Its hazards, as numpy
+# (values, seg_id, valid, num_segments, count) with count None or an int:
+# the prefix empty, ending inside a run, whole, past n, and not given;
+# padding rows after the groups, valid but with id num_segments; one run
+# over every row; every row its own run; every row invalid; fewer slots than
+# runs; invalid rows inside runs and runs of invalid rows only.
+SUMS_HAZARDS = ("count_0", "count_short", "count_n", "count_past", "no_count",
+                "padding_valid", "one_run", "each_row", "all_invalid",
+                "overflow", "holes")
+
+
+def _sums_case(hazard, rng, n):
+    values = rng.normal(size=n).astype(np.float32)
+    sid = (np.cumsum(_seg_mask(rng, n, 0.02)) - 1).astype(np.int32)
+    nseg = int(sid[-1]) + 1 if n else 0
+    valid = np.ones(n, bool)
+    num, count = nseg + 3, n
+    if hazard == "count_0":
+        count = 0
+    elif hazard == "count_short":
+        count = n - n // 3 - 1 if n > 1 else n
+    elif hazard == "count_past":
+        count = n + 5
+    elif hazard == "no_count":
+        count = None
+    elif hazard == "padding_valid":
+        pad = n // 5
+        if n - pad:
+            num = int(sid[n - pad - 1]) + 1
+        sid[n - pad:] = num
+    elif hazard == "one_run":
+        sid[:], num = 0, 1
+    elif hazard == "each_row":
+        sid, num = np.arange(n, dtype=np.int32), max(n, 1)
+    elif hazard == "all_invalid":
+        valid[:] = False
+    elif hazard == "overflow":
+        num = max(nseg // 2, 1)
+    elif hazard == "holes":
+        valid = rng.random(n) < 0.7
+        valid[sid % 5 == 2] = False
+    return values, sid, valid, num, count
+
+
+def _named(values, seg_id, valid, num_segments, count=None):
+    """The slots a row of the prefix names (sorted, unique)."""
+    m = len(seg_id) if count is None else max(0, min(int(count), len(seg_id)))
+    ids = np.asarray(seg_id[:m])
+    return np.unique(ids[(ids >= 0) & (ids < num_segments)])
+
+
 DTYPES = {"prefix_sum": (np.int32, np.float32), "bucket_scatter": (np.int32,),
           "segment_sums": (np.float32,), "segment_scan": (np.int32, np.float32),
           "segment_rank": (np.int32,), "stencil1d": (np.float32,),
@@ -149,7 +202,8 @@ def _assert_same(name, args, got, want):
         np.testing.assert_array_equal(got[0][ok], want[0][ok])
         return
     if name == "segment_sums":
-        got, want = got[: args[3]], want[: args[3]]
+        slots = _named(*args)
+        got, want = got[slots], want[slots]
     assert got.shape == want.shape
     assert got.dtype == want.dtype or name == "segment_sums"
     if not np.issubdtype(want.dtype, np.floating):
@@ -461,3 +515,80 @@ def test_bucket_scatter_limits_on_card(card):
     slot, counts = hp.bucket_scatter_cuda(d, hp.MAX_P)
     assert cuda.launches["bucket_scatter"] == before + 1
     assert counts[0].item() == 100 and slot.tolist() == list(range(100))
+
+
+# segment_sums (csrc/segment_sums.cu: one launch, a look-back over 5120-row
+# tiles taken by as many blocks as the card holds) on the hazards of its
+# contract, at every size above and at a few tiles with ragged ends, with
+# count given on the card: against the plain version on the named slots,
+# within 1e-4 of the run's sum of |x| (+1e-5); also on a view not 16-byte
+# aligned (the guarded fetch) and two calls back to back on other inputs of
+# one length (the freed status words come back from the allocator and must
+# be cleared).
+SUMS_SIZES = SIZES + (3 * 5120 + 7, 33 * 5120 + 5)
+
+
+def _sums_on_card(card, case):
+    values, sid, valid, num, count = case
+    c = None if count is None else torch.tensor(count, dtype=torch.int32,
+                                                device=card)
+    return (torch.from_numpy(values).to(card), torch.from_numpy(sid).to(card),
+            torch.from_numpy(valid).to(card), num, c)
+
+
+def _sums_held(args, got, tag):
+    from repro_torch.kernels.segment_reduce import segment_reduce as sr
+    vals, sid, valid, num, count = args
+    slots = torch.from_numpy(_named(None, sid.cpu().numpy(), None, num,
+                                    count)).to(vals.device).long()
+    want = sr.segment_sums_plain(vals, sid, valid, num, count)[slots]
+    mag = sr.segment_sums_plain(vals.abs(), sid, valid, num, count)[slots]
+    d = (got[slots] - want).abs()
+    assert bool((d <= 1e-4 * mag + 1e-5).all()), tag
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", SUMS_SIZES)
+@pytest.mark.parametrize("hazard", SUMS_HAZARDS)
+def test_segment_sums_hazards_on_card(card, hazard, n):
+    from repro_torch.kernels.segment_reduce import segment_reduce as sr
+
+    rng = np.random.default_rng(n * len(SUMS_HAZARDS)
+                                + SUMS_HAZARDS.index(hazard))
+    args = _sums_on_card(card, _sums_case(hazard, rng, n))
+    _sums_held(args, sr.segment_sums_cuda(*args), (hazard, n))
+    vals, sid, valid, num, count = args
+    if n:
+        views = [torch.cat([t[:1], t])[1:] for t in (vals, sid, valid)]
+        assert views[0].data_ptr() % 16 != 0
+        _sums_held((*views, num, count),
+                   sr.segment_sums_cuda(*views, num, count),
+                   (hazard, n, "misaligned"))
+    other = _sums_on_card(card, _sums_case(hazard, rng, n))
+    ga, gb = sr.segment_sums_cuda(*args), sr.segment_sums_cuda(*other)
+    _sums_held(args, ga, (hazard, n, "back to back, first"))
+    _sums_held(other, gb, (hazard, n, "back to back, second"))
+
+
+# segment_sums gives the same bits on every call (the ORDERED fold): 20
+# calls on the partial stage's shape (runs of ~32768 rows, so a run spans
+# tiles) and on one run over every row.
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", (40 * 5120 + 17, 1 << 22))
+@pytest.mark.parametrize("shape", ("partial", "one_run"))
+def test_segment_sums_repeats_bitwise_on_card(card, shape, n):
+    from repro_torch.kernels.segment_reduce import segment_reduce as sr
+
+    rng = np.random.default_rng(n)
+    vals = torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(card)
+    groups = max(n // 32768, 1) if shape == "partial" else 1
+    sid = (torch.arange(n, device=card) * groups // n).int()
+    valid = torch.ones(n, dtype=torch.bool, device=card)
+    count = torch.tensor(n, dtype=torch.int32, device=card)
+    first = sr.segment_sums_cuda(vals, sid, valid, n, count)[:groups]
+    for _ in range(19):
+        got = sr.segment_sums_cuda(vals, sid, valid, n, count)[:groups]
+        assert torch.equal(got.view(torch.int32), first.view(torch.int32)), \
+            (shape, n)
+    _sums_held((vals, sid, valid, n, count), sr.segment_sums_cuda(
+        vals, sid, valid, n, count), (shape, n))

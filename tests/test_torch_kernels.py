@@ -9,9 +9,10 @@ centres 0, K // 2 and K - 1, exact on and off; rank kinds all three.
 Integers are exact; the tolerances of floats are stated at ``_assert_same``
 in tests/test_torch_cuda.py (the window kernels' tighter than the
 reference's rtol=1e-4, atol=1e-3 between its backends,
-tests/test_kernel_registry.py). ``segment_sums`` is compared on the valid
-prefix only (the reference's Pallas wrapper leaves other slots undefined)
-and ``bucket_scatter`` slots only where ``dest < P``. The inputs and
+tests/test_kernel_registry.py). ``segment_sums`` is compared on the slots
+a row of the prefix names only (the reference's Pallas wrapper and the CUDA
+kernel leave the others undefined; tests/test_torch_segment_sums.py holds
+its valid prefix) and ``bucket_scatter`` slots only where ``dest < P``. The inputs and
 comparisons are shared with tests/test_torch_cuda.py, which holds the CUDA
 kernels against these plain versions on a card.
 """
