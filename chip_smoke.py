@@ -36,7 +36,7 @@ Phases, in order; any failure raises and the exit code is not 0:
    (0 ulps) in every mode, also around their 4096-output tile, on ragged
    ends, on views not 16-byte aligned and past the 1024 taps staged at
    once.
-3. The four main paths, each with the launch counters zeroed just before
+3. The five main paths, each with the launch counters zeroed just before
    it and read just after:
    - relational, through ``hf`` at P = 1: Fig. 8a filter, join and
      aggregate and TPCx-BB Q26 / Q26-multikey against numpy oracles;
@@ -47,12 +47,23 @@ Phases, in order; any failure raises and the exit code is not 0:
      row_number) over 2^27 rows in 11585 groups, against numpy oracles;
      prefix_sum, segment_scan, segment_rank, stencil1d, stencil1d_exact and
      segment_stencil must have launched;
+   - sort, through ``hf`` at P = 1: a global sort of Fig. 8a's table (2^27
+     rows) and its descending head of 1000, bench_validate.py's group-by ->
+     join -> sort, rank / dense_rank / row_number over Fig. 8b's series by
+     its values, an SMA after a filter (a Rebalance under the stencil), a
+     concat of two halves feeding the Fig. 8a aggregate, and Fig. 12's Q26
+     against a persisted and a cold item dimension, each twice, with the
+     reference's plan counts; against numpy and scipy oracles; prefix_sum,
+     segment_sums and stencil1d must have launched;
    - exchange_p2, two ranks on the one card joined by gloo (NCCL refuses
      two ranks on one card; gloo stages CUDA tensors through the host):
-     Fig. 8a join at 2^24 x 2^20 rows and Q26 through ``hf`` at P = 2,
-     rows against the same numpy oracles, all_to_all calls against the
-     plan's shuffle census; bucket_scatter must have launched in each rank,
-     prefix_sum in the sum over the ranks;
+     Fig. 8a join at 2^24 x 2^20 rows, Q26, a sort of Fig. 8a's table and
+     a global rank of the series at 2^24 rows, the SMA after a filter, and
+     Fig. 12's two Q26 legs, through ``hf`` at P = 2, rows against numpy
+     oracles, all_to_all calls against the plan's shuffle census (the
+     persisted leg's fewer than the cold leg's), each rank of the sort
+     holding a quarter of the rows or more; bucket_scatter must have
+     launched in each rank, prefix_sum in the sum over the ranks;
    - lm, through ``repro_torch.launch.steps`` as examples/serve_lm.py
      drives the reference: qwen3-0.6b (28 layers, bf16, random weights from
      a seed) serves 32 prompts of 2048 tokens with 256 greedy new tokens;
@@ -1515,6 +1526,195 @@ def window_path(torch, hf, synth, queries: dict, profile_dir: str | None = None,
     queries["grouped_windows"]["rows_in"] = n
 
 
+# ---------------------------------------------------------------------------
+# the sort path: global sort, limit, rebalance, concat and persist at P = 1
+# ---------------------------------------------------------------------------
+
+# Fig. 12's two legs as the reference plans them at P = 1 (shuffles,
+# all_to_all): Q26 against the cold item dimension, and against the one
+# persisted hash-partitioned on i_item_sk, whose side needs no exchange.
+# tests/test_torch_sort.py holds both packages' plans to these numbers.
+Q26_LEGS = {"cold": (3, 6), "persisted": (2, 4)}
+
+
+def q26_fluent(ss, item, min_count=4):
+    """TPCx-BB Q26 over any item-dimension frame (bench_tpcx.py:65-74)."""
+    si = ss.merge(item, on=("ss_item_sk", "i_item_sk"))
+    c = si.groupby("ss_customer_sk").agg(
+        c_i_count="count", id1=(si["i_class_id"] == 1, "sum"),
+        id2=(si["i_class_id"] == 2, "sum"), id3=(si["i_class_id"] == 3, "sum"))
+    return c[c["c_i_count"] > min_count]
+
+
+def persisted_dim(hf, it, cfg):
+    """bench_tpcx.py:178-181: the item dimension deduplicated by a
+    first-aggregate on its key, persisted hash-partitioned on it."""
+    return (hf.table(it, "it").groupby("i_item_sk")
+            .agg(i_class_id=("i_class_id", "first")).persist(cfg))
+
+
+def stable_order(x: np.ndarray) -> np.ndarray:
+    """``np.argsort(x, kind="stable")`` of a float32 array without NaNs, as
+    one sort of 64-bit keys: the order-preserving bits of x (with -0.0
+    taken as 0.0, as the sort compares them) above the row index."""
+    u = (x + np.float32(0)).view(np.uint32)
+    s = np.where(u >> np.uint32(31), ~u, u | np.uint32(0x80000000))
+    key = (s.astype(np.uint64) << np.uint64(32)) \
+        | np.arange(len(x), dtype=np.uint64)
+    key.sort()
+    return (key & np.uint64(0xFFFFFFFF)).astype(np.int64)
+
+
+def fig14_inputs(synth, n: int):
+    """bench_validate.py:20-32's tables: n fact rows with keys in
+    [0, n / 16), and the dimension over those keys."""
+    rng = np.random.default_rng(14)
+    nk = n // 16
+    fact = {"k": rng.integers(0, nk, n).astype(np.int32),
+            "v": synth.series(n, seed=14)}
+    kdim = {"k": np.arange(nk, dtype=np.int32),
+            "w": rng.normal(size=nk).astype(np.float32)}
+    return fact, kdim
+
+
+def fig14_frame(hf, fact, kdim):
+    """bench_validate.py:20-32: group-by sum/count -> join -> sort."""
+    agg = hf.aggregate(hf.table(fact, "fact"), by="k", v_sum=("v", "sum"),
+                       v_cnt=("v", "count"))
+    return hf.join(agg, hf.table(kdim, "dim"), on="k").sort_values("v_sum")
+
+
+def global_rank_frame(hf, x, kinds=("rank", "dense_rank", "row_number")):
+    """The global rank kinds of the series ``x`` by its values, chained
+    (columns r, dr, rn): one sample sort under the first."""
+    frame = hf.table({"x": x})
+    for kind, col in zip(kinds, ("r", "dr", "rn")):
+        frame = getattr(hf, kind)(frame, None, "x", out=col)
+    return frame
+
+
+def sma_after_filter_frame(hf, x):
+    """An SMA of 3 over the positive values of ``x``: the filter makes the
+    input 1D_VAR, so a Rebalance comes before the stencil."""
+    f = hf.table({"x": x})
+    f = f[f["x"] > 0.0]
+    return hf.sma(f, f["x"], 3, out="s")
+
+
+def concat_aggregate_frame(hf, t):
+    """``t`` in two halves, concatenated, then Fig. 8a's sum by id."""
+    h = len(t["id"]) // 2
+    both = hf.concat(hf.table({k: v[:h] for k, v in t.items()}, "a"),
+                     hf.table({k: v[h:] for k, v in t.items()}, "b"))
+    return hf.aggregate(both, "id", s=hf.sum_(both["x"]))
+
+
+def sort_path(torch, hf, synth, queries: dict, profile_dir: str | None = None,
+              checks: dict | None = None, n: int = 2**27):
+    """The sort path at P = 1: a global sort of Fig. 8a's table and its
+    descending head, bench_validate.py's group-by -> join -> sort, the
+    global rank kinds over Fig. 8b's series, an SMA after a filter (a
+    Rebalance under the stencil), a concat feeding the Fig. 8a aggregate,
+    and Fig. 12's Q26 against a persisted and a cold item dimension, each
+    twice; every query against numpy."""
+    run = query_runner(torch, hf, queries, profile_dir)
+    checks = {} if checks is None else checks
+    cfg = hf.ExecConfig()
+
+    # sort_fig8a: the sorted x bitwise, every row whole: at P = 1 the sort
+    # is stable, so the rows are the input's in numpy's stable order
+    t = synth.relational_tables(n, 1000, seed=0)
+    df = hf.table(t)
+    out = run("sort_fig8a", df.sort_values("x"))
+    order = stable_order(t["x"])
+    assert np.array_equal(out["x"], np.sort(t["x"])), "sort_fig8a.x"
+    check_equal(out, {k: v[order] for k, v in t.items()}, "sort_fig8a")
+    queries["sort_fig8a"]["rows_in"] = n
+    # the descending sort is the stable ascending order reversed
+    out = run("sort_desc_head", df.sort_values("x", ascending=False).head(1000))
+    check_equal(out, {k: v[order[::-1][:1000]] for k, v in t.items()},
+                "sort_desc_head")
+    queries["sort_desc_head"]["rows_in"] = n
+    del t, df, out, order
+
+    # fig14_pipeline: sums within the aggregate's tolerance, in order
+    fact, kdim = fig14_inputs(synth, n)
+    nk = len(kdim["k"])
+    out = run("fig14_pipeline", fig14_frame(hf, fact, kdim))
+    assert np.all(np.diff(out["v_sum"]) >= 0), "fig14_pipeline order"
+    cnt = np.bincount(fact["k"], minlength=nk)
+    keys = np.flatnonzero(cnt)
+    s = np.bincount(fact["k"], weights=fact["v"].astype(np.float64),
+                    minlength=nk)
+    by_k = np.argsort(out["k"])
+    check_equal({c: v[by_k] for c, v in out.items()},
+                {"k": keys.astype(np.int32), "v_sum": s[keys].astype(np.float32),
+                 "v_cnt": cnt[keys].astype(np.int32), "w": kdim["w"][keys]},
+                "fig14_pipeline", float_tol={"v_sum": (1e-4, 1e-3)})
+    queries["fig14_pipeline"]["rows_in"] = n + nk
+    del fact, kdim, out, cnt, keys, s, by_k
+
+    # global_rank over Fig. 8b's series: a SampleSort, then the ranks of the
+    # sorted keys, exact against scipy
+    from scipy.stats import rankdata
+    x = synth.series(n, seed=3)
+    out = run("global_rank", global_rank_frame(hf, x))
+    xs = np.sort(x)
+    assert np.array_equal(out["x"], xs), "global_rank.x"
+    # rankdata may give ranks in its input's float dtype: float64 holds
+    # every rank of 2^27 rows exactly, float32 not past 2^24
+    x64 = xs.astype(np.float64)
+    for col, method in (("r", "min"), ("dr", "dense"), ("rn", "ordinal")):
+        assert np.array_equal(out[col], rankdata(x64, method=method)), \
+            f"global_rank.{col}"
+    queries["global_rank"]["rows_in"] = n
+    del out, xs, x64
+
+    # sma_after_filter: the filter makes the series 1D_VAR, so a Rebalance
+    # (a compaction at P = 1) comes before the stencil; held as Fig. 8b's
+    # SMA is, against the float32 taps replayed in numpy
+    out = run("sma_after_filter", sma_after_filter_frame(hf, x))
+    xf = x[x > np.float32(0)]
+    assert np.array_equal(out["x"], xf), "sma_after_filter.x"
+    want = stencil_f32(xf, [1.0 / 3] * 3, 1)
+    checks["sma_after_filter"] = check_close("sma_after_filter", out["s"],
+                                             want, 1e-6, 1e-6)
+    checks["sma_after_filter_bitwise"] = bool(np.array_equal(out["s"], want))
+    queries["sma_after_filter"]["rows_in"] = n
+    del x, out, xf, want
+
+    # concat_aggregate: Fig. 8a's aggregate table in two halves, concatenated
+    # and aggregated; fig8a_aggregate's oracle and tolerance
+    t = synth.relational_tables(n, 4096, seed=2)
+    out = run("concat_aggregate", concat_aggregate_frame(hf, t))
+    cnt = np.bincount(t["id"], minlength=4096)
+    keys = np.flatnonzero(cnt).astype(np.int32)
+    sx = np.bincount(t["id"], weights=t["x"].astype(np.float64), minlength=4096)
+    check_equal(out, {"id": keys, "s": sx[keys].astype(np.float32)},
+                "concat_aggregate", float_tol={"s": (1e-4, 1e-2)})
+    queries["concat_aggregate"]["rows_in"] = n
+    del t, out
+
+    # fig12_q26_persisted (bench_tpcx.py:169-190): Q26 against the persisted
+    # and the cold item dimension, each twice; the plans are the reference's
+    ss, it, n_cust = q26_tables(synth)
+    want = q26_want(ss, it, n_cust)
+    t0 = time.perf_counter()
+    pdim = persisted_dim(hf, it, cfg)
+    queries["fig12_persist_dim_s"] = round(time.perf_counter() - t0, 4)
+    ss_df = hf.table(ss, "ss")
+    for leg, item in (("cold", hf.table(it, "it")), ("persisted", pdim)):
+        frame = q26_fluent(ss_df, item)
+        plan = frame.physical_plan(cfg)
+        got = (plan.shuffle_count(), plan.collective_count())
+        assert got == Q26_LEGS[leg], f"fig12 {leg}: plan {got}"
+        for i in (1, 2):
+            tag = f"fig12_q26_{leg}_{i}"
+            check_equal(run(tag, frame), want, tag)
+            queries[tag]["rows_in"] = len(ss["ss_item_sk"]) + len(it["i_item_sk"])
+            queries[tag]["shuffles"], queries[tag]["all_to_all"] = got
+
+
 # The exchange path: two ranks on the one card, joined by gloo (NCCL refuses
 # two ranks on one card; gloo stages CUDA tensors through the host, so the
 # walls are gloo's, not NCCL's).  Fig. 8a join at a quarter of the
@@ -1523,13 +1723,19 @@ P2_JOIN = (2**24, 2**20)
 P2_WORLD = 2
 
 
+P2_SORT = 2**24
+
+
 def exchange_rank(rank: int, world: int, port: int, out_dir: str) -> None:
     """One rank of the exchange path (started by torch.multiprocessing):
-    both queries through ``hf`` on the card at P = world, each with the
-    all_to_all calls counted; rank 0 holds the rows against the numpy
-    oracles.  Writes its walls, counts and launches to out_dir."""
+    the queries through ``hf`` on the card at P = world, each with the
+    all_to_all calls counted against the plan's census; rank 0 holds the
+    rows against the numpy oracles.  Writes its walls, counts and launches
+    to out_dir."""
     import torch
     import torch.distributed as dist
+    from scipy.stats import rankdata
+
     from repro_torch import hiframes as hf
     from repro_torch.data import synth
     from repro_torch.kernels import cuda
@@ -1547,17 +1753,64 @@ def exchange_rank(rank: int, world: int, port: int, out_dir: str) -> None:
     cfg = hf.ExecConfig()          # the card
     left, right = join_tables(*P2_JOIN)
     ss, it, n_cust = q26_tables(synth)
-    runs = {"p2_fig8a_join": (hf.join(hf.table(left, "l"), hf.table(right, "r"),
-                                      on=("id", "cid")),
-                              ("id", "x"), lambda: join_want(left, right),
-                              sum(P2_JOIN)),
-            "p2_fig11_q26": (q26(hf, ss, it), ("ss_customer_sk",),
-                             lambda: q26_want(ss, it, n_cust),
-                             len(ss["ss_item_sk"]) + len(it["i_item_sk"]))}
+    t8a = synth.relational_tables(P2_SORT, 1000, seed=0)
+    x = synth.series(P2_SORT, seed=3)
+
+    def as_rows(key, want):
+        def check(tag, out, t):
+            check_equal(sorted_rows(out, key), sorted_rows(want(), key), tag)
+        return check
+
+    def check_sort(tag, out, t):
+        # the rank-concatenated rows are the input's in stable order, and
+        # each rank took at least a quarter of them: the splitters split
+        order = stable_order(t8a["x"])
+        check_equal(out, {k: v[order] for k, v in t8a.items()}, tag)
+        assert int(t.counts.min()) >= P2_SORT // 4, \
+            f"{tag}: {t.counts.tolist()}"
+
+    def check_rank(tag, out, t):
+        xs = np.sort(x)
+        assert np.array_equal(out["x"], xs), f"{tag}.x"
+        assert np.array_equal(out["r"], rankdata(xs.astype(np.float64),
+                                                 method="min")), tag
+
+    def check_sma(tag, out, t):
+        xf = x[x > np.float32(0)]
+        assert np.array_equal(out["x"], xf), f"{tag}.x"
+        check_close(tag, out["s"], stencil_f32(xf, [1.0 / 3] * 3, 1),
+                    1e-6, 1e-6)
+
+    q26_rows = len(ss["ss_item_sk"]) + len(it["i_item_sk"])
+    runs = {"p2_fig8a_join": (
+                lambda: hf.join(hf.table(left, "l"), hf.table(right, "r"),
+                                on=("id", "cid")),
+                as_rows(("id", "x"), lambda: join_want(left, right)),
+                sum(P2_JOIN)),
+            "p2_fig11_q26": (lambda: q26(hf, ss, it),
+                             as_rows(("ss_customer_sk",),
+                                     lambda: q26_want(ss, it, n_cust)),
+                             q26_rows),
+            "p2_sort": (lambda: hf.table(t8a).sort_values("x"), check_sort,
+                        P2_SORT),
+            "p2_global_rank": (lambda: global_rank_frame(hf, x, ("rank",)),
+                               check_rank, P2_SORT),
+            "p2_sma_after_filter": (lambda: sma_after_filter_frame(hf, x),
+                                    check_sma, P2_SORT),
+            "p2_fig12_q26_cold": (
+                lambda: q26_fluent(hf.table(ss, "ss"), hf.table(it, "it")),
+                as_rows(("ss_customer_sk",), lambda: q26_want(ss, it, n_cust)),
+                q26_rows),
+            "p2_fig12_q26_persisted": (
+                lambda: q26_fluent(hf.table(ss, "ss"),
+                                   persisted_dim(hf, it, cfg)),
+                as_rows(("ss_customer_sk",), lambda: q26_want(ss, it, n_cust)),
+                q26_rows)}
     res = {"rank": rank, "queries": {}}
     torch.cuda.synchronize()
     cuda.reset_launches()
-    for tag, (frame, key, want, rows_in) in runs.items():
+    for tag, (build, check, rows_in) in runs.items():
+        frame = build()
         calls[0] = 0
         dist.barrier()
         torch.cuda.synchronize()
@@ -1570,11 +1823,15 @@ def exchange_rank(rank: int, world: int, port: int, out_dir: str) -> None:
         census = frame.physical_plan(cfg).shuffle_census(P=world)["all_to_all"]
         assert calls[0] == census, f"{tag}: {calls[0]} all_to_all, census {census}"
         if rank == 0:
-            check_equal(sorted_rows(out, key), sorted_rows(want(), key), tag)
+            check(tag, out, t)
         res["queries"][tag] = {
             "wall_s": round(wall, 4), "rows_in": rows_in,
             "rows_out": int(len(next(iter(out.values())))),
+            "rows_by_rank": t.counts.cpu().tolist(),
             "all_to_all": calls[0], "census": census, "nshards": t.nshards}
+    q = res["queries"]
+    assert q["p2_fig12_q26_persisted"]["all_to_all"] \
+        < q["p2_fig12_q26_cold"]["all_to_all"], q
     torch.cuda.synchronize()
     res["launches"] = dict(cuda.launches)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
@@ -1823,6 +2080,10 @@ def main(argv=None) -> int:
                         dict.fromkeys(("prefix_sum", "segment_scan",
                                        "segment_rank", "stencil1d",
                                        "stencil1d_exact", "segment_stencil"))),
+            "sort": (lambda: sort_path(torch, hf, synth, queries,
+                                       args.profile, checks),
+                     dict.fromkeys(("prefix_sum", "segment_sums",
+                                    "stencil1d"))),
             # counted in its ranks (each must launch bucket_scatter) and
             # summed over them; Q26's sums are integer (no segment_sums)
             "exchange_p2": (lambda: exchange_path(torch, queries),

@@ -26,17 +26,29 @@ ORDER BY ...)``), as in the reference:
 partitioned window returns rows in the grouped layout (hash-partitioned on
 the group keys, sorted by group and order keys within each rank).
 
+Global sorts, limits, layouts and materialization, as in the reference:
+
+    top = agg.sort_values("total", ascending=False).head(10)   # sample sort
+    both = hf.concat(df_a, df_b)                               # UNION ALL
+    hot = dim.groupby("k").agg(s=("x", "sum")).persist(cfg)   # run once
+    hot.merge(fact, on="k")                # zero exchanges on the kept keys
+
+``repartition(by)`` hash-partitions, ``sort_within_partitions(by)`` sorts
+each rank, ``replicate()`` pins a frame to REP (broadcast), and a global
+``rank``/``dense_rank``/``row_number`` with ``order_by`` sorts first.  A
+persisted frame keeps each rank's shard on its device and re-enters later
+plans by identity.
+
 ``collect`` runs on the card unless the config says ``device="cpu"``.
 Composite keys work as in the reference: ``merge(on=[("a", "ca"), "b"])``,
-``groupby(("k1", "k2"))``.  Sorts (and with them a global rank or
-``row_number`` with ``order_by``), a global stencil over a 1D_VAR input
-(after a filter, join or group-by), persist, replicate, head, assign, the
-dtype verbs and string predicates are later slices.
+``groupby(("k1", "k2"))``.  assign and the other column verbs, the dtype
+verbs, GroupBy sugar, UDFs and string predicates are a later slice.
 """
 from __future__ import annotations
 
+import dataclasses as _dc
 import functools as _ft
-from typing import Any, Sequence
+from typing import Any, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -45,11 +57,11 @@ from . import distribution as D
 from . import ir
 from . import optimizer as opt
 from . import physical_plan as pp
-from .dtypes import coerce_column, categories_of, dict_decode, is_category, \
-    is_nullable, physical_dtype
+from .dtypes import as_nullable, coerce_column, categories_of, dict_decode, \
+    is_category, is_nullable, physical_dtype
 from .expr import (AGG_FNS, AggExpr, BinOp, ColRef, Const, Expr, UnOp, all_,
                    any_, as_expr, count, first, max_, mean, min_, nunique,
-                   prod, std, sum_, var)
+                   numpy_dtype, prod, std, sum_, var)
 from .lower import ExecConfig, Lowered, execute, lower
 from .table import DTable
 
@@ -58,7 +70,7 @@ __all__ = [
     "count", "min_", "max_", "prod", "any_", "all_", "var", "std", "first",
     "nunique", "ExecConfig", "explain", "DTable", "Over", "cumsum",
     "stencil", "sma", "wma", "lag", "lead", "rolling_sum", "rolling_mean",
-    "rank", "dense_rank", "row_number",
+    "rank", "dense_rank", "row_number", "concat", "from_persisted_state",
 ]
 
 
@@ -75,10 +87,22 @@ def _check_no_strings(e: Expr) -> Expr:
 
 
 class DataFrame:
-    """Lazy distributed data frame (wraps a logical plan node)."""
+    """Lazy distributed data frame (wraps a logical plan node).
 
-    def __init__(self, node: ir.Node):
+    ``rep_nodes`` holds the plan nodes the user pinned to REP with
+    :meth:`replicate`; the set survives joins and aggregates, so a
+    broadcast dimension table stays broadcast inside a larger plan."""
+
+    def __init__(self, node: ir.Node, rep_nodes: frozenset = frozenset()):
         self.node = node
+        self._rep_nodes = frozenset(rep_nodes)
+
+    @property
+    def _replicated(self) -> bool:
+        return self.node.id in self._rep_nodes
+
+    def _wrap(self, node: ir.Node) -> "DataFrame":
+        return DataFrame(node, self._rep_nodes)
 
     def _rw(self, e) -> Expr:
         return _check_no_strings(as_expr(e))
@@ -101,10 +125,10 @@ class DataFrame:
         if isinstance(key, str):
             return ColRef(self.node.id, key)
         if isinstance(key, Expr):                       # df[pred] -> filter
-            return DataFrame(ir.Filter(self.node, self._rw(key)))
+            return self._wrap(ir.Filter(self.node, self._rw(key)))
         if isinstance(key, (list, tuple)):              # df[["a","b"]] -> project
             cols = {k: ColRef(self.node.id, k) for k in key}
-            return DataFrame(ir.Project(self.node, cols))
+            return self._wrap(ir.Project(self.node, cols))
         raise TypeError(key)
 
     def __getattr__(self, name: str):
@@ -135,7 +159,11 @@ class DataFrame:
                 raise NotImplementedError(
                     f"merge on category key {lk!r}/{rk!r}: string keys are "
                     "not supported by this package yet")
-        return DataFrame(ir.Join(self.node, right.node, lo, ro, suffix, how))
+        node = ir.Join(self.node, right.node, lo, ro, suffix, how)
+        rep = self._rep_nodes | right._rep_nodes
+        if self._replicated and right._replicated:
+            rep = rep | {node.id}
+        return DataFrame(node, rep)
 
     def groupby(self, by) -> "GroupBy":
         """Group-by proxy: ``df.groupby("k").agg(total=("x", "sum"))``."""
@@ -146,16 +174,119 @@ class DataFrame:
         ...)``): ``df.over("g", order_by="t").cumsum(df.x)``."""
         return Over(self, partition_by, order_by)
 
+    def head(self, n: int = 5) -> "DataFrame":
+        """First ``n`` rows in global (rank-concatenation) order: no data
+        moves, each rank clamps its count; partitioning and ordering
+        survive, so a later verb on the same keys stays elided."""
+        return self._wrap(ir.Limit(self.node, n))
+
+    def limit(self, n: int) -> "DataFrame":
+        """SQL-style alias of :meth:`head`."""
+        return self.head(n)
+
+    def sort(self, by, ascending: bool = True) -> "DataFrame":
+        """Global sort (sample sort); ``by`` is a column name or a
+        tuple/list of names (lexicographic, most significant first)."""
+        return self._wrap(ir.Sort(self.node, ir.as_keys(by), ascending))
+
+    def sort_values(self, by, ascending: bool = True) -> "DataFrame":
+        """pandas-style alias of :meth:`sort`."""
+        return self.sort(by, ascending)
+
+    def repartition(self, by) -> "DataFrame":
+        """Hash-partition rows across ranks by key columns: same rows, new
+        placement.  One hash exchange on ``by``, elided when the input is
+        already partitioned that way; persisted, the layout makes later
+        ``groupby``/``merge``/``over`` on those keys exchange nothing."""
+        keys = ir.as_keys(by)
+        missing = set(keys) - set(self.node.schema)
+        if missing:
+            raise KeyError(f"repartition: {sorted(missing)} not in columns "
+                           f"{list(self.node.schema)}")
+        return self._wrap(ir.Repartition(self.node, by=keys))
+
+    def sort_within_partitions(self, by, ascending: bool = True) -> "DataFrame":
+        """Sort rows by ``by`` within each rank, moving nothing between
+        ranks; the order becomes part of the layout :meth:`persist` keeps.
+        Ascending only, like the local sort."""
+        if not ascending:
+            raise ValueError(
+                "sort_within_partitions: only ascending=True is supported")
+        keys = ir.as_keys(by)
+        missing = set(keys) - set(self.node.schema)
+        if missing:
+            raise KeyError(
+                f"sort_within_partitions: {sorted(missing)} not in columns "
+                f"{list(self.node.schema)}")
+        return self._wrap(ir.Repartition(self.node, sort_by=keys))
+
+    def replicate(self) -> "DataFrame":
+        """Pin this frame to REP (broadcast): small dimension tables."""
+        return DataFrame(self.node,
+                         frozenset(n.id for n in ir.topo_order(self.node)))
+
     # -- execution ---------------------------------------------------------------
+    def _force_rep(self) -> set[int]:
+        return set(self._rep_nodes)
+
     def collect(self, cfg: ExecConfig | None = None,
                 keep: Sequence[str] | None = None) -> DTable:
         """Execute the plan and return the materialized DTable."""
         return execute(self.node, cfg or ExecConfig(),
-                       set(keep) if keep else None)[1]
+                       set(keep) if keep else None, self._force_rep())[1]
+
+    def persist(self, cfg: ExecConfig | None = None, *,
+                name: str = "persist") -> "DataFrame":
+        """Execute once and return a frame over the result that carries the
+        layout the plan produced (``ir.ScanLayout``): partitioning keys,
+        per-rank order, global sortedness, every rank's count.
+
+        Each rank keeps its own shard on its device; later plans take it
+        back by identity (no host copy, no re-pad), and ``groupby``,
+        ``merge``, ``over`` and ``sort`` on the persisted keys plan no
+        exchange and no sort.  The claims hold at the rank count they were
+        made under.  A replicated result re-enters as a host table pinned
+        to REP.  A result that still overflows after the retries raises
+        :class:`CapacityOverflow` naming the op, instead of keeping
+        truncated shards."""
+        cfg = cfg or ExecConfig()
+        lowered, t = execute(self.node, cfg, None, self._force_rep(),
+                             gather=False)
+        if t.overflow:
+            from .errors import CapacityOverflow
+            attempts = max(cfg.auto_retry, 0) + 1
+            op_id, rec = max(t.overflow_ops.items(),
+                             key=lambda kv: kv[1]["cap_req"])
+            raise CapacityOverflow(
+                op_id=op_id, op=rec["op"], observed_est=rec["cap_req"],
+                cap=rec["cap"], attempts=attempts,
+                message=(
+                    "persist(): capacity overflow survived the auto-retries "
+                    f"at op #{op_id} ({rec['op']}): observed requirement "
+                    f"~{rec['cap_req']} rows > planned cap {rec['cap']}; "
+                    "raise ExecConfig.auto_retry or pre-size via "
+                    f"ExecConfig.cap_overrides[{op_id}] = ({rec['cap_req']}, "
+                    f"{rec['bucket_req']})"))
+        root_op = lowered.pplan.root_op
+        layout = ir.ScanLayout(
+            kind=root_op.part.kind, partitioned_by=root_op.part.keys,
+            ascending=root_op.part.ascending,
+            globally_sorted=root_op.part.globally_sorted,
+            sorted_by=root_op.order.keys,
+            order_ascending=root_op.order.ascending,
+            counts=t.counts.cpu().numpy().astype(np.int32),
+            capacity=int(t.capacity), nshards=int(t.nshards), dist=t.dist)
+        return _persisted(name, t.columns, layout)
+
+    def cache(self, cfg: ExecConfig | None = None, *,
+              name: str = "cache") -> "DataFrame":
+        """Alias of :meth:`persist` (Spark spelling)."""
+        return self.persist(cfg, name=name)
 
     def lower(self, cfg: ExecConfig | None = None,
               keep: Sequence[str] | None = None) -> Lowered:
-        return lower(self.node, cfg, set(keep) if keep else None)[0]
+        return lower(self.node, cfg, set(keep) if keep else None,
+                     self._force_rep())[0]
 
     def to_numpy(self, cfg: ExecConfig | None = None, *,
                  decode: bool = True) -> dict[str, np.ndarray]:
@@ -174,7 +305,8 @@ class DataFrame:
         root = self.node
         if cfg.optimize_plan:
             root, _ = opt.optimize(root)
-        info = D.infer(root, broadcast_join=cfg.broadcast_join)
+        info = D.infer(root, force_rep=self._force_rep(),
+                       broadcast_join=cfg.broadcast_join)
         root = D.insert_rebalance(root, info)
         return root, info, pp.plan_physical(root, info.dists, cfg)
 
@@ -243,13 +375,16 @@ class GroupBy:
             raise ValueError("agg() needs at least one name=(column, fn) spec")
         specs = {name: self._spec(name, a) for name, a in aggs.items()}
         # pandas groupby(dropna=True): null keys form no group
-        node = self.df.node
+        base = self.df
+        node = base.node
         preds = [_not_null(ColRef(node.id, k), node.schema[k])
                  for k in self.keys if is_nullable(node.schema[k])]
         if preds:
-            node = ir.Filter(node, _ft.reduce(
-                lambda a, b: BinOp("and", a, b), preds))
-        return DataFrame(ir.Aggregate(node, self.keys, specs))
+            base = base._wrap(ir.Filter(node, _ft.reduce(
+                lambda a, b: BinOp("and", a, b), preds)))
+        node = ir.Aggregate(base.node, self.keys, specs)
+        rep = base._rep_nodes | ({node.id} if base._replicated else set())
+        return DataFrame(node, frozenset(rep))
 
 
 def _not_null(col: ColRef, dt) -> Expr:
@@ -284,6 +419,81 @@ def table(columns, name: str = "t") -> DataFrame:
             v = v.cpu().numpy()
         cols[k], sch[k] = coerce_column(k, v)
     return DataFrame(ir.Scan(name, cols, sch))
+
+
+def _persisted(name: str, columns: dict, layout: ir.ScanLayout) -> DataFrame:
+    """A frame over materialized columns and their layout.  A REP result
+    re-enters as a host table pinned to REP, keeping its order."""
+    sch = {k: numpy_dtype(v.dtype) if isinstance(v, torch.Tensor)
+           else np.asarray(v).dtype for k, v in columns.items()}
+    if layout.dist == D.REP:
+        counts = np.asarray(layout.counts)
+        rows = {k: (v.cpu().numpy() if isinstance(v, torch.Tensor)
+                    else np.asarray(v))[:int(counts[0])]
+                for k, v in columns.items()}
+        scan = ir.Scan(name, rows, sch,
+                       layout=_dc.replace(layout, kind="rep", counts=None))
+        return DataFrame(scan, frozenset({scan.id}))
+    return DataFrame(ir.Scan(name, dict(columns), sch, layout=layout))
+
+
+def from_persisted_state(columns: dict[str, Any], layout: Mapping[str, Any],
+                         *, name: str = "persist",
+                         device: Any = "cuda") -> DataFrame:
+    """Carry a persisted frame over from numpy state: the reference
+    package's persisted Scan columns, ``(nshards * capacity,)`` arrays, and
+    its ``ScanLayout``'s fields as a mapping (``dataclasses.asdict``).  The
+    columns move to ``device`` (64-bit ones narrow to 32 bits, as at
+    ingest) and the frame plans and re-enters as one this package
+    persisted; each rank takes its own shard's rows.  A layout without
+    counts (a replicated result) gives a host table pinned to REP."""
+    f = {k: layout[k] for k in (
+        "kind", "partitioned_by", "ascending", "globally_sorted",
+        "sorted_by", "order_ascending", "counts", "capacity", "nshards",
+        "dist")}
+    f["partitioned_by"] = tuple(f["partitioned_by"])
+    f["sorted_by"] = tuple(f["sorted_by"])
+    if f["counts"] is None:
+        scan = ir.Scan(name, {k: np.asarray(v) for k, v in columns.items()},
+                       layout=ir.ScanLayout(**f))
+        return DataFrame(scan, frozenset({scan.id}))
+    f["counts"] = np.asarray(f["counts"], dtype=np.int32)
+    t = DTable.from_numpy_state(columns, f["counts"], f["capacity"],
+                                f["nshards"], f["dist"], device=device)
+    return _persisted(name, t.columns, ir.ScanLayout(**f))
+
+
+def concat(*dfs: DataFrame) -> DataFrame:
+    """UNION ALL.  Column names must match; a column nullable in any part
+    comes out nullable.  Category columns must share one dictionary
+    (recoding onto a union dictionary is a later slice)."""
+    schemas = [tuple(d.node.schema) for d in dfs]
+    if len(set(schemas)) > 1:
+        raise ValueError(f"schema mismatch in concat: {schemas}")
+    over: dict[str, Any] = {}
+    for c in schemas[0]:
+        dts = [d.node.schema[c] for d in dfs]
+        if any(is_category(dt) for dt in dts):
+            if len({categories_of(dt) if is_category(dt) else None
+                    for dt in dts}) > 1 \
+                    or len({is_nullable(dt) for dt in dts}) > 1:
+                raise NotImplementedError(
+                    f"concat: category column {c!r} differs between parts; "
+                    "recoding dictionaries is not part of this package yet")
+        elif any(is_nullable(dt) for dt in dts) and not is_nullable(dts[0]):
+            over[c] = as_nullable(dts[0])
+    node = ir.Concat(tuple(d.node for d in dfs))
+    rep = frozenset().union(*(d._rep_nodes for d in dfs))
+    if all(d._replicated for d in dfs):
+        rep = rep | {node.id}
+    if over:
+        sch = node.schema
+        proj = ir.Project(node, {c: ColRef(node.id, c) for c in sch},
+                          {c: over.get(c, sch[c]) for c in sch})
+        if node.id in rep:
+            rep = rep | {proj.id}
+        node = proj
+    return DataFrame(node, frozenset(rep))
 
 
 def _parse_on(on) -> tuple[tuple[str, ...], tuple[str, ...]]:
@@ -339,7 +549,8 @@ def cumsum(df: DataFrame, e, out: str = "cumsum", *,
     the grouped layout, not input order."""
     return DataFrame(ir.Window(df.node, "cumsum", df._rw(e), out,
                                partition_by=_over_keys(partition_by),
-                               order_by=_over_keys(order_by)))
+                               order_by=_over_keys(order_by)),
+                     df._rep_nodes)
 
 
 def stencil(df: DataFrame, e, weights: Sequence[float], *, scale: float = 1.0,
@@ -357,7 +568,8 @@ def stencil(df: DataFrame, e, weights: Sequence[float], *, scale: float = 1.0,
     return DataFrame(ir.Window(df.node, "stencil", df._rw(e), out,
                                weights=w, center=c, exact=exact,
                                partition_by=_over_keys(partition_by),
-                               order_by=_over_keys(order_by)))
+                               order_by=_over_keys(order_by)),
+                     df._rep_nodes)
 
 
 def sma(df: DataFrame, e, window: int = 3, out: str = "sma", *,
@@ -414,39 +626,46 @@ def rolling_mean(df: DataFrame, e, window: int, out: str = "rolling_mean", *,
 
 
 def _rank_df(df: DataFrame, kind: str, partition_by, order_by,
-             out: str) -> DataFrame:
+             out: str, ascending: bool = True) -> DataFrame:
     pk, ok = _over_keys(partition_by), _over_keys(order_by)
+    node = df.node
     if not pk and ok:
-        # the reference sorts first (a global sample sort) so that equal
-        # order keys are adjacent across ranks
-        raise NotImplementedError(
-            f"global {kind} with order_by needs a global sort (sample sort), "
-            "which is not part of this package yet (sort and rebalance are "
-            "the next slice); rank within groups with partition_by, or "
-            "number rows in arrival order with row_number(df, None)")
-    return DataFrame(ir.Window(df.node, kind, None, out,
-                               partition_by=pk, order_by=ok))
+        # a global window: equal order-key tuples must be adjacent across
+        # the rank-concatenated stream, so sort first (the planner makes it
+        # a no-op on an input already sorted that way)
+        node = ir.Sort(node, ok, ascending)
+    return DataFrame(ir.Window(node, kind, None, out,
+                               partition_by=pk, order_by=ok),
+                     df._rep_nodes)
 
 
-def rank(df: DataFrame, partition_by, order_by, out: str = "rank") -> DataFrame:
-    """SQL RANK() OVER (PARTITION BY ... ORDER BY ...): 1-based; equal
-    order-key tuples share a rank, with gaps after ties."""
-    return _rank_df(df, "rank", partition_by, order_by, out)
+def rank(df: DataFrame, partition_by, order_by, out: str = "rank", *,
+         ascending: bool = True) -> DataFrame:
+    """SQL RANK() OVER ([PARTITION BY ...] ORDER BY ...): 1-based; equal
+    order-key tuples share a rank, with gaps after ties.
+    ``partition_by=None`` ranks globally over ``order_by`` (``ascending``
+    picks the direction): a global sort first, then an exclusive scan of
+    the per-rank counts with ties across ranks reconciled."""
+    return _rank_df(df, "rank", partition_by, order_by, out, ascending)
 
 
 def dense_rank(df: DataFrame, partition_by, order_by,
-               out: str = "dense_rank") -> DataFrame:
-    """SQL DENSE_RANK(): ties share a rank, no gaps."""
-    return _rank_df(df, "dense_rank", partition_by, order_by, out)
+               out: str = "dense_rank", *,
+               ascending: bool = True) -> DataFrame:
+    """SQL DENSE_RANK(): ties share a rank, no gaps.  ``partition_by=None``
+    ranks globally (see :func:`rank`)."""
+    return _rank_df(df, "dense_rank", partition_by, order_by, out, ascending)
 
 
 def row_number(df: DataFrame, partition_by, order_by=None,
-               out: str = "row_number") -> DataFrame:
+               out: str = "row_number", *,
+               ascending: bool = True) -> DataFrame:
     """SQL ROW_NUMBER(): 1-based position within the group (ties broken by
-    the stable sort).  ``partition_by=None`` without ``order_by`` numbers
-    rows GLOBALLY in rank-concatenation arrival order, from an exclusive
-    scan of the per-rank counts."""
-    return _rank_df(df, "row_number", partition_by, order_by, out)
+    the stable sort).  ``partition_by=None`` numbers rows GLOBALLY: with
+    ``order_by`` the stream is sorted first, without it rows number in
+    rank-concatenation arrival order; either way from an exclusive scan of
+    the per-rank counts."""
+    return _rank_df(df, "row_number", partition_by, order_by, out, ascending)
 
 
 class Over:

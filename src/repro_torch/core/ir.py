@@ -77,11 +77,15 @@ class ScanLayout:
         follow ``sorted_by`` (rebalanced sorted stream).
       * ``sorted_by``/``order_ascending`` — each shard's valid-prefix
         ordering.
-      * ``counts``/``capacity``/``nshards`` — the 1D_VAR carrier: columns
-        are ``(nshards * capacity,)`` device arrays with per-shard valid
-        prefixes.  ``counts is None`` means the columns are plain host
-        arrays (REP results re-enter that way) and only the ordering claims
-        apply.
+      * ``counts``/``capacity``/``nshards`` — the 1D_VAR carrier: every
+        rank's valid-row count and the per-rank capacity.  The columns are
+        each rank's OWN ``(capacity,)`` device shard, which ``persist()``
+        keeps on the rank that computed it (the reference package keeps
+        ``(nshards * capacity,)`` global arrays instead); a state carried
+        over from the reference may hold every shard, of which each rank
+        takes its own rows.  ``counts is None`` means the columns are plain
+        host arrays (REP results re-enter that way) and only the ordering
+        claims apply.
       * ``dist`` — the lattice element the table satisfies (seeds
         distribution inference).
 
@@ -129,7 +133,9 @@ class ScanLayout:
     def gather_host(self, columns: dict[str, Any]) -> dict[str, np.ndarray]:
         """Fallback re-entry at a DIFFERENT shard count: concatenate every
         shard's valid prefix on the host (the round-trip ``device_valid``
-        re-entry avoids)."""
+        re-entry avoids).  The columns must hold every shard,
+        ``(nshards * capacity,)`` host arrays: one rank's shard of several
+        cannot re-enter this way."""
         cnts = np.asarray(self.counts)
         out = {}
         for name, col in columns.items():

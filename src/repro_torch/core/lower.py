@@ -121,9 +121,31 @@ class Lowered:
         self.sites = _capacity_sites(pplan)
 
     def _source(self, op: pp.Source):
-        """This rank's slice of a host scan, padded to the op's capacity."""
+        """This rank's rows of a scan and their count.
+
+        A persisted scan whose layout re-enters at this shard count (and
+        is not forced to REP) hands over this rank's device shard by
+        identity, with its count from the layout's (P,) counts: no host
+        copy, no re-pad.  Any other scan is a host table (a persisted one
+        first gathers its valid prefixes, ``ScanLayout.gather_host``) and
+        this rank takes its block, padded to the op's capacity."""
         n, dev = op.node, self.device
-        cols = {c: np.asarray(v) for c, v in n.columns.items()}
+        lay = n.layout
+        if lay is not None and lay.device_valid(self.P) and op.dist != D.REP:
+            cap = int(lay.capacity)
+            cols = {c: _shard(v, cap, self.rank).to(dev)
+                    for c, v in n.columns.items()}
+            return cols, torch.tensor(int(lay.counts[self.rank]),
+                                      dtype=torch.int32, device=dev)
+        cols = {c: _host(v) for c, v in n.columns.items()}
+        if lay is not None and lay.counts is not None:
+            if any(len(v) != lay.nshards * lay.capacity for v in cols.values()):
+                raise ValueError(
+                    f"persisted scan {n.name!r} holds one rank's shard of "
+                    f"{lay.nshards}; it re-enters only at P = {lay.nshards} "
+                    f"and not replicated (here P = {self.P}, "
+                    f"{'REP' if op.dist == D.REP else op.dist})")
+            cols = lay.gather_host(cols)
         rows = len(next(iter(cols.values())))
         if op.dist == D.REP:
             lo, hi, cnt = 0, rows, rows
@@ -139,7 +161,13 @@ class Lowered:
             out[c] = t
         return out, torch.tensor(cnt, dtype=torch.int32, device=dev)
 
-    def __call__(self) -> DTable:
+    def __call__(self, gather: bool = True) -> DTable:
+        """Run the plan on this rank.  With ``gather`` (the default) the
+        result's columns hold every rank's shard, as ``collect()`` returns
+        them; without it they hold this rank's own ``(capacity,)`` shard
+        (``DTable.shard``), as ``persist()`` keeps them.  The counts and
+        the overflow report are gathered either way, and the report is
+        read back to the host once."""
         pplan, kernels, P = self.pplan, self.kernels, self.P
         packed = self.cfg.packed_exchange
         env: dict[int, tuple[dict, Any]] = {}
@@ -247,6 +275,37 @@ class Lowered:
                 flag(ovf, _distinct_runs(keys, cnt))
                 res = (_restore_key_names(out, n.key), n_seg)
 
+            elif isinstance(op, pp.SampleSort):
+                cols, cnt = env[op.inputs[0]]
+                out, cnt2, ovf = phys.sample_sort(
+                    cols, cnt, n.by, P=1 if op.dist == D.REP else P,
+                    bucket_cap=op.bucket, cap_out=op.cap,
+                    ascending=n.ascending, pre_sorted=op.pre_sorted,
+                    kernels=kernels, packed=packed)
+                flag(ovf, cnt)
+                res = (out, cnt2)
+
+            elif isinstance(op, pp.LimitOp):
+                cols, cnt = env[op.inputs[0]]
+                res = phys.limit(cols, cnt, n.n, 1 if op.dist == D.REP else P,
+                                 cap_out=op.cap,
+                                 method=self.cfg.exscan_method)
+
+            elif isinstance(op, pp.RebalanceOp):
+                cols, cnt = env[op.inputs[0]]
+                out, cnt2, ovf = phys.rebalance(
+                    cols, cnt, P=P, bucket_cap=op.bucket, cap_out=op.cap,
+                    kernels=kernels, packed=packed)
+                flag(ovf, cnt)
+                res = (out, cnt2)
+
+            elif isinstance(op, pp.ConcatOp):
+                parts = [env[i] for i in op.inputs]
+                out, cnt2, ovf = phys.concat(parts, op.cap, kernels=kernels)
+                flag(ovf, functools.reduce(
+                    torch.add, [c.to(torch.float32) for _, c in parts]))
+                res = (out, cnt2)
+
             else:
                 raise NotImplementedError(_unsupported(op))
             env[op.op_id] = res
@@ -260,9 +319,10 @@ class Lowered:
                   if flags else torch.zeros(0, device=self.device))
         counts = cnt.reshape(1)
         if P > 1:
-            cols = {k: _all_gather(v) for k, v in cols.items()}
-            counts = _all_gather(counts)
-            report = _all_gather(report)
+            if gather:
+                cols = {k: phys.all_gather_rows(v, P) for k, v in cols.items()}
+            counts = phys.all_gather_rows(counts, P)
+            report = phys.all_gather_rows(report, P)
         # the one read back to the host
         report = report.cpu().numpy().reshape(P, -1)
         nsite = len(self.sites)
@@ -270,7 +330,8 @@ class Lowered:
         overflow_ops = self._attribute_overflow(fl, report[:, nsite:])
         return DTable(columns=cols, counts=counts, capacity=cap, nshards=P,
                       dist=self.dists[self.root.id], overflow=bool(fl.any()),
-                      overflow_ops=overflow_ops)
+                      overflow_ops=overflow_ops,
+                      shard=None if gather else self.rank)
 
     def _window(self, op: pp.WindowOp, cols: dict, cnt) -> tuple[dict, Any]:
         """cumsum / stencil / rank: partitioned over the grouped layout the
@@ -344,15 +405,14 @@ class Lowered:
 # slices of the package
 _EXECUTED = (pp.Source, pp.Compact, pp.Map, pp.WindowOp, pp.HashExchange,
              pp.LocalSort, pp.MergeJoin, pp.AggPrep, pp.PartialAgg,
-             pp.SegmentAgg)
+             pp.SegmentAgg, pp.SampleSort, pp.LimitOp, pp.RebalanceOp,
+             pp.ConcatOp)
 
 # why a planned op is not executed yet, by op type
 _LATER = {
-    "SampleSort": "a global sort (sort_values, or a global rank, dense_rank "
-                  "or row_number with order_by) needs sample sort",
-    "RebalanceOp": "a Rebalance is planned where a 1D_VAR input (after a "
-                   "filter, join or group-by) meets an operator that needs "
-                   "even blocks, such as a global stencil",
+    "SaltOp": "a salted skew join is planned only under adaptive statistics "
+              "(ExecConfig.adaptive_stats), which come with ROADMAP "
+              "section 1 item 8",
 }
 
 
@@ -360,9 +420,22 @@ def _unsupported(op: pp.POp) -> str:
     name = type(op).__name__
     why = _LATER.get(name, "")
     return (f"{name} is not part of this package yet"
-            + (f": {why}; sort and rebalance are the next slice" if why else "")
+            + (f": {why}" if why else "")
             + " (the executor runs "
             + ", ".join(t.__name__ for t in _EXECUTED) + ")")
+
+
+def _host(v) -> np.ndarray:
+    """A scan column as a host array (persisted columns are tensors)."""
+    return v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+
+def _shard(v: torch.Tensor, cap: int, rank: int) -> torch.Tensor:
+    """This rank's ``(cap,)`` shard of a persisted column: the column
+    itself when it holds one rank's shard (what ``persist()`` keeps), else
+    a view of rank ``rank``'s rows of a column that holds every shard (a
+    carried-over state)."""
+    return v if v.shape[0] == cap else v[rank * cap:(rank + 1) * cap]
 
 
 def _full(v: torch.Tensor, cap: int) -> torch.Tensor:
@@ -370,20 +443,15 @@ def _full(v: torch.Tensor, cap: int) -> torch.Tensor:
     return v.expand(cap).clone() if v.dim() == 0 else v
 
 
-def _all_gather(t: torch.Tensor) -> torch.Tensor:
-    parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
-    dist.all_gather(parts, t.contiguous())
-    return torch.cat(parts)
-
-
 def _capacity_sites(pplan: pp.PhysicalPlan) -> list[tuple[int, str, str, str]]:
     """The static capacity-site table for per-op overflow attribution: one
     entry per overflow-flagged buffer, in per-rank flag order —
     ``(op_id, kind, reduce-rule, escalation-strategy)``.
 
-    "max" reduces per-shard buffers, "sum" exchange receive totals.  "abs"
-    sites report a true upper bound, so one retry at that size heals;
-    "double" sites (join expansion) escalate geometrically instead.
+    "max" reduces per-shard buffers, "sum" exchange receive totals, "block"
+    evenly re-split rows.  "abs" sites report a true upper bound, so one
+    retry at that size heals; "double" sites (join expansion) escalate
+    geometrically instead.
     """
     sites = []
     for op in pplan.ops:
@@ -399,6 +467,13 @@ def _capacity_sites(pplan: pp.PhysicalPlan) -> list[tuple[int, str, str, str]]:
             sites.append((op.op_id, "partial_agg", "max", "abs"))
         elif isinstance(op, pp.SegmentAgg):
             sites.append((op.op_id, "segment_agg", "max", "abs"))
+        elif isinstance(op, pp.SampleSort):
+            sites.append((op.op_id, "sort", "max" if rep else "sum", "abs"))
+        elif isinstance(op, pp.RebalanceOp):
+            sites.append((op.op_id, "rebalance",
+                          "max" if rep else "block", "abs"))
+        elif isinstance(op, pp.ConcatOp):
+            sites.append((op.op_id, "concat", "max", "abs"))
     return sites
 
 
@@ -454,16 +529,19 @@ def _restore_key_names(out: dict, key: tuple[str, ...]) -> dict:
 
 
 def lower(root: ir.Node, cfg: ExecConfig | None = None,
-          keep: set[str] | None = None) -> tuple[Lowered, dict]:
+          keep: set[str] | None = None,
+          force_rep: set[int] = frozenset()) -> tuple[Lowered, dict]:
     """optimize -> infer distributions -> plan physical ops (exchange/sort
-    elision) -> plan capacities -> bind the executor."""
+    elision) -> plan capacities -> bind the executor.  ``force_rep``: node
+    ids the caller pins to REP (``DataFrame.replicate``)."""
     from . import optimizer as opt
 
     cfg = cfg or ExecConfig()
     stats: dict = {}
     if cfg.optimize_plan:
         root, stats = opt.optimize(root, keep)
-    info = D.infer(root, broadcast_join=cfg.broadcast_join)
+    info = D.infer(root, force_rep=force_rep,
+                   broadcast_join=cfg.broadcast_join)
     root = D.insert_rebalance(root, info)
     source_rows = {n.id: pp.scan_rows(n)
                    for n in ir.topo_order(root) if isinstance(n, ir.Scan)}
@@ -472,18 +550,20 @@ def lower(root: ir.Node, cfg: ExecConfig | None = None,
     return Lowered(root, cfg, info.dists, pplan), stats
 
 
-def execute(root: ir.Node, cfg: ExecConfig,
-            keep: set[str] | None = None) -> tuple[Lowered, DTable]:
+def execute(root: ir.Node, cfg: ExecConfig, keep: set[str] | None = None,
+            force_rep: set[int] = frozenset(),
+            gather: bool = True) -> tuple[Lowered, DTable]:
     """Lower and run, retrying on capacity overflow at most
     ``cfg.auto_retry`` times.  Each retry grows only the overflowed sites
     (``cap_overrides``): "abs" sites to their observed requirement, "double"
     sites to twice their cap.  The table comes back overflow-flagged when
-    the retries run out; ``events`` on it lists what the loop did."""
+    the retries run out; ``events`` on it lists what the loop did.
+    ``gather=False`` returns this rank's own shard (``Lowered.__call__``)."""
     events: list[str] = []
     attempt = 0
     while True:
-        lowered, _ = lower(root, cfg, keep)
-        t = lowered()
+        lowered, _ = lower(root, cfg, keep, force_rep)
+        t = lowered(gather)
         if not t.overflow or attempt >= max(cfg.auto_retry, 0):
             if t.overflow:
                 events.append(f"overflow_exhausted after {attempt} retries: "

@@ -18,9 +18,9 @@ dtype max, so padding sorts to the end.
 
 The window functions are here: partitioned (segmented) cumsum, stencils
 and ranks over the grouped layout, and the global forms through an
-exclusive scan of per-rank values or a halo exchange.  Operators of later
-slices (sort, rebalance, salting, limit, concat) are not; ``SALT_COL`` is
-kept because the planner names it.
+exclusive scan of per-rank values or a halo exchange.  So are the global
+sort (sample sort), ``limit``, ``rebalance`` and ``concat``.  Salting is a
+later slice; ``SALT_COL`` is kept because the planner names it.
 """
 from __future__ import annotations
 
@@ -965,11 +965,40 @@ def _rank_of(P: int) -> int:
     return dist.get_rank() if P > 1 else 0
 
 
+def all_gather_rows(t: torch.Tensor, P: int) -> torch.Tensor:
+    """(P * n, ...) concatenation of every rank's (n, ...) ``t``, in rank
+    order."""
+    parts = [torch.empty_like(t) for _ in range(P)]
+    dist.all_gather(parts, t.contiguous())
+    return torch.cat(parts)
+
+
 def _all_gather_scalars(v: torch.Tensor, P: int) -> torch.Tensor:
     """(P,) tensor of every rank's 0-d ``v``, in rank order."""
-    parts = [torch.empty(1, dtype=v.dtype, device=v.device) for _ in range(P)]
-    dist.all_gather(parts, v.reshape(1).contiguous())
-    return torch.cat(parts)
+    return all_gather_rows(v.reshape(1), P)
+
+
+def _send_recv(sends: Sequence[tuple[torch.Tensor, int]],
+               recvs: Sequence[tuple[torch.Tensor, int]]) -> None:
+    """Post ``sends`` ((tensor, peer rank)) and ``recvs`` ((buffer, peer
+    rank)) as one ``batch_isend_irecv`` and wait for all of them.  gloo
+    moves only host memory point to point, so under gloo CUDA tensors go
+    through host copies (its collectives stage them the same way); NCCL
+    takes them as they are."""
+    stage = dist.get_backend() == "gloo" and any(
+        t.is_cuda for t, _ in list(sends) + list(recvs))
+    host = (lambda t: t.cpu()) if stage else (lambda t: t)
+    bufs = [host(b) for b, _ in recvs]
+    ops = [dist.P2POp(dist.isend, host(t.contiguous()), peer)
+           for t, peer in sends]
+    ops += [dist.P2POp(dist.irecv, b, peer)
+            for b, (_, peer) in zip(bufs, recvs)]
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    if stage:
+        for b, (dst, _) in zip(bufs, recvs):
+            dst.copy_(b)
 
 
 def exscan_scalar(v: torch.Tensor, P: int, method: str = "allgather"):
@@ -988,13 +1017,8 @@ def exscan_scalar(v: torch.Tensor, P: int, method: str = "allgather"):
         shift = 1
         while shift < P:
             y = torch.zeros_like(x)
-            ops = []
-            if me + shift < P:
-                ops.append(dist.P2POp(dist.isend, x, me + shift))
-            if me - shift >= 0:
-                ops.append(dist.P2POp(dist.irecv, y, me - shift))
-            for req in dist.batch_isend_irecv(ops):
-                req.wait()
+            _send_recv([(x, me + shift)] if me + shift < P else [],
+                       [(y, me - shift)] if me - shift >= 0 else [])
             x = x + y
             shift *= 2
         return (x - v.reshape(1)).reshape(v.shape)
@@ -1125,25 +1149,22 @@ def halo_exchange(x: torch.Tensor, count, k_left: int, k_right: int, P: int = 1)
     if P == 1:
         return left, right
     me = _rank_of(P)
-    ops = []
+    sends, recvs = [], []
     if k_left:
         # the valid tail, its start clamped into the buffer like
         # lax.dynamic_slice clamps it
         start = (count.to(torch.int64) - k_left).clamp(0, max(cap - k_left, 0))
         tail = xz[(start + torch.arange(k_left, device=dev)).clamp(max=cap - 1)]
         if me + 1 < P:
-            ops.append(dist.P2POp(dist.isend, tail.contiguous(), me + 1))
+            sends.append((tail, me + 1))
         if me > 0:
-            ops.append(dist.P2POp(dist.irecv, left, me - 1))
+            recvs.append((left, me - 1))
     if k_right:
-        head = xz[:k_right].contiguous()
         if me > 0:
-            ops.append(dist.P2POp(dist.isend, head, me - 1))
+            sends.append((xz[:k_right], me - 1))
         if me + 1 < P:
-            ops.append(dist.P2POp(dist.irecv, right, me + 1))
-    if ops:
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
+            recvs.append((right, me + 1))
+    _send_recv(sends, recvs)
     return left, right
 
 
@@ -1188,3 +1209,139 @@ def stencil1d(x: torch.Tensor, count, weights: Sequence[float], center: int,
     else:
         out = kset.stencil1d(build_ext(x), w)
     return torch.where(valid, out, 0.0)
+
+
+# ---------------------------------------------------------------------------
+# limit (first n rows in global rank-concatenation order; df.head backend)
+# ---------------------------------------------------------------------------
+
+def limit(cols: dict[str, torch.Tensor], count, n: int, P: int, cap_out: int,
+          method: str = "allgather"):
+    """Keep the first ``n`` valid rows of the global concatenation.
+
+    No rows move: each rank clamps its valid count to its slice of
+    ``[0, n)`` through an exclusive scan of the counts (a REP input passes
+    P = 1: every rank keeps its own first ``n``).  Buffers shrink to
+    ``cap_out`` as views (the clamped count is <= n <= cap_out).
+    """
+    count = count.to(torch.int32)
+    base = exscan_scalar(count, P, method=method)
+    cnt = torch.minimum((n - base).clamp(min=0), count).to(torch.int32)
+    return {k: v[:cap_out] for k, v in cols.items()}, cnt
+
+
+# ---------------------------------------------------------------------------
+# rebalance (1D_VAR -> 1D_BLOCK) and sample sort
+# ---------------------------------------------------------------------------
+
+def rebalance(cols: dict[str, torch.Tensor], count, *, P: int,
+              bucket_cap: int, cap_out: int, kernels=None,
+              packed: bool = True):
+    """Even out row counts across ranks, keeping the global row order:
+    global row g goes to rank ``g // ceil(total / P)``.  At P == 1 it is a
+    compaction of the valid prefix."""
+    cap = next(iter(cols.values())).shape[0]
+    if P == 1:
+        return compact(cols, valid_mask(count, cap), cap_out, kernels=kernels)
+    counts = _all_gather_scalars(count.to(torch.int32), P)
+    total = counts.sum(dtype=torch.int32)
+    base = counts[:_rank_of(P)].sum(dtype=torch.int32)
+    block = torch.clamp((total + P - 1) // P, min=1)
+    g = base + torch.arange(cap, dtype=torch.int32, device=count.device)
+    dest = torch.where(valid_mask(count, cap), g // block, P).to(torch.int32)
+    return exchange(cols, count, dest, P=P, bucket_cap=bucket_cap,
+                    cap_out=cap_out, kernels=kernels, packed=packed)
+
+
+def sample_sort(cols: dict[str, torch.Tensor], count, key_names, *, P: int,
+                bucket_cap: int, cap_out: int, n_samples: int = 64,
+                ascending: bool = True, pre_sorted: bool = False,
+                kernels=None, packed: bool = True):
+    """Global sort: local sort -> splitter selection -> route -> local sort.
+
+    ``key_names`` may name several columns (lexicographic order, all
+    ascending or all descending); ``pre_sorted=True`` skips the first local
+    sort (the planner sets it when the input already has the order).
+
+    Every rank samples ``n_samples`` key tuples evenly from its valid
+    prefix (an empty rank sends sentinels), one ``all_gather`` a key column
+    collects them, and P - 1 splitter tuples are taken at even quantiles
+    of their lexicographic order.  A row goes to the number of splitters
+    at or below it (``side="right"``, so rows that tie a splitter stay
+    together): by ``torch.searchsorted`` on one key, by dense ranks over
+    the rows and the splitters (:func:`lex_ranks`) on several.  After the
+    exchange a local sort orders each rank; a descending sort routes to
+    ``P - 1 - dest`` and reverses each rank's valid prefix.
+    """
+    if isinstance(key_names, str):
+        key_names = (key_names,)
+    key_names = tuple(key_names)
+    scols = cols if pre_sorted else local_sort(cols, count, key_names)[0]
+    k0 = scols[key_names[0]]
+    cap, dev = k0.shape[0], k0.device
+    valid = valid_mask(count, cap)
+
+    def masked(v):
+        return torch.where(valid, v, _sentinel(v.dtype))
+
+    if P > 1:
+        # sample positions in int64: i * count leaves int32 past 2^25 rows
+        pos = (torch.arange(n_samples, device=dev)
+               * count.to(torch.int64).clamp(min=1)) // n_samples
+        pos = pos.clamp(0, max(cap - 1, 0))
+        samples = []
+        for kn in key_names:
+            kv = scols[kn]
+            samp = (torch.where(count > 0, kv[pos], _sentinel(kv.dtype))
+                    if cap else torch.full((n_samples,), _sentinel(kv.dtype),
+                                           dtype=kv.dtype, device=dev))
+            samples.append(all_gather_rows(samp, P))         # (P * n,)
+        perm = _lex_perm(samples)
+        qpos = torch.arange(1, P, device=dev) * (P * n_samples) // P
+        splitters = [s[perm][qpos] for s in samples]
+        if len(key_names) == 1:
+            dest = torch.searchsorted(_sortable(splitters[0]).contiguous(),
+                                      _sortable(masked(k0)).contiguous(),
+                                      right=True)
+        else:
+            # dense ranks over rows and splitters: the splitters' ranks
+            # ascend, so a search on ranks IS the tuple comparison
+            joint = [torch.cat([masked(scols[kn]), sp])
+                     for kn, sp in zip(key_names, splitters)]
+            jvalid = torch.cat([valid, torch.ones(P - 1, dtype=torch.bool,
+                                                  device=dev)])
+            ranks = lex_ranks(joint, jvalid)[0]
+            dest = torch.searchsorted(ranks[cap:].contiguous(),
+                                      ranks[:cap].contiguous(), right=True)
+        dest = dest.to(torch.int32)
+        if not ascending:
+            dest = (P - 1) - dest
+    else:
+        dest = torch.zeros(cap, dtype=torch.int32, device=dev)
+    out, cnt, ovf = exchange(scols, count, dest, P=P, bucket_cap=bucket_cap,
+                             cap_out=cap_out, kernels=kernels, packed=packed)
+    out, _ = local_sort(out, cnt, key_names)
+    if not ascending:
+        # reverse the valid prefix; padding rows stay where they are
+        capo = out[key_names[0]].shape[0]
+        ar = torch.arange(capo, device=dev)
+        idx = torch.where(valid_mask(cnt, capo),
+                          (cnt.to(torch.int64) - 1).clamp(min=0) - ar, ar)
+        idx = idx.clamp(0, max(capo - 1, 0))
+        out = {k: v[idx] for k, v in out.items()}
+    return out, cnt, ovf
+
+
+# ---------------------------------------------------------------------------
+# concat
+# ---------------------------------------------------------------------------
+
+def concat(parts: Sequence[tuple[dict[str, torch.Tensor], torch.Tensor]],
+           cap_out: int, kernels=None):
+    """Vertical concat of per-rank tables: the parts stacked, then their
+    valid prefixes compacted into one (counts add, padding squeezed)."""
+    names = list(parts[0][0])
+    stacked = {n: torch.cat([p[0][n] for p in parts]) for n in names}
+    keep = torch.cat([valid_mask(c, next(iter(p.values())).shape[0])
+                      for p, c in parts])
+    return compact(stacked, keep, cap_out, kernels=kernels)

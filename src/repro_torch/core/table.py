@@ -5,7 +5,9 @@ carried as **static per-shard capacity + dynamic valid-prefix counts**:
 every column is a torch tensor of shape ``(P * capacity,)`` whose shard r
 occupies rows ``[r * capacity, (r + 1) * capacity)``, plus a ``(P,)`` int32
 count tensor, both on the executing device.  Rows ``[count, capacity)`` of
-each shard are padding.
+each shard are padding.  A rank-local table (``shard`` set, what
+``persist()`` keeps) holds only its own rank's ``(capacity,)`` shard and
+still every rank's count.
 """
 from __future__ import annotations
 
@@ -35,6 +37,9 @@ class DTable:
     overflow_ops: dict = None          # type: ignore[assignment]
     # retry events of the collect() that produced this table
     events: tuple = ()
+    # None: the columns hold every rank's shard; a rank: they hold only
+    # that rank's (capacity,) shard (Lowered.__call__(gather=False))
+    shard: int | None = None
 
     def __post_init__(self):
         if self.overflow_ops is None:
@@ -72,8 +77,13 @@ class DTable:
         return int(np.sum(counts))
 
     def to_numpy(self) -> dict[str, np.ndarray]:
-        """Gather valid rows to host (drops padding)."""
+        """Gather valid rows to host (drops padding); a rank-local table
+        gives its own shard's valid rows."""
         counts = self.counts.cpu().numpy()
+        if self.shard is not None:
+            n = int(counts[self.shard])
+            return {name: col.cpu().numpy()[:n]
+                    for name, col in self.columns.items()}
         shards = 1 if self.dist == D.REP else self.nshards
         out: dict[str, np.ndarray] = {}
         for name, col in self.columns.items():

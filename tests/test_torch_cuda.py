@@ -592,3 +592,54 @@ def test_segment_sums_repeats_bitwise_on_card(card, shape, n):
             (shape, n)
     _sums_held((vals, sid, valid, n, count), sr.segment_sums_cuda(
         vals, sid, valid, n, count), (shape, n))
+
+
+@pytest.mark.cuda
+def test_sort_rebalance_persist_on_card_match_cpu(card):
+    """A global sort (one key ascending, two keys descending, a head), a
+    stencil over a filtered series (a Rebalance under it) and a persisted
+    frame re-entered by a group-by, through hf on the card (prefix_sum,
+    segment_sums, stencil1d) and on the CPU (their plain versions): the
+    same rows, exact but for the float sums (rtol 1e-5, atol 1e-5) and the
+    stencil (rtol 1e-6, atol 1e-6)."""
+    from repro_torch import hiframes as hf
+    from repro_torch.kernels import cuda
+
+    rng = np.random.default_rng(20)
+    n = 50_000
+    t = {"id": rng.integers(0, 300, n).astype(np.int32),
+         "x": rng.normal(size=n).astype(np.float32),
+         "y": rng.integers(-9, 9, n).astype(np.float32)}
+
+    def frames(cfg):
+        df = hf.table(t)
+        f = df[df["x"] > 0.0]
+        p = df.groupby("id").agg(s=("x", "sum"), n=("x", "count")).persist(cfg)
+        assert p.node.layout.device_valid(1)
+        dev = next(iter(p.node.columns.values())).device
+        assert dev.type == cfg.device
+        return {"sort": df.sort_values("x"),
+                "sort_desc_head": df.sort_values(("y", "id"),
+                                                 ascending=False).head(999),
+                "sma_after_filter": hf.sma(f, f["x"], 3, out="s"),
+                "persisted": p.groupby("id").agg(m=("s", "max"),
+                                                 c=("n", "sum"))}
+
+    launched = dict(cuda.launches)
+    on_card = {k: v.collect(hf.ExecConfig()).to_numpy()
+               for k, v in frames(hf.ExecConfig()).items()}
+    cpu = hf.ExecConfig(device="cpu")
+    on_cpu = {k: v.collect(cpu).to_numpy() for k, v in frames(cpu).items()}
+    for name in ("prefix_sum", "segment_sums", "stencil1d"):
+        assert cuda.launches[name] > launched.get(name, 0), name
+    tol = {"s": (1e-6, 1e-6), "m": (1e-5, 1e-5)}
+    for q, want in on_cpu.items():
+        got = on_card[q]
+        assert sorted(got) == sorted(want), q
+        for k in want:
+            assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape
+            if k in tol:
+                np.testing.assert_allclose(got[k], want[k], rtol=tol[k][0],
+                                           atol=tol[k][1], err_msg=q + k)
+            else:
+                np.testing.assert_array_equal(got[k], want[k], err_msg=q + k)

@@ -8,8 +8,10 @@ rtol=1e-4, atol=1e-3); the oracle is compared as a row set.  The carry-over
 tests move a reference DTable's state into the port and query it.  One test
 spawns two gloo ranks and runs the same queries at P=2, together with the
 window queries of tests/test_torch_window.py (the global ones with both
-exclusive-scan methods) and direct checks of the halo exchange and the
-global rank across the two ranks.
+exclusive-scan methods), the sort, limit, rebalance, concat and persist
+queries of tests/test_torch_sort.py, and direct checks of the halo
+exchange, the global rank, the sample sort (an empty rank, composite keys,
+descending), the rebalance and the limit across the two ranks.
 """
 import json
 import os
@@ -26,6 +28,8 @@ pytest.importorskip("torch")
 import oracle  # noqa: E402
 from repro import hiframes as rhf  # noqa: E402
 from repro_torch import hiframes as thf  # noqa: E402
+from test_torch_sort import (S, SDATA, SORT_SRC,  # noqa: E402
+                             assert_sort_result)
 from test_torch_window import (W, WDATA, WINDOW_SRC,  # noqa: E402
                                assert_same_row_set, window_oracle)
 
@@ -293,7 +297,7 @@ def main(rank, world, port, out):
         calls[0] += 1
         return a2a(*a, **k)
     dist.all_to_all_single = counted
-    d, wd = Q["data"](), W["window_data"]()
+    d, wd, sd = Q["data"](), W["window_data"](), S["sort_data"]()
     cfg = hf.ExecConfig(device="cpu")
     ladder = hf.ExecConfig(device="cpu", exscan_method="ladder")
     runs = [(name, build, d, cfg) for name, build in Q["QUERIES"].items()]
@@ -301,6 +305,8 @@ def main(rank, world, port, out):
              for name, build in W["WINDOW_QUERIES"].items()]
     runs += [(name + "@ladder", W["WINDOW_QUERIES"][name], wd, ladder)
              for name in W["GLOBAL_WINDOWS"]]
+    runs += [(name, build, sd, cfg)
+             for name, build in S["SORT_QUERIES"].items()]
     res = {}
     for name, build, data, c in runs:
         frame = build(hf, data)
@@ -334,6 +340,35 @@ def direct_checks(rank, world):
     left, right = phys.halo_exchange(x, torch.tensor(counts[rank], dtype=torch.int32),
                                      2, 3, world)
     out["halo"] = [gather_list(left), gather_list(right)]
+    # sample sort: rank 1 empty (it sends sentinel samples), composite
+    # keys descending, both full; the rows' inputs and outputs gathered
+    rng = np.random.default_rng(5 + rank)
+    cap = 12
+    for tag, counts, keys, asc in (("one_key", [9, 0], ("a",), True),
+                                   ("two_desc", [3, 12], ("a", "b"), False),
+                                   ("two_full", [12, 12], ("b", "a"), True)):
+        cols = {"a": torch.tensor(rng.integers(0, 4, cap), dtype=torch.int32),
+                "b": torch.tensor(rng.integers(-2, 2, cap), dtype=torch.float32),
+                "v": torch.arange(cap, dtype=torch.int32) + 100 * rank}
+        cnt = torch.tensor(counts[rank], dtype=torch.int32)
+        got, cnt2, ovf = phys.sample_sort(cols, cnt, keys, P=world,
+                                          bucket_cap=cap, cap_out=2 * cap,
+                                          ascending=asc)
+        out["sort_" + tag] = {
+            "in": {k: gather_list(v) for k, v in cols.items()},
+            "in_counts": counts,
+            "out": {k: gather_list(v) for k, v in got.items()},
+            "out_counts": gather_list(cnt2.reshape(1)),
+            "overflow": bool(ovf)}
+    x = torch.arange(12, dtype=torch.int32) + 100 * rank
+    got, cnt2, ovf = phys.rebalance(
+        {"x": x}, torch.tensor([2, 11][rank], dtype=torch.int32), P=world,
+        bucket_cap=12, cap_out=12)
+    out["rebalance"] = [gather_list(got["x"]), gather_list(cnt2.reshape(1)),
+                        bool(ovf)]
+    got, cnt2 = phys.limit({"x": x}, torch.tensor([5, 7][rank], dtype=torch.int32),
+                           8, world, cap_out=8)
+    out["limit"] = [gather_list(got["x"]), gather_list(cnt2.reshape(1))]
     keys = [[0, 1, 1, 2, 2, 2, 9, 9], [2, 2, 3, 3, 4, 9, 9, 9]][rank]
     cnt = torch.tensor([6, 5][rank], dtype=torch.int32)
     k = torch.tensor(keys, dtype=torch.int32)
@@ -364,6 +399,7 @@ def test_two_gloo_ranks(tmp_path):
     script = tmp_path / "ranks.py"
     script.write_text("Q = {}\nexec(" + repr(QUERY_SRC) + ", Q)\n"
                       + "W = {}\nexec(" + repr(WINDOW_SRC) + ", W)\n"
+                      + "S = {}\nexec(" + repr(SORT_SRC) + ", S)\n"
                       + textwrap.dedent(RANK_SCRIPT))
     out = tmp_path / "res.json"
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
@@ -377,8 +413,10 @@ def test_two_gloo_ranks(tmp_path):
     runs += [(name, W["WINDOW_QUERIES"][name.split("@")[0]], WDATA)
              for name in res if name in W["WINDOW_QUERIES"]
              or name.endswith("@ladder")]
+    runs += [(name, S["SORT_QUERIES"][name], SDATA)
+             for name in S["SORT_QUERIES"]]
     assert len(runs) == len(NAMES) + len(W["WINDOW_QUERIES"]) \
-        + len(W["GLOBAL_WINDOWS"])
+        + len(W["GLOBAL_WINDOWS"]) + len(S["SORT_QUERIES"])
     for name, build, data in runs:
         r = res[name]
         assert r["nshards"] == 2 and not r["overflow"], name
@@ -387,11 +425,16 @@ def test_two_gloo_ranks(tmp_path):
         base = name.split("@")[0]
         if data is DATA:
             _assert_same_row_set(got, _oracle(name, DATA))
+        elif data is SDATA:
+            assert_sort_result(name, got, SDATA)
         else:
             assert_same_row_set(got, window_oracle(base, WDATA))
         census = build(rhf, data).physical_plan() \
             .shuffle_census(P=2)["all_to_all"]
         assert r["all_to_all"] == r["census"] == census, (name, r, census)
+    # the persisted dimension's Q26 leg issues fewer all_to_all than the
+    # cold leg
+    assert res["q26_persisted"]["all_to_all"] < res["q26_cold"]["all_to_all"]
     direct = res["__direct__"]
     # rank 0 holds 0..4 valid of 8 rows, rank 1 holds 100..106: the left
     # halo of rank 1 is rank 0's valid tail, the right halo of rank 0 is
@@ -407,3 +450,28 @@ def test_two_gloo_ranks(tmp_path):
             r = direct[kind + "@" + method]
             assert r[0][:6] + r[1][:5] == w.tolist(), (kind, method, r)
             assert r[0][6:] == [0, 0] and r[1][5:] == [0, 0, 0]
+    # the sample sort: the ranks' valid outputs, concatenated, are the
+    # valid inputs stably sorted (reversed when descending), rows whole
+    for tag, keys, asc in (("one_key", ("a",), True),
+                           ("two_desc", ("a", "b"), False),
+                           ("two_full", ("b", "a"), True)):
+        r = direct["sort_" + tag]
+        assert not r["overflow"]
+        inp = {k: np.concatenate([np.asarray(v[q][:r["in_counts"][q]])
+                                  for q in range(2)])
+               for k, v in r["in"].items()}
+        order = np.lexsort([inp[k] for k in reversed(keys)])
+        if not asc:
+            order = order[::-1]
+        oc = [c[0] for c in r["out_counts"]]
+        for k, v in r["out"].items():
+            got = np.concatenate([np.asarray(v[q][:oc[q]]) for q in range(2)])
+            np.testing.assert_array_equal(got, inp[k][order], err_msg=tag + k)
+        if tag == "two_full":     # the splitters split: no rank takes all
+            assert min(oc) > 0, oc
+    xs, cnts, ovf = direct["rebalance"]
+    assert not ovf and [c[0] for c in cnts] == [7, 6]
+    assert xs[0][:7] + xs[1][:6] == [0, 1] + list(range(100, 111))
+    xs, cnts = direct["limit"]
+    assert [c[0] for c in cnts] == [5, 3]
+    assert xs[0][:5] + xs[1][:3] == [0, 1, 2, 3, 4, 100, 101, 102]

@@ -369,3 +369,100 @@ def test_shuffle_by_key_single_rank_matches_reference(packed):
                                 axes=(), bucket_cap=n, cap_out=80, packed=packed)
     assert_cols(got[0], want[0], exact_floats=True)
     assert int(got[1]) == int(want[1]) and bool(got[2]) == bool(want[2])
+
+
+# -- limit, rebalance, sample sort and concat at P = 1 -------------------------
+
+
+def _sort_cols(seed, n=160, nan=False):
+    rng = np.random.default_rng(seed)
+    cols = {"k1": rng.integers(0, 6, n).astype(np.int32),
+            "k2": rng.integers(-4, 4, n).astype(np.float32),
+            "v": rng.normal(size=n).astype(np.float32)}
+    if nan:
+        cols["k2"][::7] = np.nan
+    cols["k2"][::11] = -0.0
+    return cols
+
+
+@pytest.mark.parametrize("n_keep,count", [(0, 120), (7, 120), (120, 120),
+                                          (500, 120), (9, 0)])
+def test_limit_matches_reference(n_keep, count):
+    cols = _sort_cols(n_keep)
+    cap_out = max(1, min(160, n_keep))
+    gc, jc = i32(count)
+    got = tphys.limit({k: T(v) for k, v in cols.items()}, gc, n_keep, 1,
+                      cap_out=cap_out)
+    want = rphys.limit({k: J(v) for k, v in cols.items()}, jc, n_keep, (),
+                       cap_out=cap_out)
+    assert_cols(got[0], want[0], exact_floats=True)
+    assert_same(got[1], want[1])
+
+
+@pytest.mark.parametrize("count,cap_out", [(0, 160), (100, 160), (160, 160),
+                                           (100, 60)])
+def test_rebalance_single_rank_matches_reference(count, cap_out):
+    cols = _sort_cols(count)
+    gc, jc = i32(count)
+    got = tphys.rebalance({k: T(v) for k, v in cols.items()}, gc, P=1,
+                          bucket_cap=160, cap_out=cap_out)
+    want = rphys.rebalance({k: J(v) for k, v in cols.items()}, jc, axes=(),
+                           bucket_cap=160, cap_out=cap_out)
+    assert_cols(got[0], want[0], exact_floats=True)
+    assert int(got[1]) == int(want[1]) and bool(got[2]) == bool(want[2])
+
+
+@pytest.mark.parametrize("pre_sorted", [False, True])
+@pytest.mark.parametrize("ascending", [True, False])
+@pytest.mark.parametrize("keys", [("k2",), ("k1",), ("k1", "k2"), ("k2", "k1")])
+def test_sample_sort_single_rank_matches_reference(keys, ascending, pre_sorted):
+    cols = _sort_cols(len(keys) + 2 * ascending)
+    gc, jc = i32(130)
+    tcols = {k: T(v) for k, v in cols.items()}
+    jcols = {k: J(v) for k, v in cols.items()}
+    if pre_sorted:
+        tcols = tphys.local_sort(tcols, gc, keys)[0]
+        jcols = rphys.local_sort(jcols, jc, keys)[0]
+    got = tphys.sample_sort(tcols, gc, keys, P=1, bucket_cap=160,
+                            cap_out=150, ascending=ascending,
+                            pre_sorted=pre_sorted)
+    want = rphys.sample_sort(jcols, jc, keys, axes=(), bucket_cap=160,
+                             cap_out=150, ascending=ascending,
+                             pre_sorted=pre_sorted)
+    assert_cols(got[0], want[0], exact_floats=True)
+    assert int(got[1]) == int(want[1]) and bool(got[2]) == bool(want[2])
+
+
+@pytest.mark.parametrize("ascending", [True, False])
+def test_sample_sort_nan_keys_keep_reference_fault(ascending):
+    """NaN keys with padding (ROADMAP section 3): NaN sorts after the
+    float-max sentinel of the padding rows in both packages, so padding
+    rows enter the valid prefix in place of the NaN rows.  Pinned so that
+    the port keeps the reference's answer until both are fixed together."""
+    cols = _sort_cols(5, nan=True)
+    gc, jc = i32(130)
+    got = tphys.sample_sort({k: T(v) for k, v in cols.items()}, gc, ("k2",),
+                            P=1, bucket_cap=160, cap_out=160,
+                            ascending=ascending)
+    want = rphys.sample_sort({k: J(v) for k, v in cols.items()}, jc, ("k2",),
+                             axes=(), bucket_cap=160, cap_out=160,
+                             ascending=ascending)
+    assert_cols(got[0], want[0], exact_floats=True)
+    assert int(got[1]) == int(want[1])
+    k = got[0]["k2"].numpy()[:int(got[1])]
+    nan_rows = int(np.isnan(cols["k2"][:130]).sum())
+    assert nan_rows and int(np.isnan(k).sum()) < nan_rows
+
+
+@pytest.mark.parametrize("cap_out", [3, 90, 400])
+def test_concat_matches_reference(cap_out):
+    parts_t, parts_j = [], []
+    for seed, (n, c) in enumerate(((160, 100), (40, 0), (70, 70))):
+        cols = _sort_cols(seed, n)
+        parts_t.append(({k: T(v) for k, v in cols.items()},
+                        torch.tensor(c, dtype=torch.int32)))
+        parts_j.append(({k: J(v) for k, v in cols.items()}, jnp.int32(c)))
+    got = tphys.concat(parts_t, cap_out)
+    want = rphys.concat(parts_j, cap_out)
+    assert_cols(got[0], want[0], exact_floats=True)
+    assert int(got[1]) == int(want[1]) and bool(got[2]) == bool(want[2])

@@ -6,7 +6,13 @@ per-column exchanges), on the Fig. 8a / Q26 queries and on window pipelines
 grouped windows; a window after an aggregate on its keys; global cumsums,
 row numbers and stencils), the port plans the
 same physical op list, the same capacities, the same ``counts()`` and the
-same ``shuffle_census(P=8)`` as the reference.
+same ``shuffle_census(P=8)`` as the reference.  So it does on sorts
+(ascending and descending, one key and two, head after a sort), concat,
+a global rank with ``order_by``, a global stencil after a filter (a
+Rebalance under it), ``repartition`` + ``sort_within_partitions``, a
+replicated dimension table, and persisted frames (hash-partitioned,
+grouped, globally sorted, replicated) feeding a group-by, merge, window or
+sort on their keys.
 """
 import numpy as np
 import pytest
@@ -126,6 +132,87 @@ def global_stencil(hf):
     return hf.rolling_mean(w, w["w"], 5, out="m", exact=True)
 
 
+def _cfg(hf):
+    """Each package's config for the plans persisted inside a case: the
+    port's on the CPU."""
+    fields = hf.ExecConfig.__dataclass_fields__
+    return hf.ExecConfig(**({"device": "cpu"} if "device" in fields else {}))
+
+
+def sort_one(hf):
+    left, _ = _frames()
+    return hf.table(left).sort_values("x")
+
+
+def sort_two_desc_head(hf):
+    left, _ = _frames()
+    return hf.table(left).sort_values(("k1", "t"), ascending=False).head(17)
+
+
+def concat_parts(hf):
+    left, _ = _frames()
+    df = hf.table(left)
+    both = hf.concat(df[df["x"] < 0.0], df[df["x"] > 0.5])
+    return hf.aggregate(both, "k1", s=hf.sum_(both["x"]))
+
+
+def global_rank(hf):
+    left, _ = _frames()
+    df = hf.table(left)
+    return hf.dense_rank(hf.rank(df, None, "k1", out="r"), None, "k1",
+                         out="d", ascending=False)
+
+
+def stencil_after_filter(hf):
+    left, _ = _frames()
+    df = hf.table(left)
+    f = df[df["x"] > 0.0]
+    return hf.sma(f, f["x"], 3, out="s")
+
+
+def layout_verbs(hf):
+    left, _ = _frames()
+    return hf.table(left).repartition("k1").sort_within_partitions(("k1", "t"))
+
+
+def replicated_dim(hf):
+    left, right = _frames()
+    return hf.join(hf.table(left), hf.table(right, "d").replicate(),
+                   on=("k1", "ca"))
+
+
+def persisted_groupby(hf):
+    left, _ = _frames()
+    p = hf.table(left).repartition("k1").persist(_cfg(hf))
+    return hf.aggregate(p, "k1", s=hf.sum_(p["x"]))
+
+
+def persisted_merge(hf):
+    left, right = _frames()
+    df = hf.table(left)
+    p = hf.aggregate(df, "k1", s=hf.sum_(df["x"])).persist(_cfg(hf))
+    return hf.join(hf.table(right, "d"), p, on=("ca", "k1"))
+
+
+def persisted_over(hf):
+    left, _ = _frames()
+    p = hf.table(left).repartition("k1").sort_within_partitions(
+        ("k1", "t")).persist(_cfg(hf))
+    return p.over("k1", order_by="t").cumsum(p["x"], out="c")
+
+
+def persisted_sort(hf):
+    left, _ = _frames()
+    p = hf.table(left).sort_values("t").persist(_cfg(hf))
+    return hf.row_number(p.sort_values("t"), None, "t", out="r")
+
+
+def persisted_replicated(hf):
+    left, right = _frames()
+    p = hf.table(right, "d").replicate().persist(_cfg(hf))
+    return hf.join(hf.table(left), p, on=("k1", "ca"))
+
+
 CASES = [
     ("join_agg_same_keys", join_agg, {}),
     ("join_agg_baseline", join_count,
@@ -147,6 +234,19 @@ CASES = [
     ("agg_then_window", agg_then_window, {}),
     ("global_windows", global_windows, {}),
     ("global_stencil", global_stencil, {}),
+    ("sort_one_key", sort_one, {}),
+    ("sort_one_key_unsafe_caps", sort_one, {"safe_capacities": False}),
+    ("sort_two_keys_desc_head", sort_two_desc_head, {}),
+    ("concat", concat_parts, {}),
+    ("global_rank_order_by", global_rank, {}),
+    ("stencil_after_filter", stencil_after_filter, {}),
+    ("repartition_sort_within", layout_verbs, {}),
+    ("replicated_dim", replicated_dim, {}),
+    ("persisted_groupby", persisted_groupby, {}),
+    ("persisted_merge", persisted_merge, {}),
+    ("persisted_over", persisted_over, {}),
+    ("persisted_sort", persisted_sort, {}),
+    ("persisted_replicated", persisted_replicated, {}),
 ]
 
 

@@ -342,25 +342,49 @@ def test_window_column_pruning_keeps_keys():
                                atol=1e-3)
 
 
-# -- out of scope: clear errors, never a substitute ---------------------------
+# -- global windows that need a sort or a rebalance first ----------------------
 
 
 def test_global_rank_with_order_by_is_not_ported():
-    df = thf.table(WDATA["ser"])
-    for verb in (thf.rank, thf.dense_rank, thf.row_number):
-        with pytest.raises(NotImplementedError, match="sample sort"):
-            verb(df, None, "t")
+    """A global rank, dense_rank or row_number with order_by sorts first
+    (a SampleSort under the window); each, ascending and descending, gives
+    the reference's rows, and the ranks of the sorted keys.  The name is
+    kept from when the port refused these queries."""
+    cfg, rcfg = thf.ExecConfig(**TCFG), rhf.ExecConfig(use_pallas="interpret")
+    for verb in ("rank", "dense_rank", "row_number"):
+        for ascending in (True, False):
+            frames = [getattr(hf, verb)(hf.table(WDATA["ser"]), None, "k",
+                                        out="r", ascending=ascending)
+                      for hf in (thf, rhf)]
+            assert "SampleSort" in frames[0].explain(cfg)
+            got = frames[0].collect(cfg).to_numpy()
+            _assert_same_rows(got, frames[1].collect(rcfg).to_numpy())
+            k = got["k"] if ascending else -got["k"]
+            assert np.all(np.diff(k) >= 0), (verb, ascending)
+            want = {"rank": np.searchsorted(k, k, side="left") + 1,
+                    "dense_rank": np.unique(k, return_inverse=True)[1] + 1,
+                    "row_number": np.arange(1, len(k) + 1)}[verb]
+            np.testing.assert_array_equal(got["r"], want)
 
 
 def test_global_stencil_over_1d_var_is_not_ported():
     """A filter makes the input 1D_VAR; the planner puts a Rebalance under
-    the global stencil, which belongs to the next slice."""
-    df = thf.table(WDATA["ser"])
-    f = df[df["x"] < 0.5]
-    win = thf.wma(f, f["x"], [1, 2, 1])
-    assert "Rebalance" in win.explain(thf.ExecConfig(**TCFG))
-    with pytest.raises(NotImplementedError, match="RebalanceOp.*global stencil"):
-        win.collect(thf.ExecConfig(**TCFG))
+    the global stencil, and the result is the reference's and the stencil
+    of the filtered series.  The name is kept from when the port refused
+    this query."""
+    frames = []
+    for hf in (thf, rhf):
+        df = hf.table(WDATA["ser"])
+        f = df[df["x"] < 0.5]
+        frames.append(hf.wma(f, f["x"], [1, 2, 1]))
+    cfg = thf.ExecConfig(**TCFG)
+    assert "Rebalance" in frames[0].explain(cfg)
+    got = frames[0].collect(cfg).to_numpy()
+    _assert_same_rows(got, frames[1].collect(
+        rhf.ExecConfig(use_pallas="interpret")).to_numpy())
+    s = oracle.o_filter(dict(WDATA["ser"]), WDATA["ser"]["x"] < np.float32(0.5))
+    np.testing.assert_allclose(got["wma"], oracle.o_stencil(
+        s["x"], [0.25, 0.5, 0.25], 1), rtol=1e-5, atol=1e-5)
 
 
 def test_rank_requires_order_keys():
