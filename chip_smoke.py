@@ -36,7 +36,7 @@ Phases, in order; any failure raises and the exit code is not 0:
    (0 ulps) in every mode, also around their 4096-output tile, on ragged
    ends, on views not 16-byte aligned and past the 1024 taps staged at
    once.
-3. The five main paths, each with the launch counters zeroed just before
+3. The six main paths, each with the launch counters zeroed just before
    it and read just after:
    - relational, through ``hf`` at P = 1: Fig. 8a filter, join and
      aggregate and TPCx-BB Q26 / Q26-multikey against numpy oracles;
@@ -55,11 +55,24 @@ Phases, in order; any failure raises and the exit code is not 0:
      against a persisted and a cold item dimension, each twice, with the
      reference's plan counts; against numpy and scipy oracles; prefix_sum,
      segment_sums and stencil1d must have launched;
+   - frame, through ``hf`` at P = 1 on bench_tpcx.py's string inputs at
+     scale 64 (25.6 M web clicks over Zipf-skewed items, 1.28 M items with
+     a category name, 25.6 M store sales with a channel and a discount, 2 %
+     of each null): Q05 over category names (its plan the int-category
+     Q05's), the Q09 channel rollup, dropna -> fillna -> assign -> astype
+     -> rename -> drop and a column from a string predicate feeding a
+     group-by, the rows where either nullable column is null, a concat of
+     two halves whose dictionaries differ, and a merge on category keys
+     whose dictionaries only overlap; against numpy, the host's dictionary
+     encoding timed apart; prefix_sum and segment_sums must have launched;
    - exchange_p2, two ranks on the one card joined by gloo (NCCL refuses
      two ranks on one card; gloo stages CUDA tensors through the host):
      Fig. 8a join at 2^24 x 2^20 rows, Q26, a sort of Fig. 8a's table and
-     a global rank of the series at 2^24 rows, the SMA after a filter, and
-     Fig. 12's two Q26 legs, through ``hf`` at P = 2, rows against numpy
+     a global rank of the series at 2^24 rows, the SMA after a filter,
+     Fig. 12's two Q26 legs, and the frame path's Q05 over category names
+     and merge on category keys (each rank encoding the host tables
+     itself, the dictionaries equal on both), through ``hf`` at P = 2,
+     rows against numpy
      oracles, all_to_all calls against the plan's shuffle census (the
      persisted leg's fewer than the cold leg's), each rank of the sort
      holding a quarter of the rows or more; bucket_scatter must have
@@ -1715,6 +1728,269 @@ def sort_path(torch, hf, synth, queries: dict, profile_dir: str | None = None,
             queries[tag]["shuffles"], queries[tag]["all_to_all"] = got
 
 
+# The frame path: TPCx-BB's string queries (bench_tpcx.py:100-125, 192-210)
+# and the frame, null and dtype verbs, at Q26's scale 64.
+FRAME_SCALE = Q26_SCALE
+# a dimension keyed by category name: four of synth.CATEGORY_NAMES, two new
+FRAME_DIM_NAMES = ("bikes", "books", "garden", "music", "toys", "wine")
+
+
+def frame_tables(synth, sf: int = FRAME_SCALE):
+    """bench_tpcx.run's string inputs at scale ``sf``: web clicks over
+    Zipf-skewed items, the item table with its category name, and store
+    sales with a string channel and a discount, each with 2 % nulls."""
+    n_sales, n_items, n_cust = 400_000 * sf, 20_000 * sf, 50_000 * sf
+    wcs = synth.web_clickstream(n_sales, n_items, n_cust, seed=12, skew=1.1)
+    itx = synth.item_ext(n_items, seed=11)
+    ssx = synth.store_sales_ext(n_sales, n_items, n_cust, seed=10)
+    return wcs, itx, ssx
+
+
+def category_dim():
+    rng = np.random.default_rng(21)
+    return {"i_category_name": np.asarray(FRAME_DIM_NAMES, dtype=object),
+            "w": rng.normal(size=len(FRAME_DIM_NAMES)).astype(np.float32)}
+
+
+def q05_frame(wcs_df, item_df, books, media):
+    """TPCx-BB Q05 (bench_tpcx.py:100): clicks per user on one category,
+    on two others, and all clicks."""
+    j = wcs_df.merge(item_df, on=("wcs_item_sk", "i_item_sk"))
+    return j.groupby("wcs_user_sk").agg(
+        clicks_books=(j["i_category_name"] == books, "sum"),
+        clicks_media=(j["i_category_name"].isin(media), "sum"),
+        total="count")
+
+
+def q09_channel_frame(ss_df):
+    """bench_tpcx.py:113: a string isin filter, the nullable channel as the
+    group key, skipna sum/mean/count over the nullable discount."""
+    f = ss_df[ss_df["ss_channel"].isin(["web", "catalog"])]
+    return f.groupby("ss_channel").agg(
+        revenue=("ss_net_paid", "sum"), avg_disc=("ss_discount", "mean"),
+        n_disc=("ss_discount", "count"), n="count")
+
+
+def frame_verbs_frame(ss_df):
+    """dropna, fillna, assign, astype, rename, drop, a column assigned from
+    a string predicate, then a group-by on the renamed channel."""
+    v = (ss_df.dropna(subset="ss_channel").fillna({"ss_discount": 0.0})
+         .assign(net=lambda d: d.ss_net_paid - d.ss_discount)
+         .astype({"ss_customer_sk": np.float32})
+         .rename(columns={"ss_channel": "channel"})
+         .drop("ss_ticket_number"))
+    v["is_web"] = v["channel"] == "web"
+    return v.groupby("channel").agg(
+        net=("net", "sum"), cust=("ss_customer_sk", "mean"),
+        web=("is_web", "sum"), n="count")
+
+
+def null_rows_frame(ss_df):
+    """The sales whose channel or discount is null: a category isna and a
+    float isna, one int column out."""
+    null = ss_df.ss_channel.isna() | ss_df.ss_discount.isna()
+    return ss_df[null][["ss_ticket_number"]]
+
+
+def sales_halves(ssx: dict, code: np.ndarray) -> tuple[dict, dict]:
+    """The two halves of the sales for concat_channels: the first keeps
+    only its catalog and store rows (``code`` 0 and 1), so its dictionary
+    differs from the second's."""
+    h = len(code) // 2
+    keep = np.flatnonzero((code[:h] == 0) | (code[:h] == 1))
+    return ({k: v[:h][keep] for k, v in ssx.items()},
+            {k: v[h:] for k, v in ssx.items()})
+
+
+def concat_channels_frame(hf, a_df, b_df):
+    both = hf.concat(a_df, b_df)
+    return both.groupby("ss_channel").agg(
+        n="count", revenue=("ss_net_paid", "sum"))
+
+
+def merge_category_frame(itx_df, dim_df):
+    j = itx_df.merge(dim_df, on="i_category_name")
+    return j.groupby("i_category_name").agg(
+        n="count", w=("w", "max"), cls=("i_class_id", "sum"))
+
+
+def channel_codes(channels: np.ndarray, synth) -> np.ndarray:
+    """The sales channels as codes into synth.CHANNELS (sorted), -1 for
+    None: the dictionary ingest builds, without its per-row loop."""
+    code = np.full(len(channels), -1, np.int32)
+    for i, c in enumerate(synth.CHANNELS):
+        code[channels == c] = i
+    return code
+
+
+def q05_want(wcs, itx, synth) -> dict:
+    """Q05's rows from numpy bincounts over category ids, in user order
+    (the names map from i_category_id, synth.item_ext)."""
+    names = list(synth.CATEGORY_NAMES)
+    cat = itx["i_category_id"][wcs["wcs_item_sk"]] - 1
+    user = wcs["wcs_user_sk"]
+    n_u = np.bincount(user)
+    keys = np.flatnonzero(n_u)
+    media = (cat == names.index("electronics")) | (cat == names.index("music"))
+    return {"wcs_user_sk": keys.astype(np.int32),
+            "clicks_books": np.bincount(user, weights=cat == names.index("books"),
+                                        minlength=len(n_u))[keys].astype(np.int32),
+            "clicks_media": np.bincount(user, weights=media,
+                                        minlength=len(n_u))[keys].astype(np.int32),
+            "total": n_u[keys].astype(np.int32)}
+
+
+def merge_category_want(itx, dim, synth) -> dict:
+    """The merged names' rows in the union dictionary's code order."""
+    union = sorted(set(synth.CATEGORY_NAMES) | set(dim["i_category_name"]))
+    cat = itx["i_category_id"] - 1
+    out = {c: [] for c in ("i_category_name", "n", "w", "cls")}
+    for name, w in zip(dim["i_category_name"], dim["w"]):
+        if name not in synth.CATEGORY_NAMES:
+            continue
+        m = cat == list(synth.CATEGORY_NAMES).index(name)
+        out["i_category_name"].append(union.index(name))
+        out["n"].append(int(m.sum()))
+        out["w"].append(w)
+        out["cls"].append(int(itx["i_class_id"][m].sum()))
+    order = np.argsort(out["i_category_name"])
+    return {"i_category_name": np.asarray(out["i_category_name"], np.int32)[order],
+            "n": np.asarray(out["n"], np.int32)[order],
+            "w": np.asarray(out["w"], np.float32)[order],
+            "cls": np.asarray(out["cls"], np.int32)[order]}
+
+
+def max_rel(got: dict, want: dict, cols) -> float:
+    """The largest |got - want| / |want| over the float columns ``cols``."""
+    return max(float(np.max(np.abs(got[c].astype(np.float64) - want[c])
+                            / np.abs(want[c].astype(np.float64))))
+               for c in cols)
+
+
+def per_channel(code: np.ndarray, cols: dict) -> tuple[np.ndarray, dict]:
+    """The channels with rows (code >= 0) and, per column, its float64 sum
+    per channel."""
+    ok = code >= 0
+    n = np.bincount(code[ok], minlength=3)
+    keys = np.flatnonzero(n)
+    return keys.astype(np.int32), {
+        c: np.bincount(code[ok], weights=np.asarray(v)[ok].astype(np.float64),
+                       minlength=3)[keys] for c, v in cols.items()}
+
+
+def frame_path(torch, hf, synth, queries: dict, profile_dir: str | None = None,
+               checks: dict | None = None, sf: int = FRAME_SCALE):
+    """The frame path at P = 1: Q05 over string category names (its plan
+    the int-category Q05's), the Q09 channel rollup, the frame, null and
+    dtype verbs, the null-row filter, a concat that recodes its parts'
+    dictionaries and a merge on category keys; every query against numpy.
+    Host-side ingest (dictionary encoding) is timed apart from the
+    queries."""
+    run = query_runner(torch, hf, queries, profile_dir)
+    checks = {} if checks is None else checks
+    cfg = hf.ExecConfig()
+    wcs, itx, ssx = frame_tables(synth, sf)
+    n_sales = len(ssx["ss_channel"])
+    ingest = {}
+    t0 = time.perf_counter()
+    wcs_df, itx_df = hf.table(wcs, "wcs"), hf.table(itx, "itx")
+    ingest["wcs_itx_s"] = round(time.perf_counter() - t0, 4)
+    t0 = time.perf_counter()
+    ss_df = hf.table(ssx, "ssx")
+    ingest["ssx_s"] = round(time.perf_counter() - t0, 4)
+    code = channel_codes(ssx["ss_channel"], synth)
+    assert np.array_equal(ss_df.node.columns["ss_channel"], code)
+
+    # q05_string: the string predicates plan as the int-category Q05's
+    names = list(synth.CATEGORY_NAMES)
+    itx_int = {k: v for k, v in itx.items() if k != "i_category_name"}
+    itx_int["i_category_name"] = (itx["i_category_id"] - 1).astype(np.int32)
+    frame = q05_frame(wcs_df, itx_df, "books", ["electronics", "music"])
+    plans = [f.physical_plan(cfg) for f in (frame, q05_frame(
+        wcs_df, hf.table(itx_int, "itx"), names.index("books"),
+        [names.index("electronics"), names.index("music")]))]
+    got = [(p.counts(), p.shuffle_census(P=2), p.shuffle_row_bytes())
+           for p in plans]
+    assert got[0] == got[1], f"q05_string plans {got[0]}, int {got[1]}"
+    out = run("q05_string", frame)
+    check_equal(out, q05_want(wcs, itx, synth), "q05_string")
+    queries["q05_string"]["rows_in"] = len(wcs["wcs_user_sk"]) \
+        + len(itx["i_item_sk"])
+    queries["q05_string"]["plan_like_int"] = True
+
+    # q09_channel: the web and catalog codes, skipna over the discount
+    out = run("q09_channel", q09_channel_frame(ss_df))
+    disc = ssx["ss_discount"]
+    ok = ~np.isnan(disc)
+    sel = np.where((code == 0) | (code == 2), code, -1)
+    keys, s = per_channel(sel, {"revenue": ssx["ss_net_paid"],
+                                "disc": np.where(ok, disc, 0), "n_disc": ok,
+                                "n": np.ones(n_sales)})
+    tol = {"revenue": (1e-4, 1e-2), "avg_disc": (1e-4, 1e-5)}
+    want = {"ss_channel": keys, "revenue": s["revenue"].astype(np.float32),
+            "avg_disc": (s["disc"] / s["n_disc"]).astype(np.float32),
+            "n_disc": s["n_disc"].astype(np.int32),
+            "n": s["n"].astype(np.int32)}
+    check_equal(out, want, "q09_channel", tol)
+    checks["q09_channel_max_rel"] = max_rel(out, want, tol)
+    queries["q09_channel"]["rows_in"] = n_sales
+
+    # frame_verbs: dropna -> fillna -> assign -> astype -> rename -> drop,
+    # a string-predicate column, and the group-by on the renamed channel
+    out = run("frame_verbs", frame_verbs_frame(ss_df))
+    net = ssx["ss_net_paid"] - np.where(ok, disc, np.float32(0))
+    keys, s = per_channel(code, {
+        "net": net, "n": np.ones(n_sales), "web": code == 2,
+        "cust": ssx["ss_customer_sk"].astype(np.float32)})
+    tol = {"net": (1e-4, 1e-2), "cust": (1e-4, 1e-2)}
+    want = {"channel": keys, "net": s["net"].astype(np.float32),
+            "cust": (s["cust"] / s["n"]).astype(np.float32),
+            "web": s["web"].astype(np.int32), "n": s["n"].astype(np.int32)}
+    check_equal(out, want, "frame_verbs", tol)
+    checks["frame_verbs_max_rel"] = max_rel(out, want, tol)
+    queries["frame_verbs"]["rows_in"] = n_sales
+
+    out = run("null_rows", null_rows_frame(ss_df))
+    want = ssx["ss_ticket_number"][(code < 0) | ~ok]
+    check_equal({"ss_ticket_number": np.sort(out["ss_ticket_number"])},
+                {"ss_ticket_number": np.sort(want)}, "null_rows")
+    queries["null_rows"]["rows_in"] = n_sales
+    del out, want, net, sel, disc, ok
+
+    # concat_channels: the first half's dictionary (2 names, no null)
+    # differs from the second's
+    a, b = sales_halves(ssx, code)
+    t0 = time.perf_counter()
+    parts = (hf.table(a, "a"), hf.table(b, "b"))
+    ingest["concat_halves_s"] = round(time.perf_counter() - t0, 4)
+    assert parts[0].schema["ss_channel"] != parts[1].schema["ss_channel"]
+    out = run("concat_channels", concat_channels_frame(hf, *parts))
+    cc = channel_codes(np.concatenate([a["ss_channel"], b["ss_channel"]]),
+                       synth)
+    paid = np.concatenate([a["ss_net_paid"], b["ss_net_paid"]])
+    keys, s = per_channel(cc, {"n": np.ones(len(cc)), "revenue": paid})
+    want = {"ss_channel": keys, "n": s["n"].astype(np.int32),
+            "revenue": s["revenue"].astype(np.float32)}
+    check_equal(out, want, "concat_channels", {"revenue": (1e-4, 1e-2)})
+    checks["concat_channels_max_rel"] = max_rel(out, want, ("revenue",))
+    queries["concat_channels"]["rows_in"] = len(cc)
+    del a, b, parts, cc, paid
+
+    # merge_category_keys: the item table's 8 names against a dimension
+    # of 6 (4 shared), both recoded onto the union dictionary
+    dim = category_dim()
+    frame = merge_category_frame(itx_df, hf.table(dim, "cdim"))
+    union = tuple(sorted(set(synth.CATEGORY_NAMES) | set(FRAME_DIM_NAMES)))
+    assert frame.schema["i_category_name"].categories == union
+    out = run("merge_category_keys", frame)
+    check_equal(out, merge_category_want(itx, dim, synth),
+                "merge_category_keys")
+    queries["merge_category_keys"]["rows_in"] = len(itx["i_item_sk"]) \
+        + len(FRAME_DIM_NAMES)
+    queries["frame_ingest"] = ingest
+    log(f"frame ingest (host dictionary encoding): {ingest}")
+
+
 # The exchange path: two ranks on the one card, joined by gloo (NCCL refuses
 # two ranks on one card; gloo stages CUDA tensors through the host, so the
 # walls are gloo's, not NCCL's).  Fig. 8a join at a quarter of the
@@ -1737,6 +2013,7 @@ def exchange_rank(rank: int, world: int, port: int, out_dir: str) -> None:
     from scipy.stats import rankdata
 
     from repro_torch import hiframes as hf
+    from repro_torch.core import ir
     from repro_torch.data import synth
     from repro_torch.kernels import cuda
 
@@ -1755,6 +2032,8 @@ def exchange_rank(rank: int, world: int, port: int, out_dir: str) -> None:
     ss, it, n_cust = q26_tables(synth)
     t8a = synth.relational_tables(P2_SORT, 1000, seed=0)
     x = synth.series(P2_SORT, seed=3)
+    wcs, itx, _ = frame_tables(synth)
+    cdim = category_dim()
 
     def as_rows(key, want):
         def check(tag, out, t):
@@ -1805,7 +2084,19 @@ def exchange_rank(rank: int, world: int, port: int, out_dir: str) -> None:
                 lambda: q26_fluent(hf.table(ss, "ss"),
                                    persisted_dim(hf, it, cfg)),
                 as_rows(("ss_customer_sk",), lambda: q26_want(ss, it, n_cust)),
-                q26_rows)}
+                q26_rows),
+            # each rank encodes the whole host table itself
+            "p2_q05_string": (
+                lambda: q05_frame(hf.table(wcs, "wcs"), hf.table(itx, "itx"),
+                                  "books", ["electronics", "music"]),
+                as_rows(("wcs_user_sk",), lambda: q05_want(wcs, itx, synth)),
+                len(wcs["wcs_user_sk"]) + len(itx["i_item_sk"])),
+            "p2_merge_category_keys": (
+                lambda: merge_category_frame(hf.table(itx, "itx"),
+                                             hf.table(cdim, "cdim")),
+                as_rows(("i_category_name",),
+                        lambda: merge_category_want(itx, cdim, synth)),
+                len(itx["i_item_sk"]) + len(FRAME_DIM_NAMES))}
     res = {"rank": rank, "queries": {}}
     torch.cuda.synchronize()
     cuda.reset_launches()
@@ -1824,7 +2115,12 @@ def exchange_rank(rank: int, world: int, port: int, out_dir: str) -> None:
         assert calls[0] == census, f"{tag}: {calls[0]} all_to_all, census {census}"
         if rank == 0:
             check(tag, out, t)
+        # every dictionary of the plan, inputs and recodings included
+        dicts = sorted({dt.categories for n in ir.topo_order(frame.node)
+                        for dt in n.schema.values()
+                        if getattr(dt, "categories", None) is not None})
         res["queries"][tag] = {
+            "dictionaries": hashlib.sha256(repr(dicts).encode()).hexdigest()[:16],
             "wall_s": round(wall, 4), "rows_in": rows_in,
             "rows_out": int(len(next(iter(out.values())))),
             "rows_by_rank": t.counts.cpu().tolist(),
@@ -1863,6 +2159,8 @@ def exchange_path(torch, queries: dict) -> dict:
             f"bucket_scatter never launched in rank {r['rank']}"
     for tag in ranks[0]["queries"]:
         per = [r["queries"][tag] for r in ranks]
+        # the same codes on every rank, so recoded keys hash alike
+        assert len({q["dictionaries"] for q in per}) == 1, (tag, per)
         queries[tag] = {**per[0], "wall_s_by_rank": [q["wall_s"] for q in per],
                         "wall_s": max(q["wall_s"] for q in per),
                         "transport": f"gloo over tcp://localhost, {P2_WORLD} "
@@ -2084,6 +2382,9 @@ def main(argv=None) -> int:
                                        args.profile, checks),
                      dict.fromkeys(("prefix_sum", "segment_sums",
                                     "stencil1d"))),
+            "frame": (lambda: frame_path(torch, hf, synth, queries,
+                                         args.profile, checks),
+                      dict.fromkeys(("prefix_sum", "segment_sums"))),
             # counted in its ranks (each must launch bucket_scatter) and
             # summed over them; Q26's sums are integer (no segment_sums)
             "exchange_p2": (lambda: exchange_path(torch, queries),

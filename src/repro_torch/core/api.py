@@ -39,10 +39,24 @@ each rank, ``replicate()`` pins a frame to REP (broadcast), and a global
 persisted frame keeps each rank's shard on its device and re-enters later
 plans by identity.
 
+Column, null and dtype verbs, and strings, as in the reference:
+
+    df["r"] = df.x / df.y                                  # column assignment
+    v = (df.dropna(subset="ch").fillna({"disc": 0.0})
+           .assign(net=lambda d: d.paid - d.disc)
+           .rename(columns={"ch": "channel"}).drop("t"))
+    web = v[v["channel"] == "web"]                         # string predicate
+    both = hf.concat(a, b)                # category dictionaries unify
+
+String comparisons and ``isin`` against a category column rewrite into
+dictionary-code space when the expression attaches to the plan, so strings
+never reach the device; ``merge`` on category keys and ``concat`` recode
+both sides onto the union dictionary first.
+
 ``collect`` runs on the card unless the config says ``device="cpu"``.
 Composite keys work as in the reference: ``merge(on=[("a", "ca"), "b"])``,
-``groupby(("k1", "k2"))``.  assign and the other column verbs, the dtype
-verbs, GroupBy sugar, UDFs and string predicates are a later slice.
+``groupby(("k1", "k2"))``.  GroupBy sugar, ``hf.udf`` and external arrays
+are a later slice.
 """
 from __future__ import annotations
 
@@ -57,11 +71,12 @@ from . import distribution as D
 from . import ir
 from . import optimizer as opt
 from . import physical_plan as pp
-from .dtypes import as_nullable, coerce_column, categories_of, dict_decode, \
-    is_category, is_nullable, physical_dtype
-from .expr import (AGG_FNS, AggExpr, BinOp, ColRef, Const, Expr, UnOp, all_,
-                   any_, as_expr, count, first, max_, mean, min_, nunique,
-                   numpy_dtype, prod, std, sum_, var)
+from .dtypes import (CODE_DTYPE, NULL_CODE, DType, as_nullable, categories_of,
+                     coerce_column, dict_decode, is_category, is_nullable,
+                     physical_dtype, recode_map, union_categories)
+from .expr import (AGG_FNS, AggExpr, BinOp, Cast, ColRef, Const, Expr, IsIn,
+                   UnOp, all_, any_, as_expr, count, first, fn_expr, max_,
+                   mean, min_, nunique, numpy_dtype, prod, std, sum_, var)
 from .lower import ExecConfig, Lowered, execute, lower
 from .table import DTable
 
@@ -71,19 +86,151 @@ __all__ = [
     "nunique", "ExecConfig", "explain", "DTable", "Over", "cumsum",
     "stencil", "sma", "wma", "lag", "lead", "rolling_sum", "rolling_mean",
     "rank", "dense_rank", "row_number", "concat", "from_persisted_state",
+    "from_pandas", "DType",
 ]
 
 
-def _check_no_strings(e: Expr) -> Expr:
-    stack = [e]
-    while stack:
-        x = stack.pop()
-        if isinstance(x, Const) and isinstance(x.value, str):
-            raise NotImplementedError(
-                f"string predicate on {x.value!r}: comparisons against "
-                "category columns are not supported by this package yet")
-        stack.extend(x.children)
+# ---------------------------------------------------------------------------
+# string/null expression rewriting
+#
+# Strings never reach the device: comparisons and membership tests against a
+# category column are rewritten into code space when the expression attaches
+# to a plan (filter/assign/agg construction).  Dictionaries are sorted, so
+# code order is lexicographic order: equality maps to a code constant,
+# ranges to searchsorted thresholds, and isna() to the dtype's in-band null
+# test (code < 0, isnan) or a constant False.
+# ---------------------------------------------------------------------------
+
+_CMP_SWAP = {"lt": "gt", "le": "ge", "gt": "lt", "ge": "le",
+             "eq": "eq", "ne": "ne"}
+
+
+def _cat_dtype_of(e: Expr, schemas: dict[int, dict]):
+    if isinstance(e, ColRef):
+        dt = schemas.get(e.table_id, {}).get(e.name)
+        if is_category(dt):
+            return dt
+    return None
+
+
+def _code_const(code: int) -> Const:
+    return Const(np.int32(code))
+
+
+def _rewrite_cat_cmp(col: ColRef, dt, op: str, v: str) -> Expr:
+    """One string comparison against a sorted dictionary, in code space.
+    Nulls (code -1) compare False except under ``ne`` (pandas semantics)."""
+    cats = categories_of(dt)
+    if op in ("eq", "ne"):
+        if v in cats:
+            return BinOp(op, col, _code_const(cats.index(v)))
+        return Const(op == "ne")            # absent value: eq False, ne True
+    arr = np.asarray(cats)
+    if op in ("lt", "le"):
+        t = int(np.searchsorted(arr, v, side="left" if op == "lt" else "right"))
+        if t == 0:
+            return Const(False)
+        return BinOp("and", BinOp("ge", col, _code_const(0)),
+                     BinOp("lt", col, _code_const(t)))
+    # gt / ge: codes >= threshold; null (-1) can never satisfy it
+    t = int(np.searchsorted(arr, v, side="right" if op == "gt" else "left"))
+    return BinOp("ge", col, _code_const(max(t, 0)))
+
+
+def _rewrite_strings(e: Expr, schemas: dict[int, dict]) -> Expr:
+    if e.children:
+        kids = tuple(_rewrite_strings(c, schemas) for c in e.children)
+        if any(k is not o for k, o in zip(kids, e.children)):
+            e = e.with_children(kids)
+    if isinstance(e, UnOp) and e.op == "isna":
+        c = e.children[0]
+        if _cat_dtype_of(c, schemas) is not None:
+            return BinOp("lt", c, _code_const(0))
+        if isinstance(c, ColRef):
+            dt = schemas.get(c.table_id, {}).get(c.name)
+            if dt is not None and not is_nullable(dt) and \
+                    not np.issubdtype(physical_dtype(dt), np.floating):
+                return Const(False)         # int/bool columns hold no nulls
+        return e
+    if isinstance(e, IsIn):
+        dt = _cat_dtype_of(e.children[0], schemas)
+        if dt is None or not any(isinstance(v, str) for v in e.values):
+            return e
+        bad = [v for v in e.values if not isinstance(v, str)]
+        if bad:
+            raise TypeError(
+                f"isin on a category column mixes strings and {bad!r}; "
+                "pass homogeneous string values")
+        lut = {v: i for i, v in enumerate(categories_of(dt))}
+        codes = tuple(np.int32(lut[v]) for v in e.values if v in lut)
+        return IsIn(e.children[0], codes) if codes else Const(False)
+    if isinstance(e, BinOp) and e.op in _CMP_SWAP:
+        a, b = e.children
+        da, db = _cat_dtype_of(a, schemas), _cat_dtype_of(b, schemas)
+        if da is not None and db is not None:
+            if categories_of(da) != categories_of(db):
+                raise TypeError(
+                    "cannot compare category columns with different "
+                    "dictionaries; merge/concat unify them, or ingest the "
+                    "columns together")
+            return e
+        if da is None and db is None:
+            for x in (a, b):
+                if isinstance(x, Const) and isinstance(x.value, str):
+                    raise TypeError(
+                        f"string constant {x.value!r} compared against a "
+                        "non-category column: strings only compare against "
+                        "dictionary-encoded (category) columns")
+            return e
+        col, const, op = (a, b, e.op) if da is not None \
+            else (b, a, _CMP_SWAP[e.op])
+        dt = da if da is not None else db
+        if isinstance(const, Const) and isinstance(
+                const.value, (int, np.integer)):
+            return e                        # already in code space
+        if not isinstance(const, Const) or not isinstance(const.value, str):
+            raise TypeError(
+                f"category column {col.name!r} compares against string "
+                f"constants, got {const!r}")
+        return _rewrite_cat_cmp(col, dt, op, const.value)
     return e
+
+
+# Device-side null/dictionary helpers, lifted into expressions via fn_expr.
+# Each is a closure factory, so the host constants (LUT, fill code/value)
+# ride along with the plan.
+
+
+def _recode_fn(lut: np.ndarray, fill: int | None = None):
+    """codes -> codes through a host LUT (dictionary unification); null
+    codes stay null unless ``fill`` maps them to a new code (fillna)."""
+    host = torch.from_numpy(np.ascontiguousarray(lut, dtype=CODE_DTYPE))
+    fillc = NULL_CODE if fill is None else int(fill)
+    on_device: dict = {}
+
+    def f(c):
+        # the LUT moves to c's device once, from pinned memory without
+        # blocking, so the host never waits on the card here
+        t = on_device.get(c.device)
+        if t is None:
+            src = host.pin_memory() if c.is_cuda else host
+            t = on_device[c.device] = src.to(c.device, non_blocking=True)
+        return torch.where(c >= 0, t[c.clamp(min=0)], fillc)
+    return f
+
+
+def _fill_code_fn(code: int):
+    fillc = int(code)
+
+    def f(c):
+        return torch.where(c < 0, fillc, c)
+    return f
+
+
+def _fill_nan_fn(v: float):
+    def f(c):
+        return torch.where(torch.isnan(c), v, c)
+    return f
 
 
 class DataFrame:
@@ -105,7 +252,12 @@ class DataFrame:
         return DataFrame(node, self._rep_nodes)
 
     def _rw(self, e) -> Expr:
-        return _check_no_strings(as_expr(e))
+        """Resolve string comparisons and isna against the schemas of every
+        node under this frame (applied wherever an expression attaches to
+        the plan), so a predicate on a joined frame finds either side's
+        dictionary."""
+        return _rewrite_strings(
+            as_expr(e), {n.id: n.schema for n in ir.topo_order(self.node)})
 
     # -- schema ---------------------------------------------------------------
     @property
@@ -143,25 +295,225 @@ class DataFrame:
             f"DataFrame has no attribute or column {name!r} "
             f"(columns: {list(node.schema)})")
 
+    def __setitem__(self, name: str, value):
+        """In-place column assignment, ``df["c"] = expr``.  Rebinds this
+        wrapper to a Project over the old node; expressions built before
+        stay valid (columns resolve by name at evaluation)."""
+        if not isinstance(name, str):
+            raise TypeError(f"column name must be a str, got {name!r}")
+        cols = {k: ColRef(self.node.id, k) for k in self.node.schema}
+        cols[name] = self._rw(value)
+        new = ir.Project(self.node, cols)
+        if self.node.id in self._rep_nodes:
+            self._rep_nodes = self._rep_nodes | {new.id}
+        self.node = new
+
+    def with_column(self, name: str, e) -> "DataFrame":
+        """Attach a derived column (the non-mutating ``df[name] = e``)."""
+        return self.assign(**{name: e})
+
+    def assign(self, **exprs) -> "DataFrame":
+        """pandas-style ``df.assign(z=df.x * 2, w=lambda d: d.x + d.y)``: a
+        new frame with the columns added or replaced.  Values may be
+        expressions, scalars, or callables taking the frame."""
+        cols = {k: ColRef(self.node.id, k) for k in self.node.schema}
+        for name, e in exprs.items():
+            if callable(e) and not isinstance(e, Expr):
+                e = e(self)
+            cols[name] = self._rw(e)
+        return self._wrap(ir.Project(self.node, cols))
+
+    def rename(self, mapping: dict[str, str] | None = None, *,
+               columns: dict[str, str] | None = None) -> "DataFrame":
+        """Rename columns; the mapping positionally or as ``columns=``."""
+        mapping = mapping if mapping is not None else (columns or {})
+        cols = {mapping.get(k, k): ColRef(self.node.id, k)
+                for k in self.node.schema}
+        return self._wrap(ir.Project(self.node, cols))
+
+    def select(self, *names: str) -> "DataFrame":
+        return self[list(names)]
+
+    def drop(self, columns, *more: str) -> "DataFrame":
+        """Drop columns: ``df.drop("a")``, ``df.drop(["a", "b"])`` or
+        ``df.drop(columns=[...])``."""
+        dropped = set(ir.as_keys(columns)) | set(more)
+        missing = dropped - set(self.node.schema)
+        if missing:
+            raise KeyError(f"drop: {sorted(missing)} not in columns "
+                           f"{list(self.node.schema)}")
+        return self[[c for c in self.node.schema if c not in dropped]]
+
+    # -- null / dtype verbs ------------------------------------------------------
+    def astype(self, dtype) -> "DataFrame":
+        """Cast columns: ``df.astype(np.float64)`` (every column) or
+        ``df.astype({"x": np.int32})``.  The schema records the dtype asked
+        for; the data narrows 64-bit types to 32 bits as ingest does.
+        Category columns cast only to category (decode with
+        ``to_numpy()``), and a nullable column casts only to a float type
+        unless ``fillna`` came first."""
+        sch = self.node.schema
+        mapping = dict(dtype) if isinstance(dtype, dict) \
+            else {c: dtype for c in sch}
+        exprs: dict[str, Expr] = {c: ColRef(self.node.id, c) for c in sch}
+        dts = dict(sch)
+        for c, t in mapping.items():
+            if c not in sch:
+                raise KeyError(f"astype: no column {c!r}")
+            dt = sch[c]
+            if (isinstance(t, str) and t == "category") or is_category(t):
+                if is_category(dt):
+                    continue
+                raise TypeError(
+                    f"astype: column {c!r} -> category needs host-side "
+                    "dictionary encoding; rebuild the input with hf.table() "
+                    "or hf.from_pandas()")
+            if is_category(dt):
+                raise TypeError(
+                    f"astype: column {c!r} is category[str]; decode with "
+                    "to_numpy() instead of casting on device")
+            target = np.dtype(t)
+            if dt == target and not is_nullable(dt):
+                continue
+            if is_nullable(dt) and not np.issubdtype(target, np.floating):
+                raise TypeError(
+                    f"astype: column {c!r} is nullable ({dt!r}) and "
+                    f"{target} has no null representation; fillna() first")
+            exprs[c] = Cast(ColRef(self.node.id, c), target)
+            dts[c] = DType(target, nullable=True) if is_nullable(dt) \
+                else target
+        return self._wrap(ir.Project(self.node, exprs, dts))
+
+    def fillna(self, value, subset=None) -> "DataFrame":
+        """Replace nulls: a scalar (for every nullable column, or those of
+        ``subset``) or a dict column -> fill value.  A category column
+        filled with a string outside its dictionary extends the
+        dictionary.  Filled columns come back non-nullable."""
+        sch = self.node.schema
+        if isinstance(value, dict):
+            targets = dict(value)
+        else:
+            cols = ir.as_keys(subset) if subset is not None else tuple(sch)
+            targets = {c: value for c in cols}
+        exprs: dict[str, Expr] = {c: ColRef(self.node.id, c) for c in sch}
+        dts = dict(sch)
+        changed = False
+        for c, v in targets.items():
+            if c not in sch:
+                raise KeyError(f"fillna: no column {c!r}")
+            dt = sch[c]
+            if not is_nullable(dt):
+                continue
+            col = ColRef(self.node.id, c)
+            if is_category(dt):
+                if not isinstance(v, str):
+                    raise TypeError(
+                        f"fillna: column {c!r} is category[str]; the fill "
+                        f"value must be a string, got {v!r}")
+                cats = categories_of(dt)
+                if v in cats:
+                    exprs[c] = fn_expr(_fill_code_fn(cats.index(v)), col)
+                    dts[c] = DType(CODE_DTYPE, cats)
+                else:
+                    newcats = union_categories(cats, (v,))
+                    exprs[c] = fn_expr(_recode_fn(recode_map(cats, newcats),
+                                                  fill=newcats.index(v)), col)
+                    dts[c] = DType(CODE_DTYPE, newcats)
+            else:
+                exprs[c] = fn_expr(_fill_nan_fn(float(v)), col)
+                dts[c] = physical_dtype(dt)
+            changed = True
+        if not changed:
+            return self
+        return self._wrap(ir.Project(self.node, exprs, dts))
+
+    def dropna(self, subset=None) -> "DataFrame":
+        """Drop rows holding a null in any column (or any of ``subset``):
+        a Filter on the in-band null tests, with no exchange."""
+        sch = self.node.schema
+        cols = ir.as_keys(subset) if subset is not None else tuple(sch)
+        missing = set(cols) - set(sch)
+        if missing:
+            raise KeyError(f"dropna: {sorted(missing)} not in columns "
+                           f"{list(sch)}")
+        preds = []
+        for c in cols:
+            dt = sch[c]
+            if not is_nullable(dt):
+                continue
+            col = ColRef(self.node.id, c)
+            if is_category(dt):
+                preds.append(BinOp("ge", col, _code_const(0)))
+            elif np.issubdtype(physical_dtype(dt), np.floating):
+                preds.append(UnOp("not", UnOp("isna", col)))
+        if not preds:
+            return self
+        return self._wrap(ir.Filter(
+            self.node, _ft.reduce(lambda a, b: BinOp("and", a, b), preds)))
+
+    def isna(self) -> "DataFrame":
+        """Per-cell null mask, one bool column per input column."""
+        cols = {c: self._rw(UnOp("isna", ColRef(self.node.id, c)))
+                for c in self.node.schema}
+        return self._wrap(ir.Project(self.node, cols))
+
+    def notna(self) -> "DataFrame":
+        cols = {c: UnOp("not", self._rw(UnOp("isna", ColRef(self.node.id, c))))
+                for c in self.node.schema}
+        return self._wrap(ir.Project(self.node, cols))
+
+    def _recode(self, targets: dict[str, tuple], nullable: dict[str, bool]
+                ) -> "DataFrame":
+        """Re-encode category columns against new (superset) dictionaries:
+        the merge/concat unification step.  Identity for no targets."""
+        if not targets:
+            return self
+        sch = self.node.schema
+        exprs: dict[str, Expr] = {c: ColRef(self.node.id, c) for c in sch}
+        dts = dict(sch)
+        for c, newcats in targets.items():
+            dt = sch[c]
+            cats = categories_of(dt)
+            if cats != newcats:
+                exprs[c] = fn_expr(_recode_fn(recode_map(cats, newcats)),
+                                   ColRef(self.node.id, c))
+            dts[c] = DType(CODE_DTYPE, newcats,
+                           nullable=nullable.get(c, is_nullable(dt)))
+        new = ir.Project(self.node, exprs, dts)
+        rep = self._rep_nodes | ({new.id} if self._replicated else set())
+        return DataFrame(new, frozenset(rep))
+
     # -- relational verbs -------------------------------------------------------
     def merge(self, right: "DataFrame", on, how: str = "inner",
               suffix: str = "_r") -> "DataFrame":
         """Equi-join; ``on`` is a name, a (left_name, right_name) pair, or a
         list of names / pairs for composite keys.  how="left" keeps
-        unmatched left rows (float columns NaN-fill, int columns zero-fill
-        beside a ``_matched`` int column)."""
+        unmatched left rows (float columns NaN-fill, category columns
+        null-code-fill, int columns zero-fill beside a ``_matched`` int
+        column).  Category keys join by code: both sides recode onto the
+        union dictionary first, then the join plans as an int-key join."""
         lo, ro = _parse_on(on)
         if how not in ("inner", "left"):
             raise ValueError(how)
+        lsch, rsch = self.node.schema, right.node.schema
+        ltgt: dict[str, tuple] = {}
+        rtgt: dict[str, tuple] = {}
         for lk, rk in zip(lo, ro):
-            if is_category(self.node.schema.get(lk)) or \
-                    is_category(right.node.schema.get(rk)):
-                raise NotImplementedError(
-                    f"merge on category key {lk!r}/{rk!r}: string keys are "
-                    "not supported by this package yet")
-        node = ir.Join(self.node, right.node, lo, ro, suffix, how)
-        rep = self._rep_nodes | right._rep_nodes
-        if self._replicated and right._replicated:
+            ldt, rdt = lsch.get(lk), rsch.get(rk)
+            if ldt is None or rdt is None:
+                continue                    # ir.Join reports the missing key
+            if is_category(ldt) != is_category(rdt):
+                raise TypeError(
+                    f"merge: key {lk!r}/{rk!r} is category[str] on one side "
+                    "and numeric on the other; encode both sides the same "
+                    "way at ingest")
+            if is_category(ldt) and categories_of(ldt) != categories_of(rdt):
+                ltgt[lk] = rtgt[rk] = union_categories(categories_of(ldt),
+                                                       categories_of(rdt))
+        left, rgt = self._recode(ltgt, {}), right._recode(rtgt, {})
+        node = ir.Join(left.node, rgt.node, lo, ro, suffix, how)
+        rep = left._rep_nodes | rgt._rep_nodes
+        if left._replicated and rgt._replicated:
             rep = rep | {node.id}
         return DataFrame(node, rep)
 
@@ -343,8 +695,22 @@ class GroupBy:
             raise KeyError(f"groupby: {sorted(missing)} not in columns "
                            f"{list(df.node.schema)}")
 
+    # fns with no meaning on dictionary codes (a code sum is garbage);
+    # min/max/first/count/nunique stay valid: code order is lexicographic
+    _NUMERIC_ONLY = ("sum", "mean", "var", "std", "prod", "any", "all")
+
+    def _check_cat(self, name: str, fn: str, e) -> None:
+        if fn not in self._NUMERIC_ONLY or not isinstance(e, ColRef):
+            return
+        if is_category(self.df.node.schema.get(e.name)):
+            raise TypeError(
+                f"agg {name}: {fn!r} over category[str] column {e.name!r} "
+                "has no meaning (dictionary codes aren't numbers); use "
+                "min/max/first/count/nunique, or fillna+astype first")
+
     def _spec(self, name: str, a) -> AggExpr:
         if isinstance(a, AggExpr):
+            self._check_cat(name, a.fn, a.expr)
             e = self.df._rw(a.expr) if a.expr is not None else None
             return AggExpr(a.fn, e, a.skipna)
         if isinstance(a, str):
@@ -366,6 +732,7 @@ class GroupBy:
                     return AggExpr("count", ColRef(self.df.node.id, col))
                 return AggExpr("count", None)
             e = col if isinstance(col, Expr) else ColRef(self.df.node.id, col)
+            self._check_cat(name, fn, e)
             return AggExpr(fn, self.df._rw(e))
         raise TypeError(f"agg {name}: expected (column, fn), an AggExpr or "
                         f"'count', got {a!r}")
@@ -375,24 +742,10 @@ class GroupBy:
             raise ValueError("agg() needs at least one name=(column, fn) spec")
         specs = {name: self._spec(name, a) for name, a in aggs.items()}
         # pandas groupby(dropna=True): null keys form no group
-        base = self.df
-        node = base.node
-        preds = [_not_null(ColRef(node.id, k), node.schema[k])
-                 for k in self.keys if is_nullable(node.schema[k])]
-        if preds:
-            base = base._wrap(ir.Filter(node, _ft.reduce(
-                lambda a, b: BinOp("and", a, b), preds)))
+        base = self.df.dropna(subset=self.keys)
         node = ir.Aggregate(base.node, self.keys, specs)
         rep = base._rep_nodes | ({node.id} if base._replicated else set())
         return DataFrame(node, frozenset(rep))
-
-
-def _not_null(col: ColRef, dt) -> Expr:
-    if is_category(dt):
-        return BinOp("ge", col, Const(np.int32(0)))
-    if np.issubdtype(physical_dtype(dt), np.floating):
-        return UnOp("not", UnOp("isna", col))
-    return Const(True)
 
 
 # ---------------------------------------------------------------------------
@@ -419,6 +772,21 @@ def table(columns, name: str = "t") -> DataFrame:
             v = v.cpu().numpy()
         cols[k], sch[k] = coerce_column(k, v)
     return DataFrame(ir.Scan(name, cols, sch))
+
+
+def from_pandas(df, name: str = "t") -> DataFrame:
+    """A frame from a pandas DataFrame (duck-typed; pandas is not
+    imported): the columns go through :func:`table`'s ingest coercion, so
+    object/string columns dictionary-encode and ``NaN``/``None``/``pd.NA``
+    holes become nulls."""
+    if not hasattr(df, "columns") or not hasattr(df, "__getitem__"):
+        raise TypeError(
+            f"from_pandas expects a pandas DataFrame, got {type(df).__name__}")
+    cols = {}
+    for c in df.columns:
+        s = df[c]
+        cols[str(c)] = s.to_numpy() if hasattr(s, "to_numpy") else np.asarray(s)
+    return table(cols, name)
 
 
 def _persisted(name: str, columns: dict, layout: ir.ScanLayout) -> DataFrame:
@@ -464,24 +832,34 @@ def from_persisted_state(columns: dict[str, Any], layout: Mapping[str, Any],
 
 
 def concat(*dfs: DataFrame) -> DataFrame:
-    """UNION ALL.  Column names must match; a column nullable in any part
-    comes out nullable.  Category columns must share one dictionary
-    (recoding onto a union dictionary is a later slice)."""
+    """UNION ALL.  Column names must match; category columns recode onto
+    the union dictionary, and a column nullable in any part comes out
+    nullable (ir.Concat reports part 0's schema, so the unified dtypes ride
+    a Project when the parts disagree)."""
     schemas = [tuple(d.node.schema) for d in dfs]
     if len(set(schemas)) > 1:
         raise ValueError(f"schema mismatch in concat: {schemas}")
+    targets: list[dict[str, tuple]] = [{} for _ in dfs]
+    nullflags: list[dict[str, bool]] = [{} for _ in dfs]
     over: dict[str, Any] = {}
     for c in schemas[0]:
         dts = [d.node.schema[c] for d in dfs]
-        if any(is_category(dt) for dt in dts):
-            if len({categories_of(dt) if is_category(dt) else None
-                    for dt in dts}) > 1 \
-                    or len({is_nullable(dt) for dt in dts}) > 1:
-                raise NotImplementedError(
-                    f"concat: category column {c!r} differs between parts; "
-                    "recoding dictionaries is not part of this package yet")
+        flags = [is_category(dt) for dt in dts]
+        if any(flags):
+            if not all(flags):
+                raise TypeError(
+                    f"concat: column {c!r} is category[str] in some parts "
+                    "and numeric in others; encode every part the same way")
+            u = _ft.reduce(union_categories, (categories_of(dt) for dt in dts))
+            nb = any(is_nullable(dt) for dt in dts)
+            for i, dt in enumerate(dts):
+                if categories_of(dt) != u or is_nullable(dt) != nb:
+                    targets[i][c] = u
+                    nullflags[i][c] = nb
+            over[c] = DType(CODE_DTYPE, u, nullable=nb)
         elif any(is_nullable(dt) for dt in dts) and not is_nullable(dts[0]):
             over[c] = as_nullable(dts[0])
+    dfs = [d._recode(t, nf) for d, t, nf in zip(dfs, targets, nullflags)]
     node = ir.Concat(tuple(d.node for d in dfs))
     rep = frozenset().union(*(d._rep_nodes for d in dfs))
     if all(d._replicated for d in dfs):

@@ -7,8 +7,9 @@ with torch ops, one rank's shard at a time.
 
 Result dtypes follow the JAX reference package's promotion with 64-bit types
 off (``infer_dtype``), not numpy's or torch's, so schemas, packed words and
-byte censuses agree between the two packages.  User-defined functions and
-external arrays are not part of this package yet.
+byte censuses agree between the two packages.  ``UDF`` nodes carry the API
+layer's device helpers (dictionary recoding, null fills); a public ``udf``
+and external arrays are not part of this package yet.
 """
 from __future__ import annotations
 
@@ -134,7 +135,9 @@ class Const(Expr):
         v = self.value
         if isinstance(v, (np.ndarray, torch.Tensor)):
             v = ("arr", id(v))
-        return ("const", v)
+        # the type too: False == 0 == np.int32(0) hash alike, and a shared
+        # evaluation cache must not hand one's tensor out for another's
+        return ("const", type(self.value), v)
 
     def __repr__(self):
         return f"const({self.value})"
@@ -207,6 +210,25 @@ class Cast(Expr):
 
     def __repr__(self):
         return f"cast[{self.to.name}]({self.children[0]})"
+
+
+class UDF(Expr):
+    """Element-wise function of one or more column expressions: ``fn``
+    takes the children's tensors and returns a tensor of their rows."""
+
+    def __init__(self, fn: Callable, *args: Expr, name: str | None = None):
+        self.fn = fn
+        self.name = name or getattr(fn, "__name__", "udf")
+        self.children = tuple(as_expr(a) for a in args)
+
+    def key(self):
+        return ("udf", id(self.fn)) + tuple(c.key() for c in self.children)
+
+    def with_children(self, children):
+        return UDF(self.fn, *children, name=self.name)
+
+    def __repr__(self):
+        return f"udf:{self.name}({', '.join(map(repr, self.children))})"
 
 
 def as_expr(x: Any) -> Expr:
@@ -374,6 +396,8 @@ def evaluate(e: Expr, env: dict[str, torch.Tensor],
             out = out | (a == _scalar(v))
     elif isinstance(e, Cast):
         out = evaluate(e.children[0], env, cache).to(torch_dtype(e.to))
+    elif isinstance(e, UDF):
+        out = e.fn(*(evaluate(c, env, cache) for c in e.children))
     else:
         raise TypeError(f"unknown expr {e!r}")
     cache[k] = out
@@ -385,6 +409,11 @@ def _bool_to_i32(x, other):
             isinstance(other, int) and not isinstance(other, bool):
         return x.to(torch.int32)
     return x
+
+
+def fn_expr(fn: Callable, *args) -> UDF:
+    """Lift an element-wise tensor function into an expression."""
+    return UDF(fn, *args)
 
 
 def log(e):   return UnOp("log", as_expr(e))
@@ -487,6 +516,15 @@ def infer_dtype(e: Expr, schema: dict[str, Any]) -> np.dtype:
         if e.op == "neg" and t == np.dtype(bool):
             return np.dtype(np.int32)
         return t
+    if isinstance(e, UDF):
+        # call fn on 4-row CPU tensors of the children's dtypes; anything
+        # that fails there types as float32, as the reference's trace does
+        try:
+            args = [torch.zeros(4, dtype=torch_dtype(infer_dtype(c, schema)))
+                    for c in e.children]
+            return numpy_dtype(e.fn(*args).dtype)
+        except Exception:
+            return np.dtype(np.float32)
     return np.dtype(np.float32)
 
 
@@ -510,7 +548,7 @@ def expr_nullable(e: Expr, schema: dict[str, Any]) -> bool:
         if e.op in _BOOL_UN:
             return False
         return expr_nullable(e.children[0], schema)
-    if isinstance(e, Cast):
+    if isinstance(e, (Cast, UDF)):
         return any(expr_nullable(c, schema) for c in e.children)
     return False
 

@@ -643,3 +643,95 @@ def test_sort_rebalance_persist_on_card_match_cpu(card):
                                            atol=tol[k][1], err_msg=q + k)
             else:
                 np.testing.assert_array_equal(got[k], want[k], err_msg=q + k)
+
+
+# the frame path's queries (FRAME_SRC), at sizes that fill several of the
+# kernels' tiles
+FRAME_SIZES = dict(n_clicks=60_000, n_items=2000, n_users=900, n_sales=50_000,
+                   n_cust=700)
+
+
+def _frame_queries():
+    from torch_frame_queries import FRAME_SRC
+    fr: dict = {}
+    exec(FRAME_SRC, fr)
+    return fr
+
+
+FRAME_NAMES = ("q05_string", "q05_int", "q09_channel", "frame_verbs",
+               "null_rows", "concat_channels", "merge_category_keys")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", FRAME_NAMES)
+def test_frame_query_on_card_matches_cpu(card, name):
+    """Each frame-path query through hf on the card (prefix_sum,
+    segment_sums, bucket_scatter where the plan exchanges) and on the CPU
+    (their plain versions): the same columns, dtypes and rows, ints and
+    dictionary codes exact, the float sums and means within rtol 1e-5,
+    atol 1e-5; the card's rows, decoded, equal the numpy oracle."""
+    from repro_torch import hiframes as hf
+    from repro_torch.core import dtypes as tdt
+    fr = _frame_queries()
+    assert name in fr["FRAME_QUERIES"]
+    d = fr["frame_data"](**FRAME_SIZES)
+    build = fr["FRAME_QUERIES"][name]
+    frame = build(hf, d)
+    t = frame.collect(hf.ExecConfig())
+    assert not t.overflow
+    got = t.to_numpy()
+    want = build(hf, d).collect(hf.ExecConfig(device="cpu")).to_numpy()
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape
+        if np.issubdtype(want[k].dtype, np.floating):
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-5,
+                                       err_msg=name + k)
+        else:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=name + k)
+    for c, dt in frame.schema.items():
+        if tdt.is_category(dt):
+            got[c] = tdt.dict_decode(got[c], tdt.categories_of(dt))
+    fr["assert_frame_result"](name, got, d)
+
+
+@pytest.mark.cuda
+def test_frame_path_on_card_launches_its_kernels(card):
+    """The string filters and dropna compact through prefix_sum; the float
+    sums and means of q09_channel and frame_verbs reduce through
+    segment_sums."""
+    from repro_torch import hiframes as hf
+    from repro_torch.kernels import cuda
+    fr = _frame_queries()
+    d = fr["frame_data"](**FRAME_SIZES)
+    before = dict(cuda.launches)
+    for name in ("q09_channel", "frame_verbs", "null_rows"):
+        fr["FRAME_QUERIES"][name](hf, d).collect(hf.ExecConfig())
+    torch.cuda.synchronize()
+    for k in ("prefix_sum", "segment_sums"):
+        assert cuda.launches[k] > before.get(k, 0), k
+
+
+@pytest.mark.cuda
+def test_frame_recode_lut_on_card_strided_and_without_sync(card):
+    """The recode and fill closures on a non-contiguous view of codes on
+    the card: the LUT moves once, from pinned memory, and no call waits on
+    the card (CUDA sync debug mode "error" raises on a synchronizing
+    call)."""
+    from repro_torch.core import api
+    lut = np.array([2, 0, 3], np.int32)
+    host = torch.tensor([0, 9, -1, 9, 2, 9, 1, 9], dtype=torch.int32)
+    c = host.to(card)[::2]
+    assert not c.is_contiguous()
+    recode, fill = api._recode_fn(lut), api._recode_fn(lut, fill=1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [recode(c), recode(c), fill(c), api._fill_code_fn(4)(c)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want = [[2, -1, 3, 0], [2, -1, 3, 0], [2, 1, 3, 0], [0, 4, 2, 1]]
+    assert [o.cpu().tolist() for o in outs] == want
+    assert all(o.device == c.device and o.dtype == torch.int32 for o in outs)
+    assert [o.tolist() for o in (recode(host[::2]), fill(host[::2]))] \
+        == want[1:3]

@@ -9,7 +9,9 @@ tests move a reference DTable's state into the port and query it.  One test
 spawns two gloo ranks and runs the same queries at P=2, together with the
 window queries of tests/test_torch_window.py (the global ones with both
 exclusive-scan methods), the sort, limit, rebalance, concat and persist
-queries of tests/test_torch_sort.py, and direct checks of the halo
+queries of tests/test_torch_sort.py, the frame path's queries of
+tests/torch_frame_queries.py (string predicates, the null and column verbs,
+recoding concat and category-key merge), and direct checks of the halo
 exchange, the global rank, the sample sort (an empty rank, composite keys,
 descending), the rebalance and the limit across the two ranks.
 """
@@ -28,8 +30,10 @@ pytest.importorskip("torch")
 import oracle  # noqa: E402
 from repro import hiframes as rhf  # noqa: E402
 from repro_torch import hiframes as thf  # noqa: E402
+from repro_torch.core import dtypes as tdt  # noqa: E402
 from test_torch_sort import (S, SDATA, SORT_SRC,  # noqa: E402
                              assert_sort_result)
+from torch_frame_queries import FRAME_SRC  # noqa: E402
 from test_torch_window import (W, WDATA, WINDOW_SRC,  # noqa: E402
                                assert_same_row_set, window_oracle)
 
@@ -108,6 +112,9 @@ Q: dict = {}
 exec(QUERY_SRC, Q)
 DATA = Q["data"]()
 NAMES = list(Q["QUERIES"])
+FQ: dict = {}
+exec(FRAME_SRC, FQ)
+FDATA = FQ["frame_data"]()
 
 
 def _oracle(name, d):
@@ -298,6 +305,7 @@ def main(rank, world, port, out):
         return a2a(*a, **k)
     dist.all_to_all_single = counted
     d, wd, sd = Q["data"](), W["window_data"](), S["sort_data"]()
+    fd = F["frame_data"]()
     cfg = hf.ExecConfig(device="cpu")
     ladder = hf.ExecConfig(device="cpu", exscan_method="ladder")
     runs = [(name, build, d, cfg) for name, build in Q["QUERIES"].items()]
@@ -307,6 +315,8 @@ def main(rank, world, port, out):
              for name in W["GLOBAL_WINDOWS"]]
     runs += [(name, build, sd, cfg)
              for name, build in S["SORT_QUERIES"].items()]
+    runs += [(name, build, fd, cfg)
+             for name, build in F["FRAME_QUERIES"].items()]
     res = {}
     for name, build, data, c in runs:
         frame = build(hf, data)
@@ -400,6 +410,7 @@ def test_two_gloo_ranks(tmp_path):
     script.write_text("Q = {}\nexec(" + repr(QUERY_SRC) + ", Q)\n"
                       + "W = {}\nexec(" + repr(WINDOW_SRC) + ", W)\n"
                       + "S = {}\nexec(" + repr(SORT_SRC) + ", S)\n"
+                      + "F = {}\nexec(" + repr(FRAME_SRC) + ", F)\n"
                       + textwrap.dedent(RANK_SCRIPT))
     out = tmp_path / "res.json"
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
@@ -415,8 +426,11 @@ def test_two_gloo_ranks(tmp_path):
              or name.endswith("@ladder")]
     runs += [(name, S["SORT_QUERIES"][name], SDATA)
              for name in S["SORT_QUERIES"]]
+    runs += [(name, FQ["FRAME_QUERIES"][name], FDATA)
+             for name in FQ["FRAME_QUERIES"]]
     assert len(runs) == len(NAMES) + len(W["WINDOW_QUERIES"]) \
-        + len(W["GLOBAL_WINDOWS"]) + len(S["SORT_QUERIES"])
+        + len(W["GLOBAL_WINDOWS"]) + len(S["SORT_QUERIES"]) \
+        + len(FQ["FRAME_QUERIES"])
     for name, build, data in runs:
         r = res[name]
         assert r["nshards"] == 2 and not r["overflow"], name
@@ -427,6 +441,13 @@ def test_two_gloo_ranks(tmp_path):
             _assert_same_row_set(got, _oracle(name, DATA))
         elif data is SDATA:
             assert_sort_result(name, got, SDATA)
+        elif data is FDATA:
+            # each rank encoded the same host table: the dictionaries of
+            # the P=1 frame decode the ranks' codes
+            for c, dt in build(thf, FDATA).schema.items():
+                if tdt.is_category(dt):
+                    got[c] = tdt.dict_decode(got[c], tdt.categories_of(dt))
+            FQ["assert_frame_result"](name, got, FDATA)
         else:
             assert_same_row_set(got, window_oracle(base, WDATA))
         census = build(rhf, data).physical_plan() \

@@ -12,7 +12,10 @@ a global rank with ``order_by``, a global stencil after a filter (a
 Rebalance under it), ``repartition`` + ``sort_within_partitions``, a
 replicated dimension table, and persisted frames (hash-partitioned,
 grouped, globally sorted, replicated) feeding a group-by, merge, window or
-sort on their keys.
+sort on their keys; and on the frame path's queries (FRAME_SRC): Q05 with
+string and with int categories, Q09's channel rollup, the frame verbs, the
+null-row filter, the concat that recodes its parts' dictionaries and the
+merge on category keys.
 """
 import numpy as np
 import pytest
@@ -21,6 +24,11 @@ pytest.importorskip("torch")
 
 from repro import hiframes as rhf  # noqa: E402
 from repro_torch import hiframes as thf  # noqa: E402
+from torch_frame_queries import FRAME_SRC  # noqa: E402
+
+F: dict = {}
+exec(FRAME_SRC, F)
+FDATA = F["frame_data"]()
 
 
 def _frames(n=400, m=60, seed=3):
@@ -247,7 +255,16 @@ CASES = [
     ("persisted_over", persisted_over, {}),
     ("persisted_sort", persisted_sort, {}),
     ("persisted_replicated", persisted_replicated, {}),
-]
+] + [(case, (lambda hf, q=F["FRAME_QUERIES"][name]: q(hf, FDATA)), kw)
+     for case, name, kw in (
+         ("q05_string", "q05_string", {}), ("q05_int", "q05_int", {}),
+         ("q05_string_no_elision", "q05_string", {"elide_exchanges": False}),
+         ("q09_channel", "q09_channel", {}),
+         ("frame_verbs", "frame_verbs", {}), ("null_rows", "null_rows", {}),
+         ("concat_recoding", "concat_channels", {}),
+         ("merge_category_keys", "merge_category_keys", {}),
+         ("merge_category_keys_per_column", "merge_category_keys",
+          {"packed_exchange": False}))]
 
 
 def _ops(plan):

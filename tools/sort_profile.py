@@ -1,9 +1,13 @@
-"""Where the time of the sort path's queries goes, one fresh process each:
+"""Where the time of the sort and frame paths' queries goes, one fresh
+process each:
 
     python tools/sort_profile.py [--out DIR] [QUERY ...]
+    python tools/sort_profile.py q05_string q09_channel frame_verbs ...
 
-For each query (default: all of ``QUERIES``) a new process builds the
-query's inputs as ``chip_smoke.py``'s sort path does (2^27 rows), runs it
+For each query (default: all of ``QUERIES``, the sort path's; the frame
+path's are ``FRAME_QUERIES``) a new process builds the query's inputs as
+``chip_smoke.py`` does (2^27 rows; the frame path's at scale 64, their
+dictionary encoding before the run), runs it
 once through ``hf`` on the card, then once more under torch.profiler
 (``chip_smoke.profile_run``: the first profiler session of the process,
 before the profiler starts losing device events), and prints one JSON line:
@@ -28,12 +32,41 @@ import chip_smoke  # noqa: E402
 
 QUERIES = ("sort_fig8a", "global_rank", "rank_only", "fig14_pipeline",
            "sma_after_filter", "concat_aggregate")
+FRAME_QUERIES = ("q05_string", "q09_channel", "frame_verbs", "null_rows",
+                 "concat_channels", "merge_category_keys")
 N = 2**27
 
 
-def frame(hf, synth, name: str):
-    """The sort path's frame ``name`` over its inputs, as chip_smoke.py
+def frame_path_frame(hf, synth, name: str):
+    """The frame path's frame ``name`` over its inputs, as chip_smoke.py
     builds them."""
+    wcs, itx, ssx = chip_smoke.frame_tables(synth)
+    if name == "q05_string":
+        return chip_smoke.q05_frame(hf.table(wcs, "wcs"), hf.table(itx, "itx"),
+                                    "books", ["electronics", "music"])
+    if name == "merge_category_keys":
+        return chip_smoke.merge_category_frame(
+            hf.table(itx, "itx"), hf.table(chip_smoke.category_dim(), "cdim"))
+    if name == "concat_channels":
+        a, b = chip_smoke.sales_halves(
+            ssx, chip_smoke.channel_codes(ssx["ss_channel"], synth))
+        return chip_smoke.concat_channels_frame(hf, hf.table(a, "a"),
+                                                hf.table(b, "b"))
+    ss = hf.table(ssx, "ssx")
+    if name == "q09_channel":
+        return chip_smoke.q09_channel_frame(ss)
+    if name == "frame_verbs":
+        return chip_smoke.frame_verbs_frame(ss)
+    if name == "null_rows":
+        return chip_smoke.null_rows_frame(ss)
+    raise ValueError(f"unknown query {name!r}; known: {QUERIES + FRAME_QUERIES}")
+
+
+def frame(hf, synth, name: str):
+    """The sort or frame path's frame ``name`` over its inputs, as
+    chip_smoke.py builds them."""
+    if name in FRAME_QUERIES:
+        return frame_path_frame(hf, synth, name)
     if name == "sort_fig8a":
         return hf.table(synth.relational_tables(N, 1000, seed=0)).sort_values("x")
     if name in ("global_rank", "rank_only"):
@@ -47,7 +80,7 @@ def frame(hf, synth, name: str):
     if name == "concat_aggregate":
         return chip_smoke.concat_aggregate_frame(
             hf, synth.relational_tables(N, 4096, seed=2))
-    raise ValueError(f"unknown query {name!r}; known: {QUERIES}")
+    raise ValueError(f"unknown query {name!r}; known: {QUERIES + FRAME_QUERIES}")
 
 
 def profile_one(name: str, out: str) -> dict:
