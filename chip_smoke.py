@@ -36,7 +36,7 @@ Phases, in order; any failure raises and the exit code is not 0:
    (0 ulps) in every mode, also around their 4096-output tile, on ragged
    ends, on views not 16-byte aligned and past the 1024 taps staged at
    once.
-3. The six main paths, each with the launch counters zeroed just before
+3. The seven main paths, each with the launch counters zeroed just before
    it and read just after:
    - relational, through ``hf`` at P = 1: Fig. 8a filter, join and
      aggregate and TPCx-BB Q26 / Q26-multikey against numpy oracles;
@@ -65,13 +65,31 @@ Phases, in order; any failure raises and the exit code is not 0:
      two halves whose dictionaries differ, and a merge on category keys
      whose dictionaries only overlap; against numpy, the host's dictionary
      encoding timed apart; prefix_sum and segment_sums must have launched;
+   - segmentation, the paper's customer-segmentation program
+     (examples/customer_segmentation.py: min_count 4, 8 centroids, 20
+     iterations) through ``hf`` at P = 1 on Q26's tables at scale 64: the
+     fluent Q26 stage with its count filter a UDF (2,881,085 rows, exact),
+     ``collect_matrix`` of the four features (the plan's collect-block
+     rebalance; rows exact), K-means in PyTorch on the card (TF32 off; each
+     iteration held in float64: every row at its nearest centroid and every
+     centroid its rows' mean, within relative 1e-5), the cluster ids back
+     into the features' frame as a free array, then ``size``, ``mean``, a
+     selected ``sum``, ``transform("mean")`` and ``head(3)`` by cluster
+     (head's plan one exchange and one local sort) against numpy; then
+     Fig. 10's built-in and UDF filters over 2^27 rows with the same plan
+     and rows, their walls, overhead and aten op histograms; prefix_sum,
+     segment_sums and segment_rank must have launched;
    - exchange_p2, two ranks on the one card joined by gloo (NCCL refuses
      two ranks on one card; gloo stages CUDA tensors through the host):
      Fig. 8a join at 2^24 x 2^20 rows, Q26, a sort of Fig. 8a's table and
      a global rank of the series at 2^24 rows, the SMA after a filter,
      Fig. 12's two Q26 legs, and the frame path's Q05 over category names
      and merge on category keys (each rank encoding the host tables
-     itself, the dictionaries equal on both), through ``hf`` at P = 2,
+     itself, the dictionaries equal on both), ``transform("sum")`` and
+     ``head(2)`` over 2^24 rows in 9 groups (a third in one), and the
+     segmentation program's ``collect_matrix`` (each rank's count its
+     1D_BLOCK block, bucket_scatter launched in each), through ``hf`` at
+     P = 2,
      rows against numpy
      oracles, all_to_all calls against the plan's shuffle census (the
      persisted leg's fewer than the cold leg's), each rank of the sort
@@ -1185,12 +1203,18 @@ def join_want(left, right) -> dict:
 Q26_SCALE = 64
 
 
+_Q26_TABLES: dict = {}
+
+
 def q26_tables(synth, sf: int = Q26_SCALE):
-    """store_sales and item at scale ``sf``, and the number of customers."""
-    n_sales, n_items, n_cust = 400_000 * sf, 20_000 * sf, 50_000 * sf
-    ss = synth.store_sales(n_sales, n_items, n_cust, seed=10)
-    it = synth.item(n_items, seed=11)
-    return ss, it, n_cust
+    """store_sales and item at scale ``sf``, and the number of customers;
+    made once a process and shared by the paths (none writes into them)."""
+    if sf not in _Q26_TABLES:
+        n_sales, n_items, n_cust = 400_000 * sf, 20_000 * sf, 50_000 * sf
+        ss = synth.store_sales(n_sales, n_items, n_cust, seed=10)
+        it = synth.item(n_items, seed=11)
+        _Q26_TABLES[sf] = ss, it, n_cust
+    return _Q26_TABLES[sf]
 
 
 def q26_want(ss, it, n_cust: int) -> dict:
@@ -1861,9 +1885,12 @@ def merge_category_want(itx, dim, synth) -> dict:
 
 
 def max_rel(got: dict, want: dict, cols) -> float:
-    """The largest |got - want| / |want| over the float columns ``cols``."""
+    """The largest |got - want| / |want| over the float columns ``cols``
+    (a zero in ``want`` divides by the smallest normal float32)."""
+    tiny = np.finfo(np.float32).tiny
     return max(float(np.max(np.abs(got[c].astype(np.float64) - want[c])
-                            / np.abs(want[c].astype(np.float64))))
+                            / np.maximum(np.abs(want[c].astype(np.float64)),
+                                         tiny), initial=0.0))
                for c in cols)
 
 
@@ -1991,6 +2018,262 @@ def frame_path(torch, hf, synth, queries: dict, profile_dir: str | None = None,
     log(f"frame ingest (host dictionary encoding): {ingest}")
 
 
+# The segmentation path: the paper's customer-segmentation program
+# (examples/customer_segmentation.py, its defaults: min_count 4, 8
+# centroids, 20 iterations) on Q26's tables at scale 64, and Fig. 10's
+# built-in and UDF filters (benchmarks/bench_udf.py) at Fig. 8a's 2^27 rows
+# in place of the bench's 1 M.
+SEG_CENTROIDS = 8
+SEG_ITERATIONS = 20
+SEG_HEAD = 3
+FIG10_ROWS = 2**27
+
+
+def seg_queries() -> dict:
+    """SEG_SRC of tests/torch_segmentation_queries.py, executed: the query
+    functions and K-means step the CPU tests hold against the reference."""
+    import runpy
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "torch_segmentation_queries.py")
+    z: dict = {}
+    exec(runpy.run_path(path)["SEG_SRC"], z)
+    return z
+
+
+def kmeans_run(torch, z, x, k: int = SEG_CENTROIDS,
+               iters: int = SEG_ITERATIONS):
+    """The program's K-means on the card from the first ``k`` rows: every
+    iteration's centroids (the start first) and assignment, and its ms
+    from CUDA events."""
+    cent = x[:k].clone()
+    cents, assigns = [cent], []
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(iters + 1)]
+    marks[0].record()
+    for i in range(iters):
+        cent, a = z["kmeans_step"](x, cent)
+        marks[i + 1].record()
+        cents.append(cent)
+        assigns.append(a)
+    torch.cuda.synchronize()
+    return cents, assigns, [marks[i].elapsed_time(marks[i + 1])
+                            for i in range(iters)]
+
+
+def kmeans_check(torch, x, cents, assigns) -> dict:
+    """Each iteration on its own, in float64 so drift cannot compound: the
+    row's centroid is within relative 1e-5 (+ 1e-6) of its nearest squared
+    distance to that iteration's centroids, and each new centroid is the
+    mean of its assigned rows within relative 1e-5 (+ 1e-6).  Returns the
+    largest excess distance and relative centroid error."""
+    x64 = x.double()
+    k = cents[0].shape[0]
+    worst_d, worst_c = 0.0, 0.0
+    for i, (prev, new, a) in enumerate(zip(cents[:-1], cents[1:], assigns)):
+        d = ((x64[:, None] - prev.double()[None]) ** 2).sum(-1)
+        dmin = d.min(1).values
+        got = d.gather(1, a[:, None])[:, 0]
+        assert bool((got <= dmin * (1 + 1e-5) + 1e-6).all()), \
+            f"kmeans iteration {i}: a row is not at its nearest centroid"
+        worst_d = max(worst_d, float((got - dmin).max()))
+        tot = torch.zeros(k, x.shape[1], dtype=torch.float64,
+                          device=x.device).index_add_(0, a, x64)
+        cnt = torch.bincount(a, minlength=k).double().clamp(min=1)[:, None]
+        mean = tot / cnt
+        err = (new.double() - mean).abs()
+        assert bool((err <= 1e-5 * mean.abs() + 1e-6).all()), \
+            f"kmeans iteration {i}: centroids {new} against {mean}"
+        worst_c = max(worst_c, float((err / mean.abs().clamp(min=1e-6)).max()))
+    return {"kmeans_max_excess_sq_distance": worst_d,
+            "kmeans_centroid_max_rel": worst_c}
+
+
+def seg_profile_frames(base, cluster) -> dict:
+    """The cluster profile: the free array of cluster ids attached to the
+    features' frame, then group-by sugar over it."""
+    g = base.assign(cluster=cluster).groupby("cluster")
+    return {"seg_profile_size": g.size(), "seg_profile_mean": g.mean(),
+            "seg_profile_sum": g[["id1", "id2", "id3"]].sum(),
+            "seg_transform": g.transform("mean"),
+            "seg_head": g.head(SEG_HEAD)}
+
+
+def seg_profile_want(z, feats: dict, cl: np.ndarray) -> dict:
+    """The cluster profile's results from numpy (means in float64)."""
+    keys = np.flatnonzero(np.bincount(cl)).astype(np.int32)
+    stats = {c: z["group_stats"](cl, v) for c, v in feats.items()}
+    n = stats["id1"][1]
+    f32 = np.float32
+    tr = dict(feats, cluster=cl)
+    tr.update({f"{c}_mean": s[2][cl].astype(f32) for c, s in stats.items()})
+    m = z["first_rows"](cl, SEG_HEAD)
+    return {"seg_profile_size": {"cluster": keys,
+                                 "size": n[keys].astype(np.int32)},
+            "seg_profile_mean": {"cluster": keys, **{
+                c: s[2][keys].astype(f32) for c, s in stats.items()}},
+            "seg_profile_sum": {"cluster": keys, **{
+                c: stats[c][0][keys].astype(np.int32)
+                for c in ("id1", "id2", "id3")}},
+            "seg_transform": tr,
+            "seg_head": {c: v[m] for c, v in tr.items() if c in feats
+                         or c == "cluster"}}
+
+
+def op_histogram(torch, fn) -> dict:
+    """The aten ops one call of ``fn`` dispatches, counted on the host by
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.key.startswith("aten::")}
+
+
+def fig10(torch, hf, synth, z, queries: dict, checks: dict):
+    """Fig. 10 (bench_udf.py:32-58): the built-in predicate and the same
+    predicate as a UDF over 2^27 rows: the same physical plan and rows;
+    walls (median of 3 alternating runs of each bound plan, after one
+    warm-up) and the aten op histograms of one call each."""
+    cfg = hf.ExecConfig()
+    t = synth.relational_tables(FIG10_ROWS, 100, seed=4)
+    df = hf.table(t)
+    frames = {"fig10_builtin": z["fig10_builtin"](hf, df),
+              "fig10_udf": z["fig10_udf"](hf, df)}
+    plans = [f.physical_plan(cfg) for f in frames.values()]
+    shape = [(p.counts(), p.shuffle_census(P=2),
+              [type(o).__name__ for o in p.ops]) for p in plans]
+    assert shape[0] == shape[1], f"fig10 plans differ: {shape}"
+    bound = {tag: f.lower(cfg) for tag, f in frames.items()}
+    walls: dict = {tag: [] for tag in bound}
+    outs = {}
+    for rep in range(4):
+        for tag, plan in bound.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = plan()
+            torch.cuda.synchronize()
+            if rep:
+                walls[tag].append(time.perf_counter() - t0)
+            outs[tag] = out
+    b, u = outs["fig10_builtin"], outs["fig10_udf"]
+    assert not b.overflow and not u.overflow
+    n = int(b.counts[0])
+    assert int(u.counts[0]) == n
+    for k in t:
+        assert torch.equal(b.columns[k][:n], u.columns[k][:n]), f"fig10.{k}"
+    m = t["x"] * np.float32(2.0) + t["y"] > np.float32(0.5)
+    check_equal(b.to_numpy(), {k: v[m] for k, v in t.items()}, "fig10_builtin")
+    hist = {tag: op_histogram(torch, plan) for tag, plan in bound.items()}
+    hb, hu = hist["fig10_builtin"], hist["fig10_udf"]
+    diff = {k: [hb.get(k, 0), hu.get(k, 0)] for k in sorted(set(hb) | set(hu))
+            if hb.get(k, 0) != hu.get(k, 0)}
+    for tag in bound:
+        queries[tag] = {"wall_s": round(float(np.median(walls[tag])), 4),
+                        "walls_s": [round(w, 4) for w in walls[tag]],
+                        "rows_in": FIG10_ROWS, "rows_out": n,
+                        "aten_ops": sum(hist[tag].values()),
+                        "aten_histogram": hist[tag]}
+    wb = queries["fig10_builtin"]["wall_s"]
+    queries["fig10_udf"]["overhead_pct"] = round(
+        (queries["fig10_udf"]["wall_s"] - wb) / wb * 100, 2)
+    queries["fig10_udf"]["same_plan"] = True
+    queries["fig10_udf"]["aten_histogram_diff"] = diff
+    checks["fig10_aten_histograms_equal"] = not diff
+    log(f"fig10: builtin {queries['fig10_builtin']}; "
+        f"udf {queries['fig10_udf']}")
+
+
+def segmentation_path(torch, hf, synth, queries: dict,
+                      profile_dir: str | None = None,
+                      checks: dict | None = None):
+    """The customer-segmentation program at P = 1 through ``hf``: Q26's
+    relational stage with a UDF filter (seg_features), matrix assembly
+    rebalanced to 1D_BLOCK (seg_matrix), K-means in PyTorch on the card
+    (seg_kmeans), the cluster ids back into a frame as a free array and
+    profiled with the group-by sugar, transform and head; then Fig. 10.
+    Every step against numpy."""
+    run = query_runner(torch, hf, queries, profile_dir)
+    checks = {} if checks is None else checks
+    cfg = hf.ExecConfig()
+    z = seg_queries()
+    ss, it, n_cust = q26_tables(synth)
+    want = q26_want(ss, it, n_cust)
+    n = len(want["ss_customer_sk"])
+
+    frame = z["q26_features"](hf, {"ss": ss, "it": it})
+    feats = run("seg_features", frame)
+    order = np.argsort(feats["ss_customer_sk"], kind="stable")
+    check_equal({k: v[order] for k, v in feats.items()}, want, "seg_features")
+    queries["seg_features"]["rows_in"] = len(ss["ss_item_sk"]) \
+        + len(it["i_item_sk"])
+
+    cols = list(z["FEATURES"])
+    plan = frame.lower(cfg, cols, collect_block=True).pplan.counts()
+    assert plan["rebalances"] == 1, plan
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mat, counts, cap = frame.collect_matrix(cols, cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    assert mat.is_cuda and mat.dtype == torch.float32
+    assert tuple(mat.shape) == (cap, len(cols)) and int(counts[0]) == n
+    x = mat[:n]
+    xh = x.cpu().numpy()
+    for i, c in enumerate(cols):    # the features' rows, in their order
+        assert np.array_equal(xh[:, i], feats[c].astype(np.float32)), c
+    queries["seg_matrix"] = {
+        "wall_s": round(wall, 4), "rows_out": n, "capacity": int(cap),
+        "peak_gib": round(torch.cuda.max_memory_allocated() / 2**30, 3),
+        "matrix_mb": round(mat.numel() * 4 / 1e6, 1), "plan": plan}
+    log(f"seg_matrix: {queries['seg_matrix']}")
+    if profile_dir:
+        queries["seg_matrix"]["profile"] = profile_run(
+            torch, lambda: frame.collect_matrix(cols, cfg),
+            os.path.join(profile_dir, "profile_seg_matrix.txt"))
+    del xh, mat
+
+    cents, assigns, ms = kmeans_run(torch, z, x)
+    checks.update(kmeans_check(torch, x, cents, assigns))
+    cent = cents[-1]
+    assert bool(torch.isfinite(cent).all())
+    sizes = torch.bincount(assigns[-1], minlength=SEG_CENTROIDS).tolist()
+    queries["seg_kmeans"] = {
+        "rows": n, "centroids": SEG_CENTROIDS, "iterations": SEG_ITERATIONS,
+        "ms_per_iteration_median": round(float(np.median(ms)), 4),
+        "ms_per_iteration_min": round(float(np.min(ms)), 4),
+        "ms_first_iteration": round(ms[0], 4),
+        "ms_total": round(float(np.sum(ms)), 4), "cluster_sizes": sizes,
+        "allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+    log(f"seg_kmeans: {queries['seg_kmeans']}")
+    del cents, assigns
+
+    # the free array of cluster ids flows back into a frame
+    cluster = z["kmeans_step"](x, cent)[1].to(torch.int32)
+    cl = cluster.cpu().numpy()
+    frames = seg_profile_frames(hf.table(feats, "features"), cluster)
+    head = frames["seg_head"].physical_plan(cfg).counts()
+    assert head["hash_exchanges"] == 1 and head["local_sorts"] == 1, head
+    wants = seg_profile_want(z, feats, cl)
+    for tag, f in frames.items():
+        out = run(tag, f)
+        keys = ("cluster", "ss_customer_sk") \
+            if tag in ("seg_transform", "seg_head") else ("cluster",)
+        w = wants[tag]
+        got, exp = z["sort_rows"](out, keys), z["sort_rows"](w, keys)
+        tol = {c: (1e-4, 0.0) for c in w if np.issubdtype(w[c].dtype,
+                                                          np.floating)}
+        check_equal(got, exp, tag, tol)
+        if tol:
+            checks[f"{tag}_max_rel"] = max_rel(got, exp, tol)
+        queries[tag]["rows_in"] = n
+    queries["seg_head"]["plan"] = head
+    del x, cluster, frames, wants
+    torch.cuda.empty_cache()
+    fig10(torch, hf, synth, z, queries, checks)
+
+
 # The exchange path: two ranks on the one card, joined by gloo (NCCL refuses
 # two ranks on one card; gloo stages CUDA tensors through the host, so the
 # walls are gloo's, not NCCL's).  Fig. 8a join at a quarter of the
@@ -2034,6 +2317,8 @@ def exchange_rank(rank: int, world: int, port: int, out_dir: str) -> None:
     x = synth.series(P2_SORT, seed=3)
     wcs, itx, _ = frame_tables(synth)
     cdim = category_dim()
+    z = seg_queries()
+    grp, _ = z["group_table"](P2_SORT)
 
     def as_rows(key, want):
         def check(tag, out, t):
@@ -2053,6 +2338,12 @@ def exchange_rank(rank: int, world: int, port: int, out_dir: str) -> None:
         assert np.array_equal(out["x"], xs), f"{tag}.x"
         assert np.array_equal(out["r"], rankdata(xs.astype(np.float64),
                                                  method="min")), tag
+
+    def check_groups(name):
+        def check(tag, out, t):
+            res["queries"][tag]["max_abs_diff"] = z["assert_seg_result"](
+                name, out, {"grp": grp, "ext": None}, atol=5e-2)
+        return check
 
     def check_sma(tag, out, t):
         xf = x[x > np.float32(0)]
@@ -2096,7 +2387,14 @@ def exchange_rank(rank: int, world: int, port: int, out_dir: str) -> None:
                                              hf.table(cdim, "cdim")),
                 as_rows(("i_category_name",),
                         lambda: merge_category_want(itx, cdim, synth)),
-                len(itx["i_item_sk"]) + len(FRAME_DIM_NAMES))}
+                len(itx["i_item_sk"]) + len(FRAME_DIM_NAMES)),
+            # the group-by sugar on tests/test_skew.py's shape, hot group
+            # included
+            "p2_transform_sum": (
+                lambda: z["transform_sum"](hf, {"grp": grp}),
+                check_groups("transform_sum"), P2_SORT),
+            "p2_head2": (lambda: z["head2"](hf, {"grp": grp}),
+                         check_groups("head2"), P2_SORT)}
     res = {"rank": rank, "queries": {}}
     torch.cuda.synchronize()
     cuda.reset_launches()
@@ -2113,18 +2411,21 @@ def exchange_rank(rank: int, world: int, port: int, out_dir: str) -> None:
         out = t.to_numpy()
         census = frame.physical_plan(cfg).shuffle_census(P=world)["all_to_all"]
         assert calls[0] == census, f"{tag}: {calls[0]} all_to_all, census {census}"
+        res["queries"][tag] = {}
         if rank == 0:
             check(tag, out, t)
         # every dictionary of the plan, inputs and recodings included
         dicts = sorted({dt.categories for n in ir.topo_order(frame.node)
                         for dt in n.schema.values()
                         if getattr(dt, "categories", None) is not None})
-        res["queries"][tag] = {
+        res["queries"][tag].update({
             "dictionaries": hashlib.sha256(repr(dicts).encode()).hexdigest()[:16],
             "wall_s": round(wall, 4), "rows_in": rows_in,
             "rows_out": int(len(next(iter(out.values())))),
             "rows_by_rank": t.counts.cpu().tolist(),
-            "all_to_all": calls[0], "census": census, "nshards": t.nshards}
+            "all_to_all": calls[0], "census": census, "nshards": t.nshards})
+    res["queries"]["p2_seg_matrix"] = p2_seg_matrix(
+        torch, dist, hf, cuda, z, (ss, it, n_cust), cfg, calls)
     q = res["queries"]
     assert q["p2_fig12_q26_persisted"]["all_to_all"] \
         < q["p2_fig12_q26_cold"]["all_to_all"], q
@@ -2133,6 +2434,53 @@ def exchange_rank(rank: int, world: int, port: int, out_dir: str) -> None:
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
     dist.destroy_process_group()
+
+
+def p2_seg_matrix(torch, dist, hf, cuda, z, q26: tuple, cfg,
+                  calls: list) -> dict:
+    """The segmentation program's matrix at P = world: Q26 through the UDF
+    filter, then collect_matrix.  Each rank's count is its 1D_BLOCK block
+    (ceil(n / P), the rest last), bucket_scatter moved the rows, the
+    all_to_all calls are the plan's census, and rank 0 holds the ranks'
+    rows together against the oracle's."""
+    ss, it, n_cust = q26
+    rank, world = dist.get_rank(), dist.get_world_size()
+    frame = z["q26_features"](hf, {"ss": ss, "it": it})
+    cols = list(z["FEATURES"])
+    census = frame.lower(cfg, cols, collect_block=True).pplan \
+        .shuffle_census(P=world)["all_to_all"]
+    before = dict(cuda.launches)
+    calls[0] = 0
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mat, counts, cap = frame.collect_matrix(cols, cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    scatters = cuda.launches["bucket_scatter"] \
+        - before.get("bucket_scatter", 0)
+    assert scatters > 0, f"p2_seg_matrix: no bucket_scatter in rank {rank}"
+    assert calls[0] == census, \
+        f"p2_seg_matrix: {calls[0]} all_to_all, census {census}"
+    counts = counts.tolist()
+    n = sum(counts)
+    block = -(-n // world)
+    assert counts == [min(block, max(n - r * block, 0))
+                      for r in range(world)], f"p2_seg_matrix: counts {counts}"
+    assert tuple(mat.shape) == (cap, len(cols)) and mat.is_cuda
+    parts = [None] * world
+    dist.all_gather_object(parts, mat[:counts[rank]].cpu().numpy())
+    if rank == 0:
+        want = q26_want(ss, it, n_cust)
+        got = np.concatenate(parts)
+        exp = np.stack([want[c] for c in cols], 1).astype(np.float32)
+        assert np.array_equal(got[np.lexsort(got.T[::-1])],
+                              exp[np.lexsort(exp.T[::-1])]), \
+            "p2_seg_matrix rows"
+    return {"wall_s": round(wall, 4), "rows_out": n, "rows_by_rank": counts,
+            "capacity": int(cap), "all_to_all": calls[0], "census": census,
+            "bucket_scatter": scatters, "nshards": world,
+            "rows_in": len(ss["ss_item_sk"]) + len(it["i_item_sk"])}
 
 
 def exchange_path(torch, queries: dict) -> dict:
@@ -2160,7 +2508,7 @@ def exchange_path(torch, queries: dict) -> dict:
     for tag in ranks[0]["queries"]:
         per = [r["queries"][tag] for r in ranks]
         # the same codes on every rank, so recoded keys hash alike
-        assert len({q["dictionaries"] for q in per}) == 1, (tag, per)
+        assert len({q.get("dictionaries") for q in per}) == 1, (tag, per)
         queries[tag] = {**per[0], "wall_s_by_rank": [q["wall_s"] for q in per],
                         "wall_s": max(q["wall_s"] for q in per),
                         "transport": f"gloo over tcp://localhost, {P2_WORLD} "
@@ -2385,6 +2733,10 @@ def main(argv=None) -> int:
             "frame": (lambda: frame_path(torch, hf, synth, queries,
                                          args.profile, checks),
                       dict.fromkeys(("prefix_sum", "segment_sums"))),
+            "segmentation": (lambda: segmentation_path(
+                torch, hf, synth, queries, args.profile, checks),
+                dict.fromkeys(("prefix_sum", "segment_sums",
+                               "segment_rank"))),
             # counted in its ranks (each must launch bucket_scatter) and
             # summed over them; Q26's sums are integer (no segment_sums)
             "exchange_p2": (lambda: exchange_path(torch, queries),

@@ -55,8 +55,17 @@ both sides onto the union dictionary first.
 
 ``collect`` runs on the card unless the config says ``device="cpu"``.
 Composite keys work as in the reference: ``merge(on=[("a", "ca"), "b"])``,
-``groupby(("k1", "k2"))``.  GroupBy sugar, ``hf.udf`` and external arrays
-are a later slice.
+``groupby(("k1", "k2"))``.
+
+GroupBy sugar, UDFs, free arrays and matrix assembly, as in the reference
+(the paper's customer-segmentation program is written in these):
+
+    g = df.groupby("k")
+    g.size(); g.mean(); g[["x", "y"]].sum()       # pandas sugar
+    g.transform("mean"); g.head(3)                # stats per row, first rows
+    df[hf.udf(lambda x, y: x * 2.0 + y > 0.5, df.x, df.y)]   # a torch lambda
+    df.assign(cluster=labels)                     # a free 1-D array
+    mat, counts, cap = df.collect_matrix(["x", "y"])   # float32, 1D_BLOCK
 """
 from __future__ import annotations
 
@@ -74,9 +83,10 @@ from . import physical_plan as pp
 from .dtypes import (CODE_DTYPE, NULL_CODE, DType, as_nullable, categories_of,
                      coerce_column, dict_decode, is_category, is_nullable,
                      physical_dtype, recode_map, union_categories)
-from .expr import (AGG_FNS, AggExpr, BinOp, Cast, ColRef, Const, Expr, IsIn,
-                   UnOp, all_, any_, as_expr, count, first, fn_expr, max_,
-                   mean, min_, nunique, numpy_dtype, prod, std, sum_, var)
+from .expr import (AGG_FNS, UDF, AggExpr, BinOp, Cast, ColRef, Const, Expr,
+                   IsIn, UnOp, all_, any_, as_expr, count, first, fn_expr,
+                   max_, mean, min_, nunique, numpy_dtype, prod, std, sum_,
+                   var)
 from .lower import ExecConfig, Lowered, execute, lower
 from .table import DTable
 
@@ -86,7 +96,7 @@ __all__ = [
     "nunique", "ExecConfig", "explain", "DTable", "Over", "cumsum",
     "stencil", "sma", "wma", "lag", "lead", "rolling_sum", "rolling_mean",
     "rank", "dense_rank", "row_number", "concat", "from_persisted_state",
-    "from_pandas", "DType",
+    "from_pandas", "DType", "udf",
 ]
 
 
@@ -636,9 +646,27 @@ class DataFrame:
         return self.persist(cfg, name=name)
 
     def lower(self, cfg: ExecConfig | None = None,
-              keep: Sequence[str] | None = None) -> Lowered:
+              keep: Sequence[str] | None = None,
+              collect_block: bool = False) -> Lowered:
+        """The bound plan, without running it; ``collect_block``
+        rebalances a 1D_VAR result to 1D_BLOCK."""
         return lower(self.node, cfg, set(keep) if keep else None,
-                     self._force_rep())[0]
+                     self._force_rep(), collect_block)[0]
+
+    def collect_matrix(self, cols: Sequence[str],
+                       cfg: ExecConfig | None = None):
+        """Matrix assembly (the paper's ``transpose(typed_hcat)``): the
+        columns ``cols`` as one float32 ``(rows, len(cols))`` matrix on the
+        device, rebalanced to 1D_BLOCK as array code wants it.  Returns
+        ``(mat, counts, capacity)``: at P = 1 ``mat`` holds ``capacity``
+        rows of which the first ``counts[0]`` are valid; at P > 1 each rank
+        gets its own ``(capacity, k)`` block, the counterpart of the
+        reference's row-sharded global matrix, and every rank's count."""
+        t = execute(self.node, cfg or ExecConfig(), set(cols),
+                    self._force_rep(), gather=False, collect_block=True)[1]
+        mat = torch.stack([t.columns[c].to(torch.float32) for c in cols],
+                          dim=1)
+        return mat, t.counts, t.capacity
 
     def to_numpy(self, cfg: ExecConfig | None = None, *,
                  decode: bool = True) -> dict[str, np.ndarray]:
@@ -683,17 +711,46 @@ _AGG_ALIASES = {"product": "prod", "size": "count", "average": "mean"}
 
 
 class GroupBy:
-    """Deferred group-by: ``df.groupby(keys)`` then :meth:`agg`.  Specs are
-    pandas named-agg tuples ``("x", "sum")`` (the column may be an
-    expression), AggExpr objects ``hf.sum_(df.x)``, or ``"count"``."""
+    """Deferred group-by: ``df.groupby(keys)`` then :meth:`agg` or a
+    whole-frame sugar method.  Specs are pandas named-agg tuples
+    ``("x", "sum")`` (the column may be an expression, ``(df.x > 0,
+    "sum")``), AggExpr objects ``hf.sum_(df.x)``, or ``"count"``.
 
-    def __init__(self, df: DataFrame, by):
+    Sugar, as pandas spells it: ``g["x"]`` / ``g[["x", "y"]]`` select the
+    value columns; ``size()``; ``sum``, ``mean``, ``min``, ``max``,
+    ``prod``, ``any``, ``all`` (each with ``skipna``), ``count`` and
+    ``nunique`` over every selected non-key column (the numeric-only fns
+    skip category columns); ``transform`` broadcasts group statistics back
+    onto the rows (an aggregate merged back on the keys); ``head(n)`` keeps
+    the first ``n`` rows of each group in arrival order.  Output rows come
+    back hash-partitioned on the keys and sorted by them within each rank:
+    the layout a following :meth:`DataFrame.persist` keeps."""
+
+    def __init__(self, df: DataFrame, by,
+                 select: tuple[str, ...] | None = None):
         self.df = df
         self.keys = ir.as_keys(by)
+        self._select = select
         missing = set(self.keys) - set(df.node.schema)
         if missing:
             raise KeyError(f"groupby: {sorted(missing)} not in columns "
                            f"{list(df.node.schema)}")
+
+    def __getitem__(self, cols) -> "GroupBy":
+        """Column selection, ``df.groupby("k")["x"].sum()``: a name or a
+        list of names; the sugar methods then aggregate only those."""
+        sel = (cols,) if isinstance(cols, str) else tuple(cols)
+        if not sel:
+            raise ValueError("groupby[...]: empty column selection")
+        bad = [c for c in sel if not isinstance(c, str)]
+        if bad:
+            raise TypeError(f"groupby[...]: column names must be str, "
+                            f"got {bad!r}")
+        missing = set(sel) - set(self.df.node.schema)
+        if missing:
+            raise KeyError(f"groupby[...]: {sorted(missing)} not in columns "
+                           f"{list(self.df.node.schema)}")
+        return GroupBy(self.df, self.keys, select=sel)
 
     # fns with no meaning on dictionary codes (a code sum is garbage);
     # min/max/first/count/nunique stay valid: code order is lexicographic
@@ -746,6 +803,94 @@ class GroupBy:
         node = ir.Aggregate(base.node, self.keys, specs)
         rep = base._rep_nodes | ({node.id} if base._replicated else set())
         return DataFrame(node, frozenset(rep))
+
+    aggregate = agg
+
+    def size(self, name: str = "size") -> DataFrame:
+        """Row count per group (pandas ``.size()``)."""
+        return self.agg(**{name: AggExpr("count", None)})
+
+    def _value_columns(self) -> list[str]:
+        cols = self._select if self._select is not None \
+            else self.df.node.schema
+        return [c for c in cols if c not in self.keys]
+
+    def _apply_all(self, fn: str, skipna: bool = True) -> DataFrame:
+        cols = self._value_columns()
+        if fn in self._NUMERIC_ONLY:
+            # pandas numeric_only: the sugar skips category columns (an
+            # explicit agg spec on one raises instead)
+            sch = self.df.node.schema
+            cols = [c for c in cols if not is_category(sch[c])]
+        if not cols:
+            return self.size(name="count")
+        return self.agg(**{c: AggExpr(fn, ColRef(self.df.node.id, c),
+                                      skipna=skipna) for c in cols})
+
+    def transform(self, fn: str | None = None, **aggs) -> DataFrame:
+        """Per-group statistics broadcast back onto the rows (pandas
+        ``groupby().transform``): the aggregate merged back on the keys, so
+        every row and column survives with its group's statistic beside it.
+        ``transform("mean")`` names each selected non-key column's output
+        ``<col>_mean``; ``transform(z=("x", "sum"))`` names outputs as
+        :meth:`agg` does.  Row order is the merge's, not the input's."""
+        if fn is not None:
+            if aggs:
+                raise TypeError("transform: pass a single fn OR "
+                                "name=(column, fn) specs, not both")
+            f = _AGG_ALIASES.get(fn, fn)
+            if f not in AGG_FNS:
+                raise TypeError(f"transform: unknown fn {fn!r}; valid: "
+                                f"{AGG_FNS} (+ aliases {tuple(_AGG_ALIASES)})")
+            cols = self._value_columns()
+            if not cols:
+                raise ValueError("transform: no value columns to aggregate")
+            aggs = {f"{c}_{f}": (c, f) for c in cols}
+        if not aggs:
+            raise ValueError(
+                "transform() needs a fn or at least one name=(column, fn)")
+        clash = sorted(set(aggs) & set(self.df.node.schema))
+        if clash:
+            raise ValueError(f"transform: output names {clash} collide "
+                             f"with existing columns")
+        return self.df.merge(self.agg(**aggs), on=list(self.keys))
+
+    def head(self, n: int = 5) -> DataFrame:
+        """First ``n`` rows of each group in arrival order (pandas
+        ``groupby().head``): ``row_number() <= n`` over the grouped layout,
+        so one hash exchange and one local sort in all (no exchange on a
+        frame persisted on the keys), and the filter is collective-free."""
+        if n < 0:
+            raise ValueError(f"head: n must be >= 0, got {n}")
+        w = row_number(self.df, list(self.keys), None, out="__rn__")
+        return w[w["__rn__"] <= n].drop("__rn__")
+
+    def sum(self, skipna: bool = True) -> DataFrame:
+        return self._apply_all("sum", skipna)
+
+    def mean(self, skipna: bool = True) -> DataFrame:
+        return self._apply_all("mean", skipna)
+
+    def min(self, skipna: bool = True) -> DataFrame:
+        return self._apply_all("min", skipna)
+
+    def max(self, skipna: bool = True) -> DataFrame:
+        return self._apply_all("max", skipna)
+
+    def prod(self, skipna: bool = True) -> DataFrame:
+        return self._apply_all("prod", skipna)
+
+    def any(self, skipna: bool = True) -> DataFrame:
+        return self._apply_all("any", skipna)
+
+    def all(self, skipna: bool = True) -> DataFrame:
+        return self._apply_all("all", skipna)
+
+    def count(self) -> DataFrame:
+        return self._apply_all("count")
+
+    def nunique(self) -> DataFrame:
+        return self._apply_all("nunique")
 
 
 # ---------------------------------------------------------------------------
@@ -1097,6 +1242,14 @@ class Over:
 
     def row_number(self, out: str = "row_number") -> DataFrame:
         return row_number(self.df, self.partition_by, self.order_by, out)
+
+
+def udf(fn, *args) -> UDF:
+    """Lift an elementwise torch callable into an expression: ``fn`` takes
+    the arguments' tensors (columns, expressions, constants or external
+    arrays) and returns one of their rows; it runs inside the plan exactly
+    where a built-in expression would."""
+    return fn_expr(fn, *args)
 
 
 def explain(df: DataFrame, cfg: ExecConfig | None = None) -> str:

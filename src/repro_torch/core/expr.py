@@ -7,9 +7,10 @@ with torch ops, one rank's shard at a time.
 
 Result dtypes follow the JAX reference package's promotion with 64-bit types
 off (``infer_dtype``), not numpy's or torch's, so schemas, packed words and
-byte censuses agree between the two packages.  ``UDF`` nodes carry the API
-layer's device helpers (dictionary recoding, null fills); a public ``udf``
-and external arrays are not part of this package yet.
+byte censuses agree between the two packages.  ``UDF`` nodes lift a
+torch elementwise callable (``hf.udf``, and the API layer's dictionary
+recoding and null fills); ``ExternalArray`` leaves bring a free 1-D array
+of the surrounding program into a filter, an assign or an aggregate.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from .dtypes import canonical_dtype
+from .dtypes import canonical, canonical_dtype
 
 # ---------------------------------------------------------------------------
 # Expression nodes
@@ -143,6 +144,29 @@ class Const(Expr):
         return f"const({self.value})"
 
 
+class ExternalArray(Expr):
+    """A free 1-D array (numpy or torch) used inside a relational expression.
+
+    The "tight integration with array computations" hook: an array of the
+    surrounding program appears in a filter, an assign or an aggregate as
+    if it were a column.  It aligns with the padded ``(P * capacity,)``
+    layout of the rows the holding node reads (rank r takes rows
+    ``[r * capacity, (r + 1) * capacity)``, as a scan's shards), so an array
+    of the table's rows fits a node over a scan; a shorter one pads with
+    zeros.  The executor feeds it to ``evaluate`` as ``env["ext:<tag>"]``.
+    """
+
+    def __init__(self, array: Any, tag: str | None = None):
+        self.array = array
+        self.tag = tag or f"ext{id(array)}"
+
+    def key(self):
+        return ("ext", self.tag)
+
+    def __repr__(self):
+        return f"ext({self.tag})"
+
+
 class BinOp(Expr):
     def __init__(self, op: str, a: Expr, b: Expr):
         self.op = op
@@ -235,9 +259,19 @@ def as_expr(x: Any) -> Expr:
     if isinstance(x, Expr):
         return x
     if isinstance(x, (torch.Tensor, np.ndarray)) and getattr(x, "ndim", 0) > 0:
-        raise TypeError("arrays inside expressions are not supported by "
-                        "this package yet; add the array as a column")
+        return ExternalArray(x)
     return Const(x)
+
+
+def externals(e: Expr) -> list[ExternalArray]:
+    """The ExternalArray leaves of ``e``."""
+    out, stack = [], [e]
+    while stack:
+        x = stack.pop()
+        if isinstance(x, ExternalArray):
+            out.append(x)
+        stack.extend(x.children)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -348,7 +382,9 @@ def evaluate(e: Expr, env: dict[str, torch.Tensor],
              cache: dict | None = None) -> torch.Tensor:
     """Evaluate an expression against one shard's column tensors.
 
-    ``env`` maps column names to tensors.  ``cache`` memoizes identical
+    ``env`` maps column names to tensors, and each ExternalArray's tag to
+    this shard's rows of it under ``"ext:<tag>"`` (the executor feeds
+    them, ``Lowered._env``).  ``cache`` memoizes identical
     subtrees (hash-consed common-subexpression elimination).  A bare
     constant evaluates to a 0-d tensor of its :func:`infer_dtype` type;
     constants under an operator stay Python scalars.
@@ -364,6 +400,8 @@ def evaluate(e: Expr, env: dict[str, torch.Tensor],
         dev = next(iter(env.values())).device if env else None
         out = torch.tensor(_scalar(e.value), device=dev,
                            dtype=torch_dtype(infer_dtype(e, {})))
+    elif isinstance(e, ExternalArray):
+        out = env["ext:" + e.tag]
     elif isinstance(e, BinOp):
         a = _operand(e.children[0], env, cache)
         b = _operand(e.children[1], env, cache)
@@ -483,6 +521,23 @@ def _const_dtype(v) -> np.dtype:
     return canonical_dtype(np.asarray(v).dtype)
 
 
+def ext_dtype(array) -> np.dtype:
+    """An external array's dtype as the plan sees it: 64-bit types narrow
+    to 32 bits, as at ingest and as the reference's arrays do."""
+    dt = numpy_dtype(array.dtype) if isinstance(array, torch.Tensor) \
+        else np.asarray(array).dtype
+    return canonical_dtype(dt)
+
+
+def ext_tensor(array) -> torch.Tensor:
+    """An external array as a tensor of :func:`ext_dtype`: a torch tensor
+    stays on its device, a host array becomes a CPU tensor."""
+    if not isinstance(array, torch.Tensor):
+        return torch.from_numpy(np.ascontiguousarray(
+            canonical(np.asarray(array))))
+    return array.to(torch_dtype(ext_dtype(array)))
+
+
 def infer_dtype(e: Expr, schema: dict[str, Any]) -> np.dtype:
     """Physical result dtype of ``e`` over columns typed by ``schema``.
 
@@ -494,6 +549,8 @@ def infer_dtype(e: Expr, schema: dict[str, Any]) -> np.dtype:
         return np.dtype(dt) if dt is not None else np.dtype(np.float32)
     if isinstance(e, Const):
         return _const_dtype(e.value)
+    if isinstance(e, ExternalArray):
+        return ext_dtype(e.array)
     if isinstance(e, IsIn):
         return np.dtype(bool)
     if isinstance(e, Cast):
@@ -538,7 +595,7 @@ def expr_nullable(e: Expr, schema: dict[str, Any]) -> bool:
     from .dtypes import is_nullable
     if isinstance(e, ColRef):
         return is_nullable(schema.get(e.name))
-    if isinstance(e, (Const, IsIn)):
+    if isinstance(e, (Const, ExternalArray, IsIn)):
         return False
     if isinstance(e, BinOp):
         if e.op in _BOOL_BIN:

@@ -628,6 +628,21 @@ class Rebalance(Node):
 # ---------------------------------------------------------------------------
 
 
+def node_exprs(n: Node) -> list:
+    """The expressions ``n`` evaluates over its child's rows: a filter's
+    predicate, a project's columns, a window's input, an aggregate's
+    inputs."""
+    if isinstance(n, Filter):
+        return [n.pred]
+    if isinstance(n, Project):
+        return list(n.cols.values())
+    if isinstance(n, Window):
+        return [n.expr] if n.expr is not None else []
+    if isinstance(n, Aggregate):
+        return [a.expr for a in n.aggs.values() if a.expr is not None]
+    return []
+
+
 def topo_order(root: Node) -> list[Node]:
     seen: dict[int, Node] = {}
     order: list[Node] = []

@@ -27,7 +27,7 @@ from . import ir, physical as phys
 from . import physical_plan as pp
 from ..kernels import registry as kreg
 from .dtypes import NULL_CODE, is_category, physical_dtype
-from .expr import evaluate, nulltag_for
+from .expr import evaluate, ext_tensor, externals, nulltag_for
 from .table import DTable
 
 
@@ -119,6 +119,45 @@ class Lowered:
         # per-op failure attribution: the static capacity-site table, one
         # (flag, requirement) pair per site in this order.
         self.sites = _capacity_sites(pplan)
+        # op id -> the external arrays its expressions read, and this
+        # rank's shard of each, made once per (tag, rows, REP)
+        self.exts = _op_externals(pplan)
+        self._ext_shards: dict[tuple, torch.Tensor] = {}
+
+    def _env(self, op: pp.POp, cols: dict) -> dict:
+        """The columns an op's expressions read, with this rank's rows of
+        every external array they hold under ``"ext:<tag>"``: the array
+        padded with zeros to ``P * cap`` (``cap`` the rows of the op's input
+        shard), rank r taking ``[r * cap, (r + 1) * cap)`` as a scan's
+        shards do (a REP input takes the first ``cap``).  A host array goes
+        to the device from pinned memory without blocking; a tensor on the
+        device is copied there, never through the host."""
+        tags = self.exts.get(op.op_id)
+        if not tags:
+            return cols
+        cap = next(iter(cols.values())).shape[0]
+        rep = op.dist == D.REP
+        P, rank = (1, 0) if rep else (self.P, self.rank)
+        env = dict(cols)
+        for tag, array in tags.items():
+            key = (tag, cap, rep)
+            t = self._ext_shards.get(key)
+            if t is None:
+                a = ext_tensor(array)
+                if a.dim() != 1 or a.shape[0] > P * cap:
+                    raise ValueError(
+                        f"external array {tag} of shape {tuple(a.shape)} does "
+                        f"not fit the {P} x {cap} rows it aligns with")
+                lo = min(rank * cap, a.shape[0])
+                hi = min(lo + cap, a.shape[0])
+                piece = a[lo:hi]
+                if self.device.type == "cuda" and not piece.is_cuda:
+                    piece = piece.pin_memory()
+                t = torch.zeros(cap, dtype=a.dtype, device=self.device)
+                t[: hi - lo].copy_(piece, non_blocking=True)
+                self._ext_shards[key] = t
+            env["ext:" + tag] = t
+        return env
 
     def _source(self, op: pp.Source):
         """This rank's rows of a scan and their count.
@@ -187,7 +226,8 @@ class Lowered:
             elif isinstance(op, pp.Compact):
                 cols, cnt = env[op.inputs[0]]
                 cap = next(iter(cols.values())).shape[0]
-                keep = evaluate(n.pred, cols) & phys.valid_mask(cnt, cap)
+                keep = evaluate(n.pred, self._env(op, cols)) \
+                    & phys.valid_mask(cnt, cap)
                 keep = keep.expand(cap)
                 out, cnt2, ovf = phys.compact(cols, keep, op.cap, kernels=kernels)
                 flag(ovf, keep.sum())
@@ -197,7 +237,8 @@ class Lowered:
                 cols, cnt = env[op.inputs[0]]
                 cap = next(iter(cols.values())).shape[0]
                 cache: dict = {}
-                out = {name: _full(evaluate(e, cols, cache), cap)
+                env_e = self._env(op, cols)
+                out = {name: _full(evaluate(e, env_e, cache), cap)
                        for name, e in n.cols.items()}
                 res = (out, cnt)
 
@@ -239,10 +280,11 @@ class Lowered:
             elif isinstance(op, pp.AggPrep):
                 cols, cnt = env[op.inputs[0]]
                 cache = {}
+                env_e = self._env(op, cols)
                 key0 = cols[n.key[0]]
                 out = {k: cols[k] for k in n.key}
                 for name, agg in n.aggs.items():
-                    arr = (evaluate(agg.expr, cols, cache)
+                    arr = (evaluate(agg.expr, env_e, cache)
                            if agg.expr is not None
                            else torch.zeros_like(key0, dtype=torch.int32))
                     out["__v_" + name] = _full(arr, key0.shape[0])
@@ -342,7 +384,8 @@ class Lowered:
         P = 1 if op.dist == D.REP else self.P
         method = self.cfg.exscan_method
         cap = next(iter(cols.values())).shape[0]
-        x = _full(evaluate(n.expr, cols), cap) if n.expr is not None else None
+        x = (_full(evaluate(n.expr, self._env(op, cols)), cap)
+             if n.expr is not None else None)
         tag = (nulltag_for(n.expr, n.children[0].schema)
                if n.kind == "cumsum" else None)
         if n.partition_by:
@@ -423,6 +466,31 @@ def _unsupported(op: pp.POp) -> str:
             + (f": {why}" if why else "")
             + " (the executor runs "
             + ", ".join(t.__name__ for t in _EXECUTED) + ")")
+
+
+def _op_externals(pplan: pp.PhysicalPlan) -> dict[int, dict[str, Any]]:
+    """op id -> {tag: array} of the external arrays under the expressions
+    of each op that evaluates some (filter, project, window, aggregate
+    input).  An array aligns with the rows of its node's child as they
+    stand, so an op whose input the planner moved first (the exchange and
+    sort under a partitioned window) cannot hold one."""
+    out: dict[int, dict[str, Any]] = {}
+    for op in pplan.ops:
+        n = op.node
+        if not isinstance(op, (pp.Compact, pp.Map, pp.WindowOp, pp.AggPrep)):
+            continue
+        found = {x.tag: x.array for e in ir.node_exprs(n)
+                 for x in externals(e)}
+        if not found:
+            continue
+        if pplan.ops[op.inputs[0]] is not pplan.final_op(n.children[0]):
+            raise NotImplementedError(
+                f"{type(n).__name__} holds external arrays "
+                f"{sorted(found)} but reads rows the plan moved first "
+                f"({type(pplan.ops[op.inputs[0]]).__name__}); add the array "
+                "as a column before the verb")
+        out[op.op_id] = found
+    return out
 
 
 def _host(v) -> np.ndarray:
@@ -530,10 +598,12 @@ def _restore_key_names(out: dict, key: tuple[str, ...]) -> dict:
 
 def lower(root: ir.Node, cfg: ExecConfig | None = None,
           keep: set[str] | None = None,
-          force_rep: set[int] = frozenset()) -> tuple[Lowered, dict]:
+          force_rep: set[int] = frozenset(),
+          collect_block: bool = False) -> tuple[Lowered, dict]:
     """optimize -> infer distributions -> plan physical ops (exchange/sort
     elision) -> plan capacities -> bind the executor.  ``force_rep``: node
-    ids the caller pins to REP (``DataFrame.replicate``)."""
+    ids the caller pins to REP (``DataFrame.replicate``); ``collect_block``
+    rebalances a 1D_VAR result to 1D_BLOCK (``collect_matrix``)."""
     from . import optimizer as opt
 
     cfg = cfg or ExecConfig()
@@ -542,7 +612,7 @@ def lower(root: ir.Node, cfg: ExecConfig | None = None,
         root, stats = opt.optimize(root, keep)
     info = D.infer(root, force_rep=force_rep,
                    broadcast_join=cfg.broadcast_join)
-    root = D.insert_rebalance(root, info)
+    root = D.insert_rebalance(root, info, collect_block=collect_block)
     source_rows = {n.id: pp.scan_rows(n)
                    for n in ir.topo_order(root) if isinstance(n, ir.Scan)}
     pplan = pp.plan_physical(root, info.dists, cfg)
@@ -551,18 +621,19 @@ def lower(root: ir.Node, cfg: ExecConfig | None = None,
 
 
 def execute(root: ir.Node, cfg: ExecConfig, keep: set[str] | None = None,
-            force_rep: set[int] = frozenset(),
-            gather: bool = True) -> tuple[Lowered, DTable]:
+            force_rep: set[int] = frozenset(), gather: bool = True,
+            collect_block: bool = False) -> tuple[Lowered, DTable]:
     """Lower and run, retrying on capacity overflow at most
     ``cfg.auto_retry`` times.  Each retry grows only the overflowed sites
     (``cap_overrides``): "abs" sites to their observed requirement, "double"
     sites to twice their cap.  The table comes back overflow-flagged when
     the retries run out; ``events`` on it lists what the loop did.
-    ``gather=False`` returns this rank's own shard (``Lowered.__call__``)."""
+    ``gather=False`` returns this rank's own shard (``Lowered.__call__``);
+    ``collect_block`` is :func:`lower`'s."""
     events: list[str] = []
     attempt = 0
     while True:
-        lowered, _ = lower(root, cfg, keep, force_rep)
+        lowered, _ = lower(root, cfg, keep, force_rep, collect_block)
         t = lowered(gather)
         if not t.overflow or attempt >= max(cfg.auto_retry, 0):
             if t.overflow:

@@ -27,7 +27,14 @@ already provided by upstream data placement.
 from __future__ import annotations
 
 from . import ir
-from .expr import BinOp, ColRef, Expr
+from .expr import BinOp, ColRef, Expr, externals
+
+
+def _holds_external(n: ir.Node) -> bool:
+    """Whether ``n``'s expressions read an ExternalArray: such a node is
+    aligned with the rows its child gives it, so no rewrite moves it or
+    slides a filter beneath it."""
+    return any(externals(e) for e in ir.node_exprs(n))
 
 
 def _consumers(root: ir.Node) -> dict[int, int]:
@@ -100,6 +107,9 @@ def _try_push_filter(f: ir.Filter, fanout: dict[int, int]) -> ir.Node | None:
     # the other consumer would observe the filtered rows).
     if fanout.get(child.id, 0) > 1:
         return None
+    # a predicate over an external array holds to the rows it reads now
+    if _holds_external(f):
+        return None
     names = {n for (_tid, n) in f.pred.columns()}
 
     if isinstance(child, ir.Filter):
@@ -107,6 +117,8 @@ def _try_push_filter(f: ir.Filter, fanout: dict[int, int]) -> ir.Node | None:
         return fused
 
     if isinstance(child, ir.Project):
+        if _holds_external(child):
+            return None
         # push only if every referenced output column is a pure rename
         mapping: dict[str, str] = {}
         for n in names:
@@ -251,6 +263,11 @@ def prune_columns(root: ir.Node, keep: set[str] | None = None) -> tuple[ir.Node,
         need = req.get(n.id, set(n.schema))
         if isinstance(n, ir.Scan):
             live = {k: v for k, v in n.columns.items() if k in need}
+            if not live and n.columns:
+                # a plan that reads only free arrays over these rows still
+                # needs their count: keep one column
+                k = next(iter(n.columns))
+                live = {k: n.columns[k]}
             if len(live) < len(n.columns):
                 pruned += len(n.columns) - len(live)
                 # persisted layouts survive pruning restricted to the live
@@ -327,7 +344,7 @@ def drop_redundant_sorts(root: ir.Node) -> tuple[ir.Node, int]:
                 dropped += 1
         elif isinstance(out, ir.Aggregate):
             c = out.child
-            if (isinstance(c, ir.Sort)
+            if (isinstance(c, ir.Sort) and not _holds_external(out)
                     and not any(a.fn == "first" for a in out.aggs.values())):
                 out = out.with_children((c.child,))
                 dropped += 1

@@ -735,3 +735,131 @@ def test_frame_recode_lut_on_card_strided_and_without_sync(card):
     assert all(o.device == c.device and o.dtype == torch.int32 for o in outs)
     assert [o.tolist() for o in (recode(host[::2]), fill(host[::2]))] \
         == want[1:3]
+
+
+# the segmentation path's queries (SEG_SRC): UDFs, free arrays, group-by
+# sugar, transform and head, at sizes that fill several of the kernels' tiles
+SEG_SIZES = dict(n_sales=200_000, n_items=5000, n_cust=20_000, n_rows=60_000)
+
+
+def _seg_queries():
+    from torch_segmentation_queries import SEG_SRC
+    z: dict = {}
+    exec(SEG_SRC, z)
+    return z
+
+
+SEG_NAMES = ("q26_features", "transform_mean", "transform_sum",
+             "transform_named", "head2", "sugar_mean", "sugar_size",
+             "ext_filter", "ext_assign_agg", "ext_agg")
+
+
+def _same_rows(got, want, keys, tag):
+    """The same columns and dtypes; rows ordered by ``keys``, ints exact,
+    floats within rtol 1e-5, atol 1e-3 (sums of ~25000 N(0, 1) values,
+    |s| ~ 160, added in another order)."""
+    assert sorted(got) == sorted(want), tag
+    order = [np.lexsort([d[k] for k in reversed(keys)]) for d in (got, want)]
+    for k in want:
+        g, w = got[k][order[0]], want[k][order[1]]
+        assert g.dtype == w.dtype and g.shape == w.shape, (tag, k)
+        if np.issubdtype(w.dtype, np.floating):
+            np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-3,
+                                       err_msg=tag + k)
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=tag + k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SEG_NAMES)
+def test_segmentation_query_on_card_matches_cpu(card, name):
+    """Each segmentation query through hf on the card and on the CPU: the
+    same rows and dtypes; the card's rows equal the numpy oracle's."""
+    from repro_torch import hiframes as hf
+    z = _seg_queries()
+    assert name in z["SEG_QUERIES"]
+    d = z["seg_data"](**SEG_SIZES)
+    build = z["SEG_QUERIES"][name]
+    t = build(hf, d).collect(hf.ExecConfig())
+    assert not t.overflow
+    got = t.to_numpy()
+    want = build(hf, d).collect(hf.ExecConfig(device="cpu")).to_numpy()
+    _same_rows(got, want, z["SEG_KEYS"][name], name)
+    z["assert_seg_result"](name, got, d, atol=1e-2)
+
+
+@pytest.mark.cuda
+def test_segmentation_path_on_card_launches_its_kernels(card):
+    """The UDF filter and the collect-block rebalance compact through
+    prefix_sum, the float means reduce through segment_sums, head numbers
+    rows through segment_rank."""
+    from repro_torch import hiframes as hf
+    from repro_torch.kernels import cuda
+    z = _seg_queries()
+    d = z["seg_data"](**SEG_SIZES)
+    before = dict(cuda.launches)
+    z["q26_features"](hf, d).collect_matrix(list(z["FEATURES"]),
+                                            hf.ExecConfig())
+    for name in ("transform_mean", "head2"):
+        z["SEG_QUERIES"][name](hf, d).collect(hf.ExecConfig())
+    torch.cuda.synchronize()
+    for k in ("prefix_sum", "segment_sums", "segment_rank"):
+        assert cuda.launches[k] > before.get(k, 0), k
+
+
+@pytest.mark.cuda
+def test_segmentation_matrix_and_kmeans_on_card_match_cpu(card):
+    """collect_matrix on the card holds the CPU's valid rows bitwise; each
+    K-means step on the card from the CPU's centroids gives the same
+    assignment and centroids within rtol 1e-5 (TF32 off)."""
+    from repro_torch import hiframes as hf
+    z = _seg_queries()
+    d = z["seg_data"](**SEG_SIZES)
+    feats = list(z["FEATURES"])
+    frame = z["q26_features"](hf, d)
+    mg, cg, capg = frame.collect_matrix(feats, hf.ExecConfig())
+    mc, cc, capc = frame.collect_matrix(feats, hf.ExecConfig(device="cpu"))
+    assert mg.is_cuda and mg.dtype == torch.float32
+    assert cg.tolist() == cc.tolist() and capg == capc
+    n = int(cc[0])
+    assert torch.equal(mg[:n].cpu(), mc[:n])
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        xg, xc = mg[:n], mc[:n]
+        cent = xc[:8].clone()
+        for _ in range(5):
+            ng, ag = z["kmeans_step"](xg, cent.to(card))
+            nc, ac = z["kmeans_step"](xc, cent)
+            assert torch.equal(ag.cpu(), ac)
+            np.testing.assert_allclose(ng.cpu().numpy(), nc.numpy(),
+                                       rtol=1e-5, atol=1e-6)
+            cent = nc
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+
+
+@pytest.mark.cuda
+def test_segmentation_free_arrays_on_card(card):
+    """A free array on the card and the same array on the host give the
+    same rows; a UDF closing over a card tensor types as float32 (its
+    probe on CPU tensors fails, as the reference's trace would) and its
+    column still holds the right values."""
+    from repro_torch import hiframes as hf
+    z = _seg_queries()
+    d = z["seg_data"](**SEG_SIZES)
+    t, ext = d["grp"], d["ext"]
+    df = hf.table(t, "grp")
+    host = df[df.x > ext].collect(hf.ExecConfig()).to_numpy()
+    dev = df[df.x > torch.from_numpy(ext).to(card)].collect(
+        hf.ExecConfig()).to_numpy()
+    for k in host:
+        np.testing.assert_array_equal(host[k], dev[k])
+    np.testing.assert_array_equal(np.sort(host["x"]),
+                                  np.sort(t["x"][t["x"] > ext]))
+    lut = torch.arange(100, 109, dtype=torch.int32, device=card)
+    f = df.assign(z=hf.udf(lambda g: torch.take(lut, g.long()), df.g))
+    assert f.schema["z"] == np.dtype(np.float32)
+    out = f.collect(hf.ExecConfig()).to_numpy()
+    np.testing.assert_array_equal(out["z"].astype(np.int64),
+                                  100 + out["g"].astype(np.int64))

@@ -11,9 +11,12 @@ window queries of tests/test_torch_window.py (the global ones with both
 exclusive-scan methods), the sort, limit, rebalance, concat and persist
 queries of tests/test_torch_sort.py, the frame path's queries of
 tests/torch_frame_queries.py (string predicates, the null and column verbs,
-recoding concat and category-key merge), and direct checks of the halo
-exchange, the global rank, the sample sort (an empty rank, composite keys,
-descending), the rebalance and the limit across the two ranks.
+recoding concat and category-key merge), the segmentation queries of
+tests/torch_segmentation_queries.py (transform, head, the group-by sugar
+and free arrays in a filter, an assign and an aggregate), matrix assembly
+in 1D_BLOCK blocks, and direct checks of the halo exchange, the global
+rank, the sample sort (an empty rank, composite keys, descending), the
+rebalance and the limit across the two ranks.
 """
 import json
 import os
@@ -34,6 +37,7 @@ from repro_torch.core import dtypes as tdt  # noqa: E402
 from test_torch_sort import (S, SDATA, SORT_SRC,  # noqa: E402
                              assert_sort_result)
 from torch_frame_queries import FRAME_SRC  # noqa: E402
+from torch_segmentation_queries import SEG_SRC  # noqa: E402
 from test_torch_window import (W, WDATA, WINDOW_SRC,  # noqa: E402
                                assert_same_row_set, window_oracle)
 
@@ -115,6 +119,9 @@ NAMES = list(Q["QUERIES"])
 FQ: dict = {}
 exec(FRAME_SRC, FQ)
 FDATA = FQ["frame_data"]()
+Z: dict = {}
+exec(SEG_SRC, Z)
+ZDATA = Z["seg_data"]()
 
 
 def _oracle(name, d):
@@ -305,7 +312,7 @@ def main(rank, world, port, out):
         return a2a(*a, **k)
     dist.all_to_all_single = counted
     d, wd, sd = Q["data"](), W["window_data"](), S["sort_data"]()
-    fd = F["frame_data"]()
+    fd, zd = F["frame_data"](), Z["seg_data"]()
     cfg = hf.ExecConfig(device="cpu")
     ladder = hf.ExecConfig(device="cpu", exscan_method="ladder")
     runs = [(name, build, d, cfg) for name, build in Q["QUERIES"].items()]
@@ -317,6 +324,8 @@ def main(rank, world, port, out):
              for name, build in S["SORT_QUERIES"].items()]
     runs += [(name, build, fd, cfg)
              for name, build in F["FRAME_QUERIES"].items()]
+    runs += [(name, build, zd, cfg)
+             for name, build in Z["SEG_QUERIES"].items()]
     res = {}
     for name, build, data, c in runs:
         frame = build(hf, data)
@@ -328,10 +337,22 @@ def main(rank, world, port, out):
                      "nshards": t.nshards,
                      "census": frame.physical_plan(c).shuffle_census(P=world)["all_to_all"]}
     res["__direct__"] = direct_checks(rank, world)
+    res["__seg_matrix__"] = seg_matrix(hf, zd, cfg)
     if rank == 0:
         with open(out, "w") as f:
             json.dump(res, f)
     dist.destroy_process_group()
+
+
+def seg_matrix(hf, zd, cfg):
+    """collect_matrix at P = world: each rank's (capacity, k) block, every
+    rank's count, and the valid rows of every block."""
+    mat, counts, cap = Z["q26_features"](hf, zd).collect_matrix(
+        list(Z["FEATURES"]), cfg)
+    rows = [None] * dist.get_world_size()
+    dist.all_gather_object(rows, mat[:int(counts[dist.get_rank()])].tolist())
+    return {"counts": counts.tolist(), "cap": cap, "shape": list(mat.shape),
+            "rows": rows}
 
 
 def gather_list(t):
@@ -411,6 +432,7 @@ def test_two_gloo_ranks(tmp_path):
                       + "W = {}\nexec(" + repr(WINDOW_SRC) + ", W)\n"
                       + "S = {}\nexec(" + repr(SORT_SRC) + ", S)\n"
                       + "F = {}\nexec(" + repr(FRAME_SRC) + ", F)\n"
+                      + "Z = {}\nexec(" + repr(SEG_SRC) + ", Z)\n"
                       + textwrap.dedent(RANK_SCRIPT))
     out = tmp_path / "res.json"
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
@@ -428,9 +450,11 @@ def test_two_gloo_ranks(tmp_path):
              for name in S["SORT_QUERIES"]]
     runs += [(name, FQ["FRAME_QUERIES"][name], FDATA)
              for name in FQ["FRAME_QUERIES"]]
+    runs += [(name, Z["SEG_QUERIES"][name], ZDATA)
+             for name in Z["SEG_QUERIES"]]
     assert len(runs) == len(NAMES) + len(W["WINDOW_QUERIES"]) \
         + len(W["GLOBAL_WINDOWS"]) + len(S["SORT_QUERIES"]) \
-        + len(FQ["FRAME_QUERIES"])
+        + len(FQ["FRAME_QUERIES"]) + len(Z["SEG_QUERIES"])
     for name, build, data in runs:
         r = res[name]
         assert r["nshards"] == 2 and not r["overflow"], name
@@ -448,6 +472,8 @@ def test_two_gloo_ranks(tmp_path):
                 if tdt.is_category(dt):
                     got[c] = tdt.dict_decode(got[c], tdt.categories_of(dt))
             FQ["assert_frame_result"](name, got, FDATA)
+        elif data is ZDATA:
+            Z["assert_seg_result"](name, got, ZDATA)
         else:
             assert_same_row_set(got, window_oracle(base, WDATA))
         census = build(rhf, data).physical_plan() \
@@ -456,6 +482,17 @@ def test_two_gloo_ranks(tmp_path):
     # the persisted dimension's Q26 leg issues fewer all_to_all than the
     # cold leg
     assert res["q26_persisted"]["all_to_all"] < res["q26_cold"]["all_to_all"]
+    # collect_matrix: 1D_BLOCK blocks of ceil(n / 2) and the rest, whose
+    # rows together are the features' rows
+    m = res["__seg_matrix__"]
+    want = Z["q26_want"](ZDATA["ss"], ZDATA["it"])
+    n = len(want["ss_customer_sk"])
+    assert m["counts"] == [-(-n // 2), n - -(-n // 2)], m["counts"]
+    assert m["shape"] == [m["cap"], len(Z["FEATURES"])]
+    got = np.asarray(m["rows"][0] + m["rows"][1], dtype=np.float32)
+    feats = np.stack([want[c] for c in Z["FEATURES"]], 1).astype(np.float32)
+    np.testing.assert_array_equal(got[np.lexsort(got.T[::-1])],
+                                  feats[np.lexsort(feats.T[::-1])])
     direct = res["__direct__"]
     # rank 0 holds 0..4 valid of 8 rows, rank 1 holds 100..106: the left
     # halo of rank 1 is rank 0's valid tail, the right halo of rank 0 is

@@ -1,6 +1,7 @@
 """The port stands alone: ``repro_torch`` (its LM serving path too),
-``chip_smoke.py``, the card-side scripts under ``tools/`` and the card tests
-(tests/test_torch_cuda.py), all run on the card's machine, import neither
+``chip_smoke.py``, the card-side scripts under ``tools/``, the card tests
+(tests/test_torch_cuda.py) and the query modules they and chip_smoke.py
+read (tests/torch_*_queries.py), all run on the card's machine, import neither
 JAX (nor ``ml_dtypes``) nor anything of the reference package ``repro``."""
 import ast
 import os
@@ -19,7 +20,13 @@ BLOCKED = ("jax", "jaxlib", "ml_dtypes", "repro")
 
 def _imported_modules(path):
     tree = ast.parse(open(path).read(), path)
-    for node in ast.walk(tree):
+    # query sources kept as strings (FRAME_SRC, SEG_SRC) are code too
+    trees = [tree] + [
+        ast.parse(n.value.value, path) for n in tree.body
+        if isinstance(n, ast.Assign) and isinstance(n.value, ast.Constant)
+        and isinstance(n.value.value, str)
+        and any(getattr(t, "id", "").endswith("_SRC") for t in n.targets)]
+    for node in (x for t in trees for x in ast.walk(t)):
         if isinstance(node, ast.Import):
             for a in node.names:
                 yield a.name
@@ -37,7 +44,9 @@ def _sources():
     for f in sorted(os.listdir(tools)):
         if f.endswith(".py"):
             yield os.path.join(tools, f)
-    yield os.path.join(ROOT, "tests", "test_torch_cuda.py")
+    for f in ("test_torch_cuda.py", "torch_frame_queries.py",
+              "torch_segmentation_queries.py"):
+        yield os.path.join(ROOT, "tests", f)
 
 
 @pytest.mark.parametrize("path", sorted(_sources()),

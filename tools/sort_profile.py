@@ -1,13 +1,15 @@
-"""Where the time of the sort and frame paths' queries goes, one fresh
-process each:
+"""Where the time of the sort, frame and segmentation paths' queries goes,
+one fresh process each:
 
     python tools/sort_profile.py [--out DIR] [QUERY ...]
     python tools/sort_profile.py q05_string q09_channel frame_verbs ...
+    python tools/sort_profile.py seg_features seg_matrix seg_transform ...
 
 For each query (default: all of ``QUERIES``, the sort path's; the frame
-path's are ``FRAME_QUERIES``) a new process builds the query's inputs as
-``chip_smoke.py`` does (2^27 rows; the frame path's at scale 64, their
-dictionary encoding before the run), runs it
+path's are ``FRAME_QUERIES``, the segmentation path's ``SEG_QUERIES``) a
+new process builds the query's inputs as ``chip_smoke.py`` does (2^27 rows;
+the frame path's at scale 64, their dictionary encoding before the run; the
+cluster profile's after the program's Q26 stage, matrix and K-means), runs it
 once through ``hf`` on the card, then once more under torch.profiler
 (``chip_smoke.profile_run``: the first profiler session of the process,
 before the profiler starts losing device events), and prints one JSON line:
@@ -34,7 +36,47 @@ QUERIES = ("sort_fig8a", "global_rank", "rank_only", "fig14_pipeline",
            "sma_after_filter", "concat_aggregate")
 FRAME_QUERIES = ("q05_string", "q09_channel", "frame_verbs", "null_rows",
                  "concat_channels", "merge_category_keys")
+SEG_QUERIES = ("seg_features", "seg_matrix", "seg_profile_size",
+               "seg_profile_mean", "seg_profile_sum", "seg_transform",
+               "seg_head", "fig10_builtin", "fig10_udf")
 N = 2**27
+
+
+class _Matrix:
+    """``collect_matrix`` of a frame behind ``collect(cfg)``."""
+
+    def __init__(self, frame, cols):
+        self.frame, self.cols = frame, cols
+
+    def collect(self, cfg):
+        return self.frame.collect_matrix(self.cols, cfg)
+
+
+def seg_frame(hf, synth, name: str):
+    """The segmentation path's query ``name`` over its inputs, as
+    chip_smoke.py builds them: the cluster profile's frames after the Q26
+    stage, the matrix and 20 K-means iterations."""
+    import torch
+    z = chip_smoke.seg_queries()
+    if name.startswith("fig10"):
+        df = hf.table(synth.relational_tables(chip_smoke.FIG10_ROWS, 100,
+                                              seed=4))
+        return z[name](hf, df)
+    ss, it, _ = chip_smoke.q26_tables(synth)
+    frame = z["q26_features"](hf, {"ss": ss, "it": it})
+    cols = list(z["FEATURES"])
+    if name == "seg_features":
+        return frame
+    if name == "seg_matrix":
+        return _Matrix(frame, cols)
+    cfg = hf.ExecConfig()
+    feats = frame.to_numpy(cfg)
+    mat, counts, _ = frame.collect_matrix(cols, cfg)
+    x = mat[:int(counts[0])]
+    cent = chip_smoke.kmeans_run(torch, z, x)[0][-1]
+    cluster = z["kmeans_step"](x, cent)[1].to(torch.int32)
+    return chip_smoke.seg_profile_frames(hf.table(feats, "features"),
+                                         cluster)[name]
 
 
 def frame_path_frame(hf, synth, name: str):
@@ -59,7 +101,8 @@ def frame_path_frame(hf, synth, name: str):
         return chip_smoke.frame_verbs_frame(ss)
     if name == "null_rows":
         return chip_smoke.null_rows_frame(ss)
-    raise ValueError(f"unknown query {name!r}; known: {QUERIES + FRAME_QUERIES}")
+    raise ValueError(f"unknown query {name!r}; known: "
+                     f"{QUERIES + FRAME_QUERIES + SEG_QUERIES}")
 
 
 def frame(hf, synth, name: str):
@@ -67,6 +110,8 @@ def frame(hf, synth, name: str):
     chip_smoke.py builds them."""
     if name in FRAME_QUERIES:
         return frame_path_frame(hf, synth, name)
+    if name in SEG_QUERIES:
+        return seg_frame(hf, synth, name)
     if name == "sort_fig8a":
         return hf.table(synth.relational_tables(N, 1000, seed=0)).sort_values("x")
     if name in ("global_rank", "rank_only"):
@@ -80,7 +125,8 @@ def frame(hf, synth, name: str):
     if name == "concat_aggregate":
         return chip_smoke.concat_aggregate_frame(
             hf, synth.relational_tables(N, 4096, seed=2))
-    raise ValueError(f"unknown query {name!r}; known: {QUERIES + FRAME_QUERIES}")
+    raise ValueError(f"unknown query {name!r}; known: "
+                     f"{QUERIES + FRAME_QUERIES + SEG_QUERIES}")
 
 
 def profile_one(name: str, out: str) -> dict:
