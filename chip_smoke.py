@@ -36,7 +36,7 @@ Phases, in order; any failure raises and the exit code is not 0:
    (0 ulps) in every mode, also around their 4096-output tile, on ragged
    ends, on views not 16-byte aligned and past the 1024 taps staged at
    once.
-3. The seven main paths, each with the launch counters zeroed just before
+3. The eight main paths, each with the launch counters zeroed just before
    it and read just after:
    - relational, through ``hf`` at P = 1: Fig. 8a filter, join and
      aggregate and TPCx-BB Q26 / Q26-multikey against numpy oracles;
@@ -79,6 +79,19 @@ Phases, in order; any failure raises and the exit code is not 0:
      Fig. 10's built-in and UDF filters over 2^27 rows with the same plan
      and rows, their walls, overhead and aten op histograms; prefix_sum,
      segment_sums and segment_rank must have launched;
+   - guardrails, through ``hf`` at P = 1: Fig. 8a's join shape (2^26 probe
+     rows, 35 % on key 3, as tests/test_skew.py's, against a 2^22-row
+     dimension) under adaptive statistics, planned with 2 SaltOps and a
+     salted MergeJoin, beside the same join unsalted (rows exact, on the
+     card; the salting's build side launches prefix_sum); 2^27 Zipf(1.5)
+     keys summed and counted under adaptive capacities (no overflow on the
+     first run, the second sized from the realized group count) beside
+     safe capacities, with their peak memory; Fig. 8a's aggregate and Q26
+     with and without ``validate`` (no invariant failure, the same rows,
+     both walls); Fig. 8a's aggregate healed after a forced overflow (one
+     retry, rendered by explain()) and after a packed-exchange corruption
+     (degraded to the unpacked exchange), and a kernel fault that raises
+     KernelBackendError; prefix_sum and segment_sums must have launched;
    - exchange_p2, two ranks on the one card joined by gloo (NCCL refuses
      two ranks on one card; gloo stages CUDA tensors through the host):
      Fig. 8a join at 2^24 x 2^20 rows, Q26, a sort of Fig. 8a's table and
@@ -88,7 +101,10 @@ Phases, in order; any failure raises and the exit code is not 0:
      itself, the dictionaries equal on both), ``transform("sum")`` and
      ``head(2)`` over 2^24 rows in 9 groups (a third in one), and the
      segmentation program's ``collect_matrix`` (each rank's count its
-     1D_BLOCK block, bucket_scatter launched in each), through ``hf`` at
+     1D_BLOCK block, bucket_scatter launched in each), the guardrails' skew
+     join at 2^22 x 2^20 salted and unsalted (the salted per-rank max/mean
+     lower, as many all_to_all), and Fig. 8a's aggregate at 2^24 rows
+     healed after a forced overflow and a corruption, through ``hf`` at
      P = 2,
      rows against numpy
      oracles, all_to_all calls against the plan's shuffle census (the
@@ -1362,18 +1378,8 @@ def main_path(torch, hf, synth, queries: dict, profile_dir: str | None = None,
     # Fig. 8a aggregate (bench_relational.py:64): sum(x), mean(y) by id
     t = synth.relational_tables(n8a, 4096, seed=2)
     df = hf.table(t)
-    out = run("fig8a_aggregate",
-              hf.aggregate(df, "id", s=hf.sum_(df["x"]), m=hf.mean(df["y"])))
-    cnt = np.bincount(t["id"], minlength=4096)
-    keys = np.flatnonzero(cnt).astype(np.int32)
-    sx = np.bincount(t["id"], weights=t["x"].astype(np.float64), minlength=4096)
-    sy = np.bincount(t["id"], weights=t["y"].astype(np.float64), minlength=4096)
-    # float32 sums of ~32768 N(0,1) values (|s| ~ 180) against a float64
-    # oracle; their means (|m| ~ 0.005) are held 10x tighter than the
-    # change one missing row would make (~3e-5)
-    check_equal(out, {"id": keys, "s": sx[keys].astype(np.float32),
-                      "m": (sy[keys] / cnt[keys]).astype(np.float32)},
-                "aggregate", float_tol={"s": (1e-4, 1e-2), "m": (1e-4, 1e-6)})
+    out = run("fig8a_aggregate", agg8a_frame(hf, df))
+    check_equal(out, agg8a_want(t), "aggregate", float_tol=AGG8A_TOL)
     # segment_sums folds its tiles in order, so the bits are the same in
     # every run
     checks["fig8a_aggregate_digest"] = digest(np.concatenate([out["s"],
@@ -1406,6 +1412,29 @@ def main_path(torch, hf, synth, queries: dict, profile_dir: str | None = None,
     # ~20 gamma(2, 30) values per key: float32 sums within 1e-4 relative
     check_equal(out, want, "q26_multikey", float_tol={"paid": (1e-4, 1e-2)})
     queries["fig11_q26_multikey"]["rows_in"] = len(key) + len(dim["i_item_sk"])
+
+
+def agg8a_frame(hf, df):
+    """Fig. 8a's aggregate (bench_relational.py:64): sum(x), mean(y) by id."""
+    return hf.aggregate(df, "id", s=hf.sum_(df["x"]), m=hf.mean(df["y"]))
+
+
+# float32 sums of ~32768 N(0,1) values (|s| ~ 180) against a float64
+# oracle; their means (|m| ~ 0.005) are held 10x tighter than the change
+# one missing row would make (~3e-5)
+AGG8A_TOL = {"s": (1e-4, 1e-2), "m": (1e-4, 1e-6)}
+
+
+def agg8a_want(t: dict, n_keys: int = 4096) -> dict:
+    """Fig. 8a aggregate's rows from numpy bincounts, in key order."""
+    cnt = np.bincount(t["id"], minlength=n_keys)
+    keys = np.flatnonzero(cnt).astype(np.int32)
+    sx = np.bincount(t["id"], weights=t["x"].astype(np.float64),
+                     minlength=n_keys)
+    sy = np.bincount(t["id"], weights=t["y"].astype(np.float64),
+                     minlength=n_keys)
+    return {"id": keys, "s": sx[keys].astype(np.float32),
+            "m": (sy[keys] / cnt[keys]).astype(np.float32)}
 
 
 def check_close(tag, got, want, rtol, atol) -> float:
@@ -2274,6 +2303,246 @@ def segmentation_path(torch, hf, synth, queries: dict,
     fig10(torch, hf, synth, z, queries, checks)
 
 
+# ---------------------------------------------------------------------------
+# the guardrails path: adaptive statistics, salted skew joins, validate,
+# fault injection and the retry policy
+# ---------------------------------------------------------------------------
+
+# Fig. 8a join's shape (bench_relational.py:43) with tests/test_skew.py's
+# skew: SKEW_HOT of the probe rows on key 3
+SKEW_JOIN = (2**26, 2**22)
+SKEW_HOT = 0.35
+ZIPF_ROWS = 2**27
+FIG8A_ROWS = 2**27
+
+
+def skew_tables(n_probe: int, n_dim: int, seed: int = 7):
+    """tests/test_skew.py::_skewed raised: a probe (k int32, v float32)
+    with SKEW_HOT of its rows on key 3 and the rest uniform over the
+    dimension's keys, and a dimension (k an arange, w float32) covering
+    every key."""
+    rng = np.random.default_rng(seed)
+    k = rng.integers(0, n_dim, n_probe).astype(np.int32)
+    k[: int(SKEW_HOT * n_probe)] = 3
+    rng.shuffle(k)
+    probe = {"k": k, "v": rng.normal(size=n_probe).astype(np.float32)}
+    dim = {"k": np.arange(n_dim, dtype=np.int32),
+           "w": rng.normal(size=n_dim).astype(np.float32)}
+    return probe, dim
+
+
+def skew_join_frame(hf, probe, dim):
+    return hf.table(probe, "probe").merge(hf.table(dim, "dim"), on="k")
+
+
+def pair_keys(xp, k, v):
+    """Each row's (k, bits of v) as one 64-bit word: the sorted words of
+    two row sets are equal iff the row multisets are (numpy or torch)."""
+    if xp is np:
+        return (k.astype(np.int64) << 32) | (v.view(np.uint32)
+                                             .astype(np.int64))
+    return (k.to(xp.int64) << 32) | (v.view(xp.int32).to(xp.int64)
+                                     & 0xFFFFFFFF)
+
+
+def check_skew_join(out: dict, probe: dict, dim: dict, tag: str) -> None:
+    """Every probe row once, each with its dimension row's w (numpy)."""
+    assert len(out["k"]) == len(probe["k"]), (tag, len(out["k"]))
+    assert np.array_equal(out["w"], dim["w"][out["k"]]), f"{tag}.w"
+    assert np.array_equal(np.sort(pair_keys(np, out["k"], out["v"])),
+                          np.sort(pair_keys(np, probe["k"], probe["v"]))), \
+        f"{tag}: (k, v) rows"
+
+
+def timed_collect(torch, frame, cfg):
+    """collect() on the card: (table, wall seconds, peak GiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    t = frame.collect(cfg)
+    torch.cuda.synchronize()
+    return (t, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def occupancy(counts) -> float:
+    """max / mean of the per-rank row counts."""
+    c = np.asarray(counts, dtype=np.float64)
+    return float(c.max() / c.mean()) if c.sum() else 0.0
+
+
+def guardrails_path(torch, hf, synth, queries: dict, checks: dict):
+    """Adaptive statistics, salting and the execution guardrails through
+    ``hf`` at P = 1 on the card: a salted skew join beside the same join
+    unsalted, a Zipf aggregate sized by adaptive caps (first run sampled,
+    second realized) beside safe capacities, Fig. 8a's aggregate and Q26
+    with and without validate, and Fig. 8a's aggregate under a forced
+    overflow, a packed-exchange corruption and a kernel fault."""
+    from repro_torch.core.errors import KernelBackendError
+    from repro_torch.kernels import cuda
+    from repro_torch.runtime import FaultPlan
+
+    dev = torch.device("cuda")
+
+    # -- skew_join: 2 SaltOps and a salted MergeJoin, rows exact ----------
+    probe, dim = skew_tables(*SKEW_JOIN)
+    frame = skew_join_frame(hf, probe, dim)
+    cfgs = {"skew_join_salted": hf.ExecConfig(adaptive_stats=True),
+            "skew_join_unsalted": hf.ExecConfig()}
+    # unsalted, salted, salted, unsalted: the best wall of two each, the
+    # rows held on each one's first run
+    for tag in ("skew_join_unsalted", "skew_join_salted",
+                "skew_join_salted", "skew_join_unsalted"):
+        cfg = cfgs[tag]
+        before = cuda.launches["prefix_sum"]
+        t, wall, peak = timed_collect(torch, frame, cfg)
+        assert not t.overflow and t.events == (), (tag, t.overflow_ops)
+        n = int(t.counts.sum())
+        assert n == SKEW_JOIN[0], (tag, n)
+        if tag in queries:
+            queries[tag]["wall_s"] = round(min(wall, queries[tag]["wall_s"]),
+                                           4)
+            queries[tag]["walls_s"].append(round(wall, 4))
+            continue
+        k, v, w = (t.columns[c][:n] for c in ("k", "v", "w"))
+        assert torch.equal(w, torch.from_numpy(dim["w"]).to(dev)[k.long()]), \
+            f"{tag}.w"
+        pk = torch.from_numpy(probe["k"]).to(dev)
+        pv = torch.from_numpy(probe["v"]).to(dev)
+        assert torch.equal(torch.sort(pair_keys(torch, k, v)).values,
+                           torch.sort(pair_keys(torch, pk, pv)).values), \
+            f"{tag}: (k, v) rows"
+        del k, v, w, pk, pv, t
+        plan = frame.physical_plan(cfg)
+        mj = [op for op in plan.ops if type(op).__name__ == "MergeJoin"]
+        queries[tag] = {"wall_s": round(wall, 4), "walls_s": [round(wall, 4)],
+                        "peak_gib": round(peak, 3),
+                        "rows_in": sum(SKEW_JOIN), "rows_out": n,
+                        "prefix_sum_launches":
+                            cuda.launches["prefix_sum"] - before,
+                        "plan": plan.counts(), "salted": mj[0].salted}
+    sq, uq = queries["skew_join_salted"], queries["skew_join_unsalted"]
+    log(f"skew_join_salted: {sq}")
+    log(f"skew_join_unsalted: {uq}")
+    assert sq["plan"]["salt_ops"] == 2 and sq["salted"], sq
+    assert uq["plan"]["salt_ops"] == 0 and not uq["salted"], uq
+    # the build side's replication compacts through prefix_sum
+    assert sq["prefix_sum_launches"] > uq["prefix_sum_launches"], (sq, uq)
+    del probe, dim, frame
+
+    # -- zipf_agg_adaptive: adaptive caps, sampled then realized ---------
+    rng = np.random.default_rng(4)
+    zk = rng.zipf(1.5, ZIPF_ROWS).astype(np.int32)
+    zv = rng.random(ZIPF_ROWS, dtype=np.float32)
+    zd = {"k": zk, "v": zv}
+    frame = hf.table(zd, "z").groupby("k").agg(s=("v", "sum"),
+                                               c=("v", "count"))
+    kd, vd = torch.from_numpy(zk).to(dev), torch.from_numpy(zv).to(dev)
+    keys, inv, cnt = torch.unique(kd, return_inverse=True, return_counts=True)
+    sums = torch.zeros(len(keys), dtype=torch.float64, device=dev) \
+        .index_add_(0, inv, vd.to(torch.float64))
+    del kd, vd, inv
+
+    def held(t, tag):
+        n = int(t.counts.sum())
+        assert n == len(keys), (tag, n, len(keys))
+        assert torch.equal(t.columns["k"][:n], keys), f"{tag}.k"
+        assert torch.equal(t.columns["c"][:n].to(torch.int64), cnt), \
+            f"{tag}.c"
+        s = t.columns["s"][:n].to(torch.float64)
+        assert torch.allclose(s, sums, rtol=1e-4, atol=1e-6), f"{tag}.s"
+        return float(((s - sums).abs() / sums.abs().clamp(min=1e-30)).max())
+
+    acfg = hf.ExecConfig(adaptive_stats=True, safe_capacities=False,
+                         auto_retry=0)
+    runs = {}
+    for tag, cfg in (("zipf_agg_adaptive", acfg),
+                     ("zipf_agg_adaptive_realized", acfg),
+                     ("zipf_agg_safe", hf.ExecConfig())):
+        pa = [op for op in frame.lower(cfg).pplan.ops
+              if type(op).__name__ == "PartialAgg"][0]
+        t, wall, peak = timed_collect(torch, frame, cfg)
+        assert not t.overflow and t.events == (), (tag, t.overflow_ops)
+        runs[tag] = {"wall_s": round(wall, 4), "peak_gib": round(peak, 3),
+                     "rows_in": ZIPF_ROWS, "rows_out": int(t.counts.sum()),
+                     "partial_agg_cap": int(pa.cap),
+                     "ndv_est": pa.ndv_est, "ndv_src": pa.ndv_src,
+                     "max_rel_s": held(t, tag)}
+        queries[tag] = runs[tag]
+        log(f"{tag}: {runs[tag]}")
+        del t
+    assert runs["zipf_agg_adaptive"]["ndv_src"] == "sample", runs
+    assert runs["zipf_agg_adaptive_realized"]["ndv_src"] == "realized", runs
+    assert runs["zipf_agg_adaptive_realized"]["ndv_est"] == len(keys), runs
+    del zk, zv, zd, frame, keys, cnt, sums
+    torch.cuda.empty_cache()
+
+    # -- validate: the checks' cost on Fig. 8a's aggregate and Q26 -------
+    t8 = synth.relational_tables(FIG8A_ROWS, 4096, seed=2)
+    agg8 = agg8a_frame(hf, hf.table(t8))
+    ss, it, n_cust = q26_tables(synth)
+    frames = {"fig8a_aggregate": (agg8, FIG8A_ROWS),
+              "fig11_q26": (q26(hf, ss, it),
+                            len(ss["ss_item_sk"]) + len(it["i_item_sk"]))}
+    for name, (frame, rows_in) in frames.items():
+        rec = {"rows_in": rows_in}
+        outs = {}
+        # plain, validated, validated, plain: the best of two each
+        for cfg_tag in ("plain", "validate", "validate", "plain"):
+            cfg = hf.ExecConfig(validate=cfg_tag == "validate")
+            t, wall, peak = timed_collect(torch, frame, cfg)
+            assert not t.overflow and t.invariant_failures == (), (name, t)
+            outs[cfg_tag] = t.to_numpy()
+            rec[f"wall_s_{cfg_tag}"] = round(min(
+                wall, rec.get(f"wall_s_{cfg_tag}", wall)), 4)
+            rec[f"peak_gib_{cfg_tag}"] = round(peak, 3)
+        check_equal(outs["validate"], outs["plain"], f"validate_{name}")
+        rec["overhead"] = round(rec["wall_s_validate"]
+                                / rec["wall_s_plain"] - 1, 4)
+        rec["wall_s"] = rec["wall_s_validate"]
+        queries[f"validate_{name}"] = rec
+        log(f"validate_{name}: {rec}")
+    want8 = agg8a_want(t8)
+    clean = agg8.collect(hf.ExecConfig()).to_numpy()
+    check_equal(clean, want8, "fig8a_aggregate", AGG8A_TOL)
+
+    # -- forced overflow, corruption and a kernel fault on Fig. 8a -------
+    for tag, cfg, kinds in (
+            ("forced_overflow", hf.ExecConfig(fault_inject=FaultPlan(
+                force_overflow=("HashExchange",))), ["retry"]),
+            ("corrupt_heal", hf.ExecConfig(validate=True, fault_inject=FaultPlan(
+                corrupt_exchange=("HashExchange",))), ["degrade_packed"])):
+        t, wall, peak = timed_collect(torch, agg8, cfg)
+        assert not t.overflow and t.invariant_failures == (), (tag, t)
+        assert [e.kind for e in t.events] == kinds, (tag, t.events)
+        out = t.to_numpy()
+        check_equal(out, want8, tag, AGG8A_TOL)
+        queries[tag] = {"wall_s": round(wall, 4), "peak_gib": round(peak, 3),
+                        "rows_in": FIG8A_ROWS, "rows_out": len(out["id"]),
+                        "events": [e.render() for e in t.events],
+                        "same_bits_as_clean_run": all(
+                            np.array_equal(out[c], clean[c]) for c in clean)}
+        log(f"{tag}: {queries[tag]}")
+        if tag == "forced_overflow":
+            txt = agg8.explain(hf.ExecConfig())
+            assert "events (previous run):" in txt and "] retry op#" in txt, txt
+            queries[tag]["explain_events"] = txt.split(
+                "events (previous run):\n", 1)[1].splitlines()
+    got, raised = None, None
+    try:
+        got = agg8.collect(hf.ExecConfig(fault_inject=FaultPlan(
+            fail_kernel="prefix_sum")))
+    except KernelBackendError as e:
+        raised = e
+    assert got is None and raised is not None, "kernel fault: no raise"
+    assert raised.kernel == "prefix_sum" and raised.backend == "cuda", raised
+    queries["kernel_fault"] = {"raised": type(raised).__name__,
+                               "message": str(raised)}
+    log(f"kernel_fault: {queries['kernel_fault']}")
+    del t8, agg8, frames, outs, clean
+    torch.cuda.empty_cache()
+
+
 # The exchange path: two ranks on the one card, joined by gloo (NCCL refuses
 # two ranks on one card; gloo stages CUDA tensors through the host, so the
 # walls are gloo's, not NCCL's).  Fig. 8a join at a quarter of the
@@ -2283,6 +2552,9 @@ P2_WORLD = 2
 
 
 P2_SORT = 2**24
+# the skew join at P = 2: a quarter of the guardrails path's rows each side
+# cut for gloo's host staging, as P2_JOIN is
+P2_SKEW_JOIN = (2**22, 2**20)
 
 
 def exchange_rank(rank: int, world: int, port: int, out_dir: str) -> None:
@@ -2426,6 +2698,7 @@ def exchange_rank(rank: int, world: int, port: int, out_dir: str) -> None:
             "all_to_all": calls[0], "census": census, "nshards": t.nshards})
     res["queries"]["p2_seg_matrix"] = p2_seg_matrix(
         torch, dist, hf, cuda, z, (ss, it, n_cust), cfg, calls)
+    res["queries"].update(p2_guardrails(torch, dist, hf, synth, calls))
     q = res["queries"]
     assert q["p2_fig12_q26_persisted"]["all_to_all"] \
         < q["p2_fig12_q26_cold"]["all_to_all"], q
@@ -2481,6 +2754,69 @@ def p2_seg_matrix(torch, dist, hf, cuda, z, q26: tuple, cfg,
             "capacity": int(cap), "all_to_all": calls[0], "census": census,
             "bucket_scatter": scatters, "nshards": world,
             "rows_in": len(ss["ss_item_sk"]) + len(it["i_item_sk"])}
+
+
+def p2_guardrails(torch, dist, hf, synth, calls: list) -> dict:
+    """The guardrails at P = world: the skew join salted and unsalted
+    (rows exact, per-rank counts, the salted max/mean lower, as many
+    all_to_all as unsalted), and Fig. 8a's aggregate (at P2_SORT rows) under
+    a forced overflow and a packed-exchange corruption, each healed with
+    the oracle's rows and the all_to_all calls of every run of the retry
+    loop."""
+    from repro_torch.runtime import FaultPlan
+    rank, world = dist.get_rank(), dist.get_world_size()
+    probe, dim = skew_tables(*P2_SKEW_JOIN)
+    t8 = synth.relational_tables(P2_SORT, 4096, seed=2)
+    skew = skew_join_frame(hf, probe, dim)
+    agg = agg8a_frame(hf, hf.table(t8))
+
+    def census(frame, **kw):
+        return frame.physical_plan(hf.ExecConfig(**kw)).shuffle_census(
+            P=world)["all_to_all"]
+    runs = {"p2_skew_join_salted": (skew, dict(adaptive_stats=True), None,
+                                    census(skew, adaptive_stats=True)),
+            "p2_skew_join": (skew, {}, None, census(skew)),
+            "p2_forced_overflow": (agg, {}, {"force_overflow":
+                                             ("HashExchange",)},
+                                   2 * census(agg)),
+            "p2_corrupt_heal": (agg, dict(validate=True),
+                                {"corrupt_exchange": ("HashExchange",)},
+                                census(agg) + census(agg,
+                                                     packed_exchange=False))}
+    out = {}
+    for tag, (frame, kw, fault, a2a) in runs.items():
+        cfg = hf.ExecConfig(**kw, **({"fault_inject": FaultPlan(**fault)}
+                                     if fault else {}))
+        calls[0] = 0
+        dist.barrier()
+        t, wall, _peak = timed_collect(torch, frame, cfg)
+        assert not t.overflow and t.invariant_failures == (), (tag, t)
+        assert calls[0] == a2a, f"{tag}: {calls[0]} all_to_all, expected {a2a}"
+        rows = t.to_numpy()
+        counts = t.counts.tolist()
+        if rank == 0:
+            if frame is skew:
+                check_skew_join(rows, probe, dim, tag)
+            else:
+                check_equal(sorted_rows(rows, ("id",)), agg8a_want(t8), tag,
+                            AGG8A_TOL)
+        out[tag] = {"wall_s": round(wall, 4), "rows_by_rank": counts,
+                    "rows_out": sum(counts),
+                    "occupancy_max_mean": round(occupancy(counts), 4),
+                    "all_to_all": calls[0], "nshards": world,
+                    "events": [e.render() for e in t.events],
+                    "event_kinds": [e.kind for e in t.events],
+                    "rows_in": (sum(P2_SKEW_JOIN) if frame is skew
+                                else P2_SORT)}
+    kinds = {tag: q["event_kinds"] for tag, q in out.items()}
+    assert kinds == {"p2_skew_join_salted": [], "p2_skew_join": [],
+                     "p2_forced_overflow": ["retry"],
+                     "p2_corrupt_heal": ["degrade_packed"]}, kinds
+    salted, plain = out["p2_skew_join_salted"], out["p2_skew_join"]
+    assert salted["occupancy_max_mean"] < plain["occupancy_max_mean"], \
+        (salted, plain)
+    assert salted["all_to_all"] == plain["all_to_all"], (salted, plain)
+    return out
 
 
 def exchange_path(torch, queries: dict) -> dict:
@@ -2737,6 +3073,9 @@ def main(argv=None) -> int:
                 torch, hf, synth, queries, args.profile, checks),
                 dict.fromkeys(("prefix_sum", "segment_sums",
                                "segment_rank"))),
+            "guardrails": (lambda: guardrails_path(torch, hf, synth,
+                                                   queries, checks),
+                           dict.fromkeys(("prefix_sum", "segment_sums"))),
             # counted in its ranks (each must launch bucket_scatter) and
             # summed over them; Q26's sums are integer (no segment_sums)
             "exchange_p2": (lambda: exchange_path(torch, queries),

@@ -591,11 +591,19 @@ class DataFrame:
     def _force_rep(self) -> set[int]:
         return set(self._rep_nodes)
 
+    def _execute(self, cfg: ExecConfig, keep: Sequence[str] | None = None,
+                 gather: bool = True, collect_block: bool = False,
+                 ) -> tuple[Lowered, DTable]:
+        """Lower and run under the retry policy (``lower.execute``): shared
+        by :meth:`collect`, :meth:`persist` and :meth:`collect_matrix`."""
+        return execute(self.node, cfg, set(keep) if keep else None,
+                       self._force_rep(), gather=gather,
+                       collect_block=collect_block)
+
     def collect(self, cfg: ExecConfig | None = None,
                 keep: Sequence[str] | None = None) -> DTable:
         """Execute the plan and return the materialized DTable."""
-        return execute(self.node, cfg or ExecConfig(),
-                       set(keep) if keep else None, self._force_rep())[1]
+        return self._execute(cfg or ExecConfig(), keep)[1]
 
     def persist(self, cfg: ExecConfig | None = None, *,
                 name: str = "persist") -> "DataFrame":
@@ -612,8 +620,7 @@ class DataFrame:
         :class:`CapacityOverflow` naming the op, instead of keeping
         truncated shards."""
         cfg = cfg or ExecConfig()
-        lowered, t = execute(self.node, cfg, None, self._force_rep(),
-                             gather=False)
+        lowered, t = self._execute(cfg, gather=False)
         if t.overflow:
             from .errors import CapacityOverflow
             attempts = max(cfg.auto_retry, 0) + 1
@@ -662,8 +669,8 @@ class DataFrame:
         rows of which the first ``counts[0]`` are valid; at P > 1 each rank
         gets its own ``(capacity, k)`` block, the counterpart of the
         reference's row-sharded global matrix, and every rank's count."""
-        t = execute(self.node, cfg or ExecConfig(), set(cols),
-                    self._force_rep(), gather=False, collect_block=True)[1]
+        t = self._execute(cfg or ExecConfig(), cols, gather=False,
+                          collect_block=True)[1]
         mat = torch.stack([t.columns[c].to(torch.float32) for c in cols],
                           dim=1)
         return mat, t.counts, t.capacity
@@ -681,14 +688,22 @@ class DataFrame:
 
     def _plan(self, cfg: ExecConfig):
         """Shared planning prologue (optimize -> infer -> rebalance ->
-        physical plan) for explain()/physical_plan()."""
+        physical plan) for explain()/physical_plan().  It always carries a
+        stats context, so explain() can annotate estimated rows and bytes
+        per exchange; the context changes DECISIONS (salting, cheap side,
+        auto caps) only under ``cfg.adaptive_stats``.  Only then does a
+        frame over a scan persisted at P > 1 sample through one
+        ``all_gather``, so that every rank calls it, as every rank calls
+        ``collect``; without it planning is local to the rank."""
+        from . import stats as st
         root = self.node
         if cfg.optimize_plan:
             root, _ = opt.optimize(root)
         info = D.infer(root, force_rep=self._force_rep(),
                        broadcast_join=cfg.broadcast_join)
         root = D.insert_rebalance(root, info)
-        return root, info, pp.plan_physical(root, info.dists, cfg)
+        sctx = st.analyze(root, cfg)
+        return root, info, pp.plan_physical(root, info.dists, cfg, stats=sctx)
 
     def physical_plan(self, cfg: ExecConfig | None = None):
         """The property-driven physical plan this frame would execute."""
@@ -696,11 +711,34 @@ class DataFrame:
 
     def explain(self, cfg: ExecConfig | None = None) -> str:
         """Logical plan with distribution annotations, the logical schema,
-        then the physical plan with its shuffle/sort census header."""
+        then the physical plan with its shuffle/sort census header.
+        Exchanges carry estimated rows/bytes from the sampled statistics
+        pass; a ``stats:`` line compares the root's estimate with the
+        REALIZED counts of a previous adaptive run of this plan, and the
+        retry events of the last run of this plan follow."""
+        from . import stats as st
+        from ..runtime import retry as rt
         root, info, pplan = self._plan(cfg or ExecConfig())
         sch = ", ".join(f"{k}:{dt}" for k, dt in self.node.schema.items())
-        return (ir.plan_str(root, info.dists) + "\nschema: " + sch
-                + "\n\n" + pplan.render())
+        txt = (ir.plan_str(root, info.dists) + "\nschema: " + sch
+               + "\n\n" + pplan.render())
+        est = pplan.root_op.rows_est
+        tail = []
+        if est is not None:
+            tail.append(f"estimated output rows ~{int(est)}")
+        rl = st.realized_for(root)
+        if rl is not None:
+            tail.append(
+                f"realized (previous run): {rl['rows']} rows over "
+                f"{rl['nshards']} shards, per-shard max/mean "
+                f"{rl['max']}/{rl['mean']:.1f}")
+        if tail:
+            txt += "\nstats: " + "; ".join(tail)
+        evs = rt.events_for(root)
+        if evs:
+            txt += "\nevents (previous run):\n" + "\n".join(
+                "  " + e.render() for e in evs)
+        return txt
 
     def __repr__(self):
         return f"DataFrame({list(self.node.schema)})\n{ir.plan_str(self.node)}"

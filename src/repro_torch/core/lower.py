@@ -8,13 +8,14 @@ ranks on the CPU).  The property-driven physical planner
 (core/physical_plan.py) decides where exchanges and sorts are required, and
 this module executes the resulting op list.
 
-Counts and per-site overflow flags stay tensors on the device until the end
-of the run, where ``Lowered.__call__`` reads them back once.
+Counts, per-site overflow flags and the ``validate`` checks stay tensors on
+the device until the end of the run, where ``Lowered.__call__`` reads them
+back once.  ``execute`` runs a plan under ``runtime.retry.RetryPolicy``.
 """
 from __future__ import annotations
 
-import dataclasses
 import functools
+import os
 from dataclasses import dataclass
 from typing import Any
 
@@ -23,10 +24,11 @@ import torch
 import torch.distributed as dist
 
 from . import distribution as D
+from . import errors as err
 from . import ir, physical as phys
 from . import physical_plan as pp
 from ..kernels import registry as kreg
-from .dtypes import NULL_CODE, is_category, physical_dtype
+from .dtypes import NULL_CODE, categories_of, is_category, physical_dtype
 from .expr import evaluate, ext_tensor, externals, nulltag_for
 from .table import DTable
 
@@ -70,8 +72,44 @@ class ExecConfig:
     exscan_method: str = "allgather"
     # capacity-overflow auto-retry built into collect()
     auto_retry: int = 3
+    # -- adaptive statistics (core/stats.py) ---------------------------------
+    # adaptive_stats: build a sampled StatsContext per plan and let it make
+    # planner DECISIONS: salted skew joins, cheaper-side re-exchange for
+    # mixed-alignment joins, and PartialAgg auto-capacity from the
+    # distinct-count estimate (plus realized feedback from previous runs of
+    # the same plan fingerprint).  Off by default: plans are identical to
+    # the stats-blind planner's.  explain() annotates estimates either way.
+    adaptive_stats: bool = False
+    # salt_threshold: sampled key frequency above which a join key counts as
+    # a heavy hitter and gets salted across salt_factor sub-partitions.
+    # Halved automatically when realized feedback shows shard skew.
+    salt_threshold: float = 0.1
+    salt_factor: int = 8
+    # stats_sample: rows sampled per base table (even positions, like
+    # sample_sort's splitters).
+    stats_sample: int = 256
+    # stats_cap_slack: headroom multiplier on SAMPLED estimates when they
+    # size buffers (realized feedback is exact and gets none).  Doubled by
+    # the global retry alongside shuffle_slack.
+    stats_cap_slack: float = 2.0
+    # -- execution guardrails ------------------------------------------------
+    # validate: in-flight invariant checks: row-count conservation and a
+    # packed-word checksum across every exchange, sample sort and
+    # rebalance, post-sort monotonicity, category-code range.  All checks
+    # are per-rank values that ride in the one report the run gathers
+    # anyway: no collective is added and no plan changes.  None defers to
+    # $HIFRAMES_VALIDATE (default off).
+    validate: Any = None
+    # fault_inject: a runtime.faults.FaultPlan with deterministic injection
+    # points (force-overflow an op, fail a kernel, poison a stats estimate,
+    # corrupt an exchange payload).  None = no injection.
+    fault_inject: Any = None
+    # retry_scope: "op" escalates only the overflowed capacity site(s) via
+    # cap_overrides (fewer retries and smaller buffers on skew); "global"
+    # doubles the slack of all four capacity knobs.
+    retry_scope: str = "op"
     # {op_id: (cap_floor, bucket_floor)} applied by compute_capacities —
-    # written by collect()'s retry, not by users.
+    # written by runtime.retry.RetryPolicy, not by users.
     cap_overrides: Any = None
 
     def __post_init__(self):
@@ -83,6 +121,14 @@ class ExecConfig:
             raise RuntimeError(
                 "ExecConfig: no CUDA device is available; pass "
                 "ExecConfig(device='cpu') to run on the CPU")
+        if self.validate is None:
+            self.validate = os.environ.get(
+                "HIFRAMES_VALIDATE", "0").lower() in ("1", "true", "yes", "on")
+        else:
+            self.validate = bool(self.validate)
+        if self.retry_scope not in ("op", "global"):
+            raise ValueError(
+                f"retry_scope must be 'op' or 'global', got {self.retry_scope!r}")
 
     def torch_device(self) -> torch.device:
         return torch.device(self.device)
@@ -110,15 +156,46 @@ class Lowered:
         self.dists = dists
         self.pplan = pplan
         self.device = cfg.torch_device()
-        self.kernels = kreg.resolve(self.device.type)
+        fault = cfg.fault_inject
+        self.kernels = kreg.KernelSet(self.device.type, _kernel_wrap(fault))
         self.P = cfg.nshards()
         self.rank = dist.get_rank() if self.P > 1 else 0
+        self.events: list = []   # degradation events the RetryPolicy reads
         for op in pplan.ops:
             if not isinstance(op, _EXECUTED):
                 raise NotImplementedError(_unsupported(op))
         # per-op failure attribution: the static capacity-site table, one
         # (flag, requirement) pair per site in this order.
         self.sites = _capacity_sites(pplan)
+        # fault injection: sites whose overflow flag is forced in this
+        # build (one shot spent per build) and exchanges to corrupt
+        self.forced = (fault.take_overflow_sites(pplan.ops)
+                       if fault is not None else frozenset())
+        self.corrupt = (fault.corrupt_sites(pplan.ops, cfg.packed_exchange)
+                        if fault is not None else frozenset())
+        # ExecConfig.validate: the static check tables.  A flag check gives
+        # one per-rank bool, a pair check (in, out) values summed over the
+        # ranks on the host.
+        self.val_flags_meta: list[tuple[str, int, str]] = []
+        self.val_pairs_meta: list[tuple[str, int, str]] = []
+        if cfg.validate:
+            for op in pplan.ops:
+                if isinstance(op, (pp.HashExchange, pp.SampleSort,
+                                   pp.RebalanceOp)):
+                    self.val_pairs_meta.append(
+                        ("rowcount", op.op_id, type(op).__name__))
+                    self.val_pairs_meta.append(
+                        ("checksum", op.op_id, type(op).__name__))
+                if isinstance(op, pp.LocalSort):
+                    self.val_flags_meta.append(
+                        ("monotonic", op.op_id, op.keys[0]))
+                elif isinstance(op, pp.SampleSort):
+                    self.val_flags_meta.append(
+                        ("monotonic", op.op_id, op.node.by[0]))
+            for c, dt in root.schema.items():
+                if is_category(dt):
+                    self.val_flags_meta.append(
+                        ("code_range", pplan.root_id, c))
         # op id -> the external arrays its expressions read, and this
         # rank's shard of each, made once per (tag, rows, REP)
         self.exts = _op_externals(pplan)
@@ -209,14 +286,40 @@ class Lowered:
         read back to the host once."""
         pplan, kernels, P = self.pplan, self.kernels, self.P
         packed = self.cfg.packed_exchange
+        validate = self.cfg.validate
         env: dict[int, tuple[dict, Any]] = {}
         flags: list[torch.Tensor] = []
         reqs: list[torch.Tensor] = []
+        vflags: list[torch.Tensor] = []
+        vpairs: list[torch.Tensor] = []
 
-        def flag(ovf, req):
-            flags.append(torch.as_tensor(ovf, device=self.device).reshape(()))
+        def flag(op, ovf, req):
+            """One capacity site: its overflow flag (forced when a fault
+            is injected there) and this rank's requirement (rows)."""
+            ovf = torch.as_tensor(ovf, device=self.device).reshape(())
+            if op.op_id in self.forced:
+                ovf = torch.ones_like(ovf)
+            flags.append(ovf)
             reqs.append(torch.as_tensor(req, device=self.device)
                         .to(torch.float32).reshape(()))
+
+        def pre_exchange(cols, cnt):
+            return (cnt, _checksum_u32(cols, cnt)) if validate else None
+
+        def post_exchange(op, pre, out, cnt2):
+            if op.op_id in self.corrupt:
+                # deterministic payload corruption: bump row 0 of the first
+                # non-bool column on every rank with rows
+                name = next((k for k in sorted(out)
+                             if out[k].dtype != torch.bool), None)
+                if name is not None:
+                    v = out[name].clone()
+                    v[0] += (cnt2 > 0).to(v.dtype)
+                    out = dict(out)
+                    out[name] = v
+            if validate:
+                vpairs.extend((pre[0], cnt2, pre[1], _checksum_u32(out, cnt2)))
+            return out
 
         for op in pplan.ops:
             n = op.node
@@ -230,7 +333,7 @@ class Lowered:
                     & phys.valid_mask(cnt, cap)
                 keep = keep.expand(cap)
                 out, cnt2, ovf = phys.compact(cols, keep, op.cap, kernels=kernels)
-                flag(ovf, keep.sum())
+                flag(op, ovf, keep.sum())
                 res = (out, cnt2)
 
             elif isinstance(op, pp.Map):
@@ -254,28 +357,47 @@ class Lowered:
                 valid = phys.valid_mask(cnt, cap_in)
                 hist = torch.zeros(P, dtype=torch.int32, device=self.device) \
                     .index_add_(0, dest.long(), valid.to(torch.int32))
+                pre = pre_exchange(cols, cnt)
                 out, cnt2, ovf = phys.exchange(
                     cols, cnt, dest, P=P, bucket_cap=op.bucket,
                     cap_out=op.cap, kernels=kernels, packed=packed)
-                flag(ovf, hist.max())
-                res = (out, cnt2)
+                flag(op, ovf, hist.max())
+                res = (post_exchange(op, pre, out, cnt2), cnt2)
 
             elif isinstance(op, pp.LocalSort):
                 cols, cnt = env[op.inputs[0]]
                 out, _ = phys.local_sort(cols, cnt, op.keys)
+                if validate:
+                    vflags.append(_mono_violation(out[op.keys[0]], cnt))
                 res = (out, cnt)
 
             elif isinstance(op, pp.MergeJoin):
                 lcols, lcnt = env[op.inputs[0]]
                 rcols, rcnt = env[op.inputs[1]]
                 lon, ron = n.left_on, n.right_on
+                if op.salted:
+                    # join on keys + salt: each (probe, build) key match
+                    # agrees on exactly one salt (see pp.SaltOp)
+                    lon, ron = lon + (phys.SALT_COL,), ron + (phys.SALT_COL,)
                 smap = {c: n.right_out_name(c) for c in rcols if c not in ron}
                 out, cnt2, ovf = phys.merge_join(
                     lcols, lcnt, rcols, rcnt, lon, ron, cap_out=op.cap,
                     r_suffix_map=smap, how=n.how, null_fill=_join_null_fill(n))
                 lf = lcnt.to(torch.float32)
-                flag(ovf, torch.maximum(lf * rcnt.to(torch.float32), lf))
+                flag(op, ovf, torch.maximum(lf * rcnt.to(torch.float32), lf))
+                out.pop(phys.SALT_COL, None)     # strip the probe's salt
                 res = (out, cnt2)
+
+            elif isinstance(op, pp.SaltOp):
+                cols, cnt = env[op.inputs[0]]
+                if op.build:
+                    out, cnt2, ovf = phys.salt_build(
+                        cols, cnt, op.keys, op.hot, op.R, cap_out=op.cap,
+                        kernels=kernels)
+                    flag(op, ovf, float(op.R) * cnt.to(torch.float32))
+                    res = (out, cnt2)
+                else:
+                    res = phys.salt_probe(cols, cnt, op.keys, op.hot, op.R)
 
             elif isinstance(op, pp.AggPrep):
                 cols, cnt = env[op.inputs[0]]
@@ -296,7 +418,7 @@ class Lowered:
                 out, n_seg, ovf = phys.partial_aggregate(
                     keys, cnt, _agg_values(n, cols), cap_out=op.cap,
                     kernels=kernels)
-                flag(ovf, _distinct_runs(keys, cnt))
+                flag(op, ovf, _distinct_runs(keys, cnt))
                 res = (_restore_key_names(out, n.key), n_seg)
 
             elif isinstance(op, pp.SegmentAgg):
@@ -314,17 +436,22 @@ class Lowered:
                         keys, cnt, _agg_values(n, cols), cap_out=op.cap,
                         kernels=kernels,
                         presorted=(op.nunique_ride,) if op.nunique_ride else ())
-                flag(ovf, _distinct_runs(keys, cnt))
+                flag(op, ovf, _distinct_runs(keys, cnt))
                 res = (_restore_key_names(out, n.key), n_seg)
 
             elif isinstance(op, pp.SampleSort):
                 cols, cnt = env[op.inputs[0]]
+                pre = pre_exchange(cols, cnt)
                 out, cnt2, ovf = phys.sample_sort(
                     cols, cnt, n.by, P=1 if op.dist == D.REP else P,
                     bucket_cap=op.bucket, cap_out=op.cap,
                     ascending=n.ascending, pre_sorted=op.pre_sorted,
                     kernels=kernels, packed=packed)
-                flag(ovf, cnt)
+                flag(op, ovf, cnt)
+                out = post_exchange(op, pre, out, cnt2)
+                if validate:
+                    vflags.append(_mono_violation(out[n.by[0]], cnt2,
+                                                  ascending=n.ascending))
                 res = (out, cnt2)
 
             elif isinstance(op, pp.LimitOp):
@@ -335,16 +462,17 @@ class Lowered:
 
             elif isinstance(op, pp.RebalanceOp):
                 cols, cnt = env[op.inputs[0]]
+                pre = pre_exchange(cols, cnt)
                 out, cnt2, ovf = phys.rebalance(
                     cols, cnt, P=P, bucket_cap=op.bucket, cap_out=op.cap,
                     kernels=kernels, packed=packed)
-                flag(ovf, cnt)
-                res = (out, cnt2)
+                flag(op, ovf, cnt)
+                res = (post_exchange(op, pre, out, cnt2), cnt2)
 
             elif isinstance(op, pp.ConcatOp):
                 parts = [env[i] for i in op.inputs]
                 out, cnt2, ovf = phys.concat(parts, op.cap, kernels=kernels)
-                flag(ovf, functools.reduce(
+                flag(op, ovf, functools.reduce(
                     torch.add, [c.to(torch.float32) for _, c in parts]))
                 res = (out, cnt2)
 
@@ -353,12 +481,24 @@ class Lowered:
             env[op.op_id] = res
 
         cols, cnt = env[pplan.root_id]
+        for kind, _op_id, name in self.val_flags_meta:
+            if kind == "code_range":
+                c = cols[name]
+                n_codes = len(categories_of(self.root.schema[name]))
+                vflags.append(torch.any(phys.valid_mask(cnt, c.shape[0])
+                                        & ((c < NULL_CODE) | (c >= n_codes))))
         assert len(flags) == len(self.sites), (len(flags), self.sites)
+        assert len(vflags) == len(self.val_flags_meta)
+        assert len(vpairs) == 2 * len(self.val_pairs_meta)
         cap = pplan.root_op.cap
         cols = {k: cols[k] for k in self.root.schema}
-        report = (torch.cat([torch.stack(flags).to(torch.float32),
-                             torch.stack(reqs)])
-                  if flags else torch.zeros(0, device=self.device))
+        # one float64 vector per rank: site flags, site requirements, check
+        # flags and check pairs (counts and checksums below 2^32 are exact)
+        report = torch.stack([
+            torch.as_tensor(v, device=self.device).reshape(())
+            .to(torch.float64) for v in flags + reqs + vflags + vpairs]) \
+            if flags or vflags or vpairs \
+            else torch.zeros(0, dtype=torch.float64, device=self.device)
         counts = cnt.reshape(1)
         if P > 1:
             if gather:
@@ -367,12 +507,18 @@ class Lowered:
             report = phys.all_gather_rows(report, P)
         # the one read back to the host
         report = report.cpu().numpy().reshape(P, -1)
-        nsite = len(self.sites)
+        nsite, nflag = len(self.sites), len(self.val_flags_meta)
         fl = report[:, :nsite] != 0
-        overflow_ops = self._attribute_overflow(fl, report[:, nsite:])
+        overflow_ops = self._attribute_overflow(
+            fl, report[:, nsite:2 * nsite].astype(np.float32))
+        checks = report[:, 2 * nsite:]
+        failures = self._check_invariants(
+            checks[:, :nflag] != 0,
+            checks[:, nflag:].reshape(P, -1, 2).astype(np.uint64),
+            overflow_ops)
         return DTable(columns=cols, counts=counts, capacity=cap, nshards=P,
                       dist=self.dists[self.root.id], overflow=bool(fl.any()),
-                      overflow_ops=overflow_ops,
+                      overflow_ops=overflow_ops, invariant_failures=failures,
                       shard=None if gather else self.rank)
 
     def _window(self, op: pp.WindowOp, cols: dict, cnt) -> tuple[dict, Any]:
@@ -443,29 +589,94 @@ class Lowered:
             }
         return overflow_ops
 
+    def _check_invariants(self, vflags: np.ndarray, vpairs: np.ndarray,
+                          overflow_ops: dict) -> tuple:
+        """Reduce the ExecConfig.validate checks of every rank: a flag
+        fails on any rank, a pair when its sums over the ranks differ
+        (checksums mod 2^32).  Pairs at an overflowed op are skipped: rows
+        clamped there break conservation legitimately."""
+        fails: list[err.InvariantFailure] = []
+        for i, (kind, op_id, detail) in enumerate(self.val_flags_meta):
+            if vflags[:, i].any():
+                fails.append(err.InvariantFailure(kind, op_id, detail))
+        for i, (kind, op_id, detail) in enumerate(self.val_pairs_meta):
+            if op_id in overflow_ops:
+                continue
+            a, b = int(vpairs[:, i, 0].sum()), int(vpairs[:, i, 1].sum())
+            if kind == "checksum":
+                a &= phys.M32
+                b &= phys.M32
+            if a != b:
+                fails.append(err.InvariantFailure(
+                    kind, op_id, f"{detail}: in={a} out={b}"))
+        return tuple(fails)
 
-# the physical ops this executor runs; the planner's others belong to later
-# slices of the package
+
+# the physical ops this executor runs: every op the planner emits
 _EXECUTED = (pp.Source, pp.Compact, pp.Map, pp.WindowOp, pp.HashExchange,
-             pp.LocalSort, pp.MergeJoin, pp.AggPrep, pp.PartialAgg,
+             pp.LocalSort, pp.MergeJoin, pp.SaltOp, pp.AggPrep, pp.PartialAgg,
              pp.SegmentAgg, pp.SampleSort, pp.LimitOp, pp.RebalanceOp,
              pp.ConcatOp)
 
-# why a planned op is not executed yet, by op type
-_LATER = {
-    "SaltOp": "a salted skew join is planned only under adaptive statistics "
-              "(ExecConfig.adaptive_stats), which come with ROADMAP "
-              "section 1 item 8",
-}
-
 
 def _unsupported(op: pp.POp) -> str:
-    name = type(op).__name__
-    why = _LATER.get(name, "")
-    return (f"{name} is not part of this package yet"
-            + (f": {why}" if why else "")
-            + " (the executor runs "
-            + ", ".join(t.__name__ for t in _EXECUTED) + ")")
+    return (f"{type(op).__name__} is not a physical op this executor runs "
+            "(it runs " + ", ".join(t.__name__ for t in _EXECUTED) + ")")
+
+
+def _kernel_wrap(fault):
+    """KernelSet ``wrap`` hook: an injected ``FaultPlan.fail_kernel`` on a
+    matching mode raises KernelBackendError; a CUDA kernel that fails (to
+    build or to launch) is re-raised as one.  Nothing catches it to run the
+    plain version instead: a kernel has no lower rung."""
+    def wrap(name, mode, fn):
+        injected = fault is not None and fault.kernel_fails(name, mode)
+        if mode == "plain" and not injected:
+            return fn
+
+        def call(*a, **k):
+            if injected:
+                raise err.KernelBackendError(
+                    name, mode, "injected fault (FaultPlan.fail_kernel)")
+            try:
+                return fn(*a, **k)
+            except err.HiFramesError:
+                raise
+            except Exception as e:
+                raise err.KernelBackendError(name, mode, e) from e
+        return call
+    return wrap
+
+
+def _checksum_u32(cols: dict, cnt) -> torch.Tensor:
+    """Order-invariant 32-bit payload checksum of the valid prefix: the
+    packed-layout words of every column (a bitcast, so float payload bits
+    count exactly), masked to valid rows, summed mod 2^32, the reference's
+    uint32 sum.  torch has no uint32 reductions on the card, so the int32
+    words sum into int64 (each congruent to its uint32 word mod 2^32) and
+    the total is masked; one column's words at a time, never the packed
+    matrix.  Exchanges permute rows across ranks, so the sum over the ranks
+    is conserved."""
+    cap = next(iter(cols.values())).shape[0]
+    valid = phys.valid_mask(cnt, cap)[:, None]
+    total = torch.zeros((), dtype=torch.int64, device=valid.device)
+    for k in sorted(cols):
+        total += torch.where(valid, phys.column_words(cols[k]), 0) \
+            .sum(dtype=torch.int64)
+    return total & phys.M32
+
+
+def _mono_violation(col, cnt, ascending: bool = True) -> torch.Tensor:
+    """True iff an adjacent pair inside the valid prefix is out of order.
+    NaN-lenient: comparisons with NaN are False, so null floats never
+    flag."""
+    cap = col.shape[0]
+    if cap < 2:
+        return torch.zeros((), dtype=torch.bool, device=col.device)
+    pair_valid = phys.valid_mask(cnt, cap)[1:]   # pair (i-1, i) needs i < cnt
+    a, b = col[:-1], col[1:]
+    bad = (b < a) if ascending else (b > a)
+    return torch.any(bad & pair_valid)
 
 
 def _op_externals(pplan: pp.PhysicalPlan) -> dict[int, dict[str, Any]]:
@@ -518,8 +729,8 @@ def _capacity_sites(pplan: pp.PhysicalPlan) -> list[tuple[int, str, str, str]]:
 
     "max" reduces per-shard buffers, "sum" exchange receive totals, "block"
     evenly re-split rows.  "abs" sites report a true upper bound, so one
-    retry at that size heals; "double" sites (join expansion) escalate
-    geometrically instead.
+    retry at that size heals; "double" sites (join and salt expansion)
+    escalate geometrically instead.
     """
     sites = []
     for op in pplan.ops:
@@ -531,6 +742,9 @@ def _capacity_sites(pplan: pp.PhysicalPlan) -> list[tuple[int, str, str, str]]:
                           "max" if rep else "sum", "abs"))
         elif isinstance(op, pp.MergeJoin):
             sites.append((op.op_id, "join", "max", "double"))
+        elif isinstance(op, pp.SaltOp):
+            if op.build:
+                sites.append((op.op_id, "salt", "max", "double"))
         elif isinstance(op, pp.PartialAgg):
             sites.append((op.op_id, "partial_agg", "max", "abs"))
         elif isinstance(op, pp.SegmentAgg):
@@ -603,7 +817,10 @@ def lower(root: ir.Node, cfg: ExecConfig | None = None,
     """optimize -> infer distributions -> plan physical ops (exchange/sort
     elision) -> plan capacities -> bind the executor.  ``force_rep``: node
     ids the caller pins to REP (``DataFrame.replicate``); ``collect_block``
-    rebalances a 1D_VAR result to 1D_BLOCK (``collect_matrix``)."""
+    rebalances a 1D_VAR result to 1D_BLOCK (``collect_matrix``).  Under
+    ``cfg.adaptive_stats`` the sampled statistics pass feeds the planner;
+    when it fails, planning degrades to the static rules and the returned
+    executor's ``events`` say so."""
     from . import optimizer as opt
 
     cfg = cfg or ExecConfig()
@@ -615,43 +832,59 @@ def lower(root: ir.Node, cfg: ExecConfig | None = None,
     root = D.insert_rebalance(root, info, collect_block=collect_block)
     source_rows = {n.id: pp.scan_rows(n)
                    for n in ir.topo_order(root) if isinstance(n, ir.Scan)}
-    pplan = pp.plan_physical(root, info.dists, cfg)
+    sctx = None
+    events: list = []
+    if cfg.adaptive_stats:
+        from . import stats as st
+        try:
+            sctx = st.analyze(root, cfg)
+        except st.ShardSampleError:
+            raise                  # the other ranks wait in its all_gather
+        except Exception as e:     # degradation: adaptive -> static
+            events.append({"kind": "degrade_stats",
+                           "detail": f"adaptive -> static planning: {e}"})
+    pplan = pp.plan_physical(root, info.dists, cfg, stats=sctx)
     pp.plan_capacities(pplan, cfg.nshards(), cfg, source_rows)
-    return Lowered(root, cfg, info.dists, pplan), stats
+    lowered = Lowered(root, cfg, info.dists, pplan)
+    lowered.events.extend(events)
+    return lowered, stats
 
 
 def execute(root: ir.Node, cfg: ExecConfig, keep: set[str] | None = None,
             force_rep: set[int] = frozenset(), gather: bool = True,
             collect_block: bool = False) -> tuple[Lowered, DTable]:
-    """Lower and run, retrying on capacity overflow at most
-    ``cfg.auto_retry`` times.  Each retry grows only the overflowed sites
-    (``cap_overrides``): "abs" sites to their observed requirement, "double"
-    sites to twice their cap.  The table comes back overflow-flagged when
-    the retries run out; ``events`` on it lists what the loop did.
-    ``gather=False`` returns this rank's own shard (``Lowered.__call__``);
-    ``collect_block`` is :func:`lower`'s."""
-    events: list[str] = []
-    attempt = 0
-    while True:
-        lowered, _ = lower(root, cfg, keep, force_rep, collect_block)
-        t = lowered(gather)
-        if not t.overflow or attempt >= max(cfg.auto_retry, 0):
-            if t.overflow:
-                events.append(f"overflow_exhausted after {attempt} retries: "
-                              f"ops {sorted(t.overflow_ops)}")
-            t.events = tuple(events)
-            return lowered, t
-        overrides = dict(cfg.cap_overrides or {})
-        for op_id, rec in sorted(t.overflow_ops.items()):
-            op = lowered.pplan.ops[op_id]
-            bucket = int(op.bucket or 0)
-            if rec["strategy"] == "double":
-                new = (max(int(op.cap), 1) * 2, bucket * 2)
-            else:
-                new = (max(rec["cap_req"], 1), rec["bucket_req"] if bucket else 0)
-            prev = overrides.get(op_id, (0, 0))
-            overrides[op_id] = (max(new[0], prev[0]), max(new[1], prev[1]))
-            events.append(f"retry {attempt + 1}: {rec['kind']} #{op_id} cap "
-                          f"{rec['cap']} -> {overrides[op_id][0]}")
-        cfg = dataclasses.replace(cfg, cap_overrides=overrides)
-        attempt += 1
+    """Lower and run under the retry policy (runtime/retry.py): per-op
+    capacity escalation from the overflow attribution
+    (``cfg.retry_scope="global"`` doubles the slack instead), the
+    packed-exchange and stats degradations, and the structured event log
+    on the returned table (``.events``) and in the per-fingerprint store
+    ``explain()`` renders.  The table comes back overflow-flagged when the
+    ``cfg.auto_retry`` retries run out.  Under ``adaptive_stats`` the run's
+    per-rank counts (or an exhausted aggregate's requirement) feed the
+    realized-stats store.  ``gather=False`` returns this rank's own shard
+    (``Lowered.__call__``); ``collect_block`` is :func:`lower`'s."""
+    from ..runtime import retry as rt
+
+    policy = rt.RetryPolicy(max_retries=max(cfg.auto_retry, 0),
+                            scope=cfg.retry_scope)
+
+    def run_once(c):
+        lowered, _ = lower(root, c, keep, force_rep, collect_block)
+        return lowered, lowered(gather)
+
+    lowered, t, events, cfg = policy.execute(run_once, cfg)
+    if events:
+        rt.record_events(lowered.root, events)
+    if cfg.adaptive_stats:
+        from . import stats as st
+        if not t.overflow:
+            # a repeated run of this plan sizes PartialAgg from the true
+            # group count and salts more eagerly if skew materialized
+            st.record_realized(lowered.root, t.counts.cpu().numpy())
+        else:
+            # the failure's observed requirement sizes the next run
+            for op_id, rec in t.overflow_ops.items():
+                if rec["kind"] in ("partial_agg", "segment_agg"):
+                    st.record_failure(lowered.pplan.ops[op_id].node,
+                                      rec["req_shards"])
+    return lowered, t

@@ -19,8 +19,9 @@ dtype max, so padding sorts to the end.
 The window functions are here: partitioned (segmented) cumsum, stencils
 and ranks over the grouped layout, and the global forms through an
 exclusive scan of per-rank values or a halo exchange.  So are the global
-sort (sample sort), ``limit``, ``rebalance`` and ``concat``.  Salting is a
-later slice; ``SALT_COL`` is kept because the planner names it.
+sort (sample sort), ``limit``, ``rebalance`` and ``concat``, and the skew
+salting of a salted join (``salt_probe``, ``salt_build``; the build side
+replicates its hot rows through ``compact``).
 """
 from __future__ import annotations
 
@@ -141,11 +142,63 @@ def compact(cols: dict[str, torch.Tensor], keep: torch.Tensor, cap_out: int,
 
 
 # ---------------------------------------------------------------------------
-# column packing — the byte-transport layer of the packed exchange
+# skew salting (adaptive_stats)
 # ---------------------------------------------------------------------------
 
-# The salt column a salted join's two SaltOps inject (planner vocabulary).
+# The salt column a salted join's two SaltOps inject and the join strips.
 SALT_COL = "__salt__"
+
+
+def hot_mask(cols: dict[str, torch.Tensor], key_names: Sequence[str],
+             hot: Sequence[tuple]) -> torch.Tensor:
+    """Boolean row mask: key tuple in ``hot`` (a static plan constant, the
+    same literal set on both join sides, so membership agrees exactly)."""
+    k0 = cols[key_names[0]]
+    m = torch.zeros(k0.shape[0], dtype=torch.bool, device=k0.device)
+    for vals in hot:
+        eq = torch.ones_like(m)
+        for kn, v in zip(key_names, vals):
+            c = cols[kn]
+            eq &= c == torch.tensor(v, dtype=c.dtype, device=c.device)
+        m |= eq
+    return m
+
+
+def salt_probe(cols: dict[str, torch.Tensor], count, key_names: Sequence[str],
+               hot: Sequence[tuple], R: int):
+    """Probe-side salting: hot rows get salt ``position % R`` (spreading a
+    hot key's rows over R sub-partitions of the keys+salt exchange), every
+    other row salt 0.  Row set and order unchanged; returns (cols, count)."""
+    k0 = cols[key_names[0]]
+    is_hot = hot_mask(cols, key_names, hot)
+    pos = torch.arange(k0.shape[0], dtype=torch.int32, device=k0.device)
+    out = dict(cols)
+    out[SALT_COL] = torch.where(is_hot, pos % R, torch.zeros_like(pos))
+    return out, count
+
+
+def salt_build(cols: dict[str, torch.Tensor], count, key_names: Sequence[str],
+               hot: Sequence[tuple], R: int, cap_out: int, kernels=None):
+    """Build-side salting: hot rows are replicated to every salt 0..R-1 so
+    each probe sub-partition finds its match; other rows keep one salt-0
+    copy.  Every (probe row, build row) pair with equal keys then agrees on
+    exactly ONE salt value, so the salted join's row set is exactly the
+    unsalted one.  Returns (cols, count, overflow) via :func:`compact`."""
+    k0 = cols[key_names[0]]
+    cap, dev = k0.shape[0], k0.device
+    is_hot = hot_mask(cols, key_names, hot)
+    valid = valid_mask(count, cap)
+    rep = {name: v.repeat((R,) + (1,) * (v.dim() - 1))  # replica r at rows
+           for name, v in cols.items()}                 # [r * cap, ...)
+    rep[SALT_COL] = torch.arange(R, dtype=torch.int32,
+                                 device=dev).repeat_interleave(cap)
+    keep = valid.repeat(R) & ((rep[SALT_COL] == 0) | is_hot.repeat(R))
+    return compact(rep, keep, cap_out, kernels=kernels)
+
+
+# ---------------------------------------------------------------------------
+# column packing — the byte-transport layer of the packed exchange
+# ---------------------------------------------------------------------------
 
 # Word width of the packed transport buffer: every column is bitcast into
 # 32-bit words, so a whole table shuffles as ONE (P, bucket_cap, W) payload.
@@ -161,6 +214,22 @@ def col_words(dtype) -> int:
     return max(1, dtype.itemsize // PACK_WORD_BYTES)
 
 
+def column_words(v: torch.Tensor) -> torch.Tensor:
+    """One column as its (rows, n_words) int32 words in the packed layout:
+    4-byte types bitcast, 8-byte types split in two, sub-word types
+    zero-extended."""
+    dt = v.dtype
+    if dt == torch.bool:
+        return v.to(torch.int32)[:, None]
+    if dt.itemsize == 4:
+        return v.contiguous().view(torch.int32)[:, None]
+    if dt.itemsize == 8:
+        return v.contiguous().view(torch.int32).reshape(-1, 2)
+    if dt.itemsize == 2:
+        return (v.contiguous().view(torch.int16).to(torch.int32) & 0xFFFF)[:, None]
+    return v.contiguous().view(torch.uint8).to(torch.int32)[:, None]
+
+
 def pack_columns(cols: dict[str, torch.Tensor]):
     """Bitcast-pack every column into one (rows, W) int32 word matrix (the
     reference's uint32 words, same bits).  Returns ``(words, layout)``;
@@ -169,18 +238,8 @@ def pack_columns(cols: dict[str, torch.Tensor]):
     NaNs, signed zeros and all."""
     words, layout, off = [], [], 0
     for name, v in cols.items():
-        dt = v.dtype
-        if dt == torch.bool:
-            w = v.to(torch.int32)[:, None]
-        elif dt.itemsize == 4:
-            w = v.contiguous().view(torch.int32)[:, None]
-        elif dt.itemsize == 8:
-            w = v.contiguous().view(torch.int32).reshape(-1, 2)
-        elif dt.itemsize == 2:
-            w = (v.contiguous().view(torch.int16).to(torch.int32) & 0xFFFF)[:, None]
-        else:
-            w = v.contiguous().view(torch.uint8).to(torch.int32)[:, None]
-        layout.append((name, dt, off, w.shape[1]))
+        w = column_words(v)
+        layout.append((name, v.dtype, off, w.shape[1]))
         off += w.shape[1]
         words.append(w)
     return torch.cat(words, dim=1), layout

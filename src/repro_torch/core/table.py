@@ -35,7 +35,10 @@ class DTable:
     # "cap", "bucket", "cap_req", "bucket_req", "strategy", "req_shards"}
     # for every capacity site whose flag fired.  Empty dict on a clean run.
     overflow_ops: dict = None          # type: ignore[assignment]
-    # retry events of the collect() that produced this table
+    # ExecConfig.validate: the InvariantFailure records of the run (empty
+    # when every check held or validate is off)
+    invariant_failures: tuple = ()
+    # the RetryEvents of the collect() that produced this table
     events: tuple = ()
     # None: the columns hold every rank's shard; a rank: they hold only
     # that rank's (capacity,) shard (Lowered.__call__(gather=False))

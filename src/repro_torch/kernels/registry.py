@@ -86,17 +86,28 @@ def get(name: str) -> KernelSpec:
     return _REGISTRY[name]
 
 
+#: the backend a device type runs: "plain" PyTorch on the CPU, the
+#: hand-written kernel on the card
+MODES = {"cpu": "plain", "cuda": "cuda"}
+
+
 class KernelSet:
     """The registry resolved for one device type: primitives are attributes,
-    ``kernels.prefix_sum(x)``, so call sites are device-oblivious."""
+    ``kernels.prefix_sum(x)``, so call sites are device-oblivious.
+    ``wrap(name, mode, fn)``, when given, returns the callable that stands
+    for ``fn`` (the executor's typed-error and fault-injection hook)."""
 
-    def __init__(self, device: str):
+    def __init__(self, device: str, wrap: Callable | None = None):
         if device not in DEVICES:
             raise ValueError(f"device type must be one of {DEVICES}, "
                              f"got {device!r}")
         self.device = device
+        mode = MODES[device]
         self._fns = {name: (spec.plain if device == "cpu" else spec.kernel)
                      for name, spec in _REGISTRY.items()}
+        if wrap is not None:
+            self._fns = {name: wrap(name, mode, fn)
+                         for name, fn in self._fns.items()}
 
     def __getattr__(self, name):
         try:

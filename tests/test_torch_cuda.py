@@ -863,3 +863,104 @@ def test_segmentation_free_arrays_on_card(card):
     out = f.collect(hf.ExecConfig()).to_numpy()
     np.testing.assert_array_equal(out["z"].astype(np.int64),
                                   100 + out["g"].astype(np.int64))
+
+
+# -- the guardrails on the card ----------------------------------------------
+
+
+def _skewed_tables(n=40_000, m=900, seed=7):
+    """tests/test_skew.py's shape: 35 % of the probe rows on key 3."""
+    rng = np.random.default_rng(seed)
+    k = rng.integers(0, m, n).astype(np.int32)
+    k[: int(0.35 * n)] = 3
+    rng.shuffle(k)
+    probe = {"k": k, "v": rng.normal(size=n).astype(np.float32)}
+    dim = {"k": np.arange(m, dtype=np.int32),
+           "w": rng.normal(size=m).astype(np.float32)}
+    return probe, dim
+
+
+@pytest.mark.cuda
+def test_kernel_fault_raises_typed_error_on_card(card):
+    """An injected fail_kernel on the card's prefix_sum raises the typed
+    KernelBackendError out of collect(): no retry runs the plain version in
+    its place, and no table comes back."""
+    from repro_torch import hiframes as hf
+    from repro_torch.core.errors import KernelBackendError
+    from repro_torch.runtime import FaultPlan
+
+    rng = np.random.default_rng(3)
+    t = {"k": rng.integers(0, 23, 5000).astype(np.int32),
+         "v": rng.normal(size=5000).astype(np.float32)}
+    df = hf.table(t)
+    q = df[df["v"] > -0.3].groupby("k").agg(s=("v", "sum"))
+    got = None
+    with pytest.raises(KernelBackendError, match="prefix_sum") as ei:
+        got = q.collect(hf.ExecConfig(fault_inject=FaultPlan(
+            fail_kernel="prefix_sum")))
+    assert got is None
+    assert ei.value.kernel == "prefix_sum" and ei.value.backend == "cuda"
+
+
+@pytest.mark.cuda
+def test_salted_join_and_guardrails_on_card_match_cpu(card):
+    """The salted skew join (prefix_sum launched by the build side's
+    compaction), a validated aggregate, a forced overflow and a healed
+    corruption, on the card and on the CPU: the same rows, plans and
+    events, and no invariant failure."""
+    from repro_torch import hiframes as hf
+    from repro_torch.core import stats
+    from repro_torch.kernels import cuda
+    from repro_torch.runtime import FaultPlan, clear_events
+
+    probe, dim = _skewed_tables()
+    rng = np.random.default_rng(11)
+    agg = {"k": rng.integers(0, 23, 6000).astype(np.int32),
+           "v": rng.normal(size=6000).astype(np.float32)}
+
+    def runs(device):
+        stats.clear_realized()
+        clear_events()
+        kw = {"device": device}
+        j = hf.table(probe, "probe").merge(hf.table(dim, "dim"), on="k")
+        a = hf.table(agg, "a").groupby("k").agg(s=("v", "sum"),
+                                                n=("v", "count"))
+        out = {}
+        for name, frame, extra in (
+                ("salted", j, dict(adaptive_stats=True)),
+                ("validate", a, dict(validate=True)),
+                ("forced", a, dict(fault_inject=FaultPlan(
+                    force_overflow=("HashExchange",)))),
+                ("corrupt", a, dict(validate=True, fault_inject=FaultPlan(
+                    corrupt_exchange=("HashExchange",))))):
+            cfg = hf.ExecConfig(**kw, **extra)
+            t = frame.collect(cfg)
+            assert not t.overflow and t.invariant_failures == (), name
+            # events without their detail: a checksum there sums the
+            # partial float sums, whose bits differ between the devices
+            out[name] = (t.to_numpy(), [(e.kind, e.attempt, e.op_id)
+                                        for e in t.events],
+                         frame.physical_plan(cfg).render())
+        return out
+
+    before = cuda.launches["prefix_sum"]
+    on_card = runs("cuda")
+    assert cuda.launches["prefix_sum"] > before
+    on_cpu = runs("cpu")
+    assert "Salt[build]" in on_card["salted"][2]
+    assert [e[0] for e in on_card["forced"][1]] == ["retry"]
+    assert [e[0] for e in on_card["corrupt"][1]] == ["degrade_packed"]
+    for name, (want, events, plan) in on_cpu.items():
+        got = on_card[name][0]
+        assert on_card[name][1:] == (events, plan), name
+        # rows ordered by their exact columns, the key the most significant
+        exact = [c for c in sorted(want, reverse=True) if c != "s"]
+        og = np.lexsort([got[c] for c in exact])
+        ow = np.lexsort([want[c] for c in exact])
+        for c in want:
+            if c == "s":
+                np.testing.assert_allclose(got[c][og], want[c][ow],
+                                           rtol=1e-5, atol=1e-5)
+            else:
+                np.testing.assert_array_equal(got[c][og], want[c][ow],
+                                              err_msg=name + c)

@@ -14,7 +14,9 @@ tests/torch_frame_queries.py (string predicates, the null and column verbs,
 recoding concat and category-key merge), the segmentation queries of
 tests/torch_segmentation_queries.py (transform, head, the group-by sugar
 and free arrays in a filter, an assign and an aggregate), matrix assembly
-in 1D_BLOCK blocks, and direct checks of the halo exchange, the global
+in 1D_BLOCK blocks, the guardrail queries of ``GUARD_SRC`` (a salted skew
+join, a forced overflow and a packed-exchange corruption, each healed),
+and direct checks of the halo exchange, the global
 rank, the sample sort (an empty rank, composite keys, descending), the
 rebalance and the limit across the two ranks.
 """
@@ -122,6 +124,60 @@ FDATA = FQ["frame_data"]()
 Z: dict = {}
 exec(SEG_SRC, Z)
 ZDATA = Z["seg_data"]()
+
+# The guardrail queries of the two-rank spawn: tests/test_skew.py's salted
+# join (and the same join unsalted), and tests/test_faults.py's forced
+# overflow and packed-exchange corruption, each healed by the retry policy.
+GUARD_SRC = '''
+import numpy as np
+
+
+def guard_data():
+    rng = np.random.default_rng(7)
+    n, m = 4000, 90
+    k = rng.integers(0, m, n).astype(np.int32)
+    k[: int(0.35 * n)] = 3
+    rng.shuffle(k)
+    d = {"probe": {"k": k, "v": rng.normal(size=n).astype(np.float32)},
+         "dim": {"k": np.arange(m, dtype=np.int32),
+                 "w": rng.normal(size=m).astype(np.float32)}}
+    rng = np.random.default_rng(11)
+    d["agg"] = {"k": rng.integers(0, 23, 600).astype(np.int32),
+                "v": rng.normal(size=600).astype(np.float32)}
+    rng = np.random.default_rng(3)
+    d["agg2"] = {"k": rng.integers(0, 17, 500).astype(np.int32),
+                 "v": rng.normal(size=500).astype(np.float32)}
+    return d
+
+
+def skew_join(hf, d):
+    return hf.table(d["probe"], "probe").merge(hf.table(d["dim"], "dim"),
+                                               on="k")
+
+
+def agg_sum_count(hf, d):
+    return hf.table(d["agg"], "t").groupby("k").agg(s=("v", "sum"),
+                                                    n=("v", "count"))
+
+
+def agg_sum(hf, d):
+    return hf.table(d["agg2"], "t").groupby("k").agg(s=("v", "sum"))
+
+
+# name -> (frame, ExecConfig fields, FaultPlan fields or None)
+GUARD_RUNS = {
+    "salted_join": (skew_join, {"adaptive_stats": True}, None),
+    "unsalted_join": (skew_join, {}, None),
+    "forced_overflow": (agg_sum_count, {"validate": True, "auto_retry": 3},
+                        {"force_overflow": ("HashExchange",)}),
+    "corrupt_heal": (agg_sum, {"validate": True},
+                     {"corrupt_exchange": ("HashExchange",),
+                      "corrupt_packed_only": True}),
+}
+'''
+G: dict = {}
+exec(GUARD_SRC, G)
+GDATA = G["guard_data"]()
 
 
 def _oracle(name, d):
@@ -269,19 +325,12 @@ def test_skewed_join_truncation_matches_reference(n_left, n_right):
                 for op, r in t.overflow_ops.items()}
     assert attribution(tt) == attribution(rt)
     assert [r[3] for r in attribution(tt).values()] == [n_left * n_right]
-    # the retries: (attempt, op, "kind cap a -> b"), then the give-up
-    ref_events = [(e.attempt, e.op_id, e.detail) for e in rt.events
-                  if e.kind == "retry"]
-    port_events = []
-    for e in tt.events[:-1]:
-        head, detail = e.split(": ", 1)
-        kind, op, rest = detail.split(" ", 2)
-        port_events.append((int(head.split()[1]), int(op.lstrip("#")),
-                            f"{kind} {rest}"))
-    assert port_events == ref_events
+    # the retries (kind, attempt, op, "kind cap a -> b"), then the give-up:
+    # the same RetryEvents
+    assert [(e.kind, e.attempt, e.op_id, e.detail) for e in tt.events] \
+        == [(e.kind, e.attempt, e.op_id, e.detail) for e in rt.events]
     assert [e.kind for e in rt.events][-1] == "overflow_exhausted"
-    assert tt.events[-1].startswith(
-        f"overflow_exhausted after {rt.events[-1].attempt} retries")
+    assert [e.kind for e in tt.events][:-1] == ["retry"] * (len(tt.events) - 1)
 
 
 def test_cuda_default_refuses_to_run_without_a_card():
@@ -336,12 +385,72 @@ def main(rank, world, port, out):
                      "all_to_all": calls[0], "overflow": bool(t.overflow),
                      "nshards": t.nshards,
                      "census": frame.physical_plan(c).shuffle_census(P=world)["all_to_all"]}
+    res["__guard__"] = guard_runs(hf, calls, world)
     res["__direct__"] = direct_checks(rank, world)
     res["__seg_matrix__"] = seg_matrix(hf, zd, cfg)
     if rank == 0:
         with open(out, "w") as f:
             json.dump(res, f)
     dist.destroy_process_group()
+
+
+def guard_runs(hf, calls, world):
+    """The guardrail queries at P = world: rows, per-rank counts, the
+    retry events and invariant failures, and the all_to_all calls."""
+    from repro_torch.runtime import FaultPlan
+    gd = G["guard_data"]()
+    out = {}
+    for name, (build, kw, fault) in G["GUARD_RUNS"].items():
+        cfg = hf.ExecConfig(device="cpu", **kw, **(
+            {"fault_inject": FaultPlan(**fault)} if fault else {}))
+        frame = build(hf, gd)
+        calls[0] = 0
+        t = frame.collect(cfg)
+        out[name] = {
+            "cols": {k: v.tolist() for k, v in t.to_numpy().items()},
+            "counts": t.counts.tolist(), "overflow": bool(t.overflow),
+            "events": [[e.kind, e.attempt, e.op_id] for e in t.events],
+            "failures": [list(f) for f in t.invariant_failures],
+            "all_to_all": calls[0],
+            "census": [build(hf, gd).physical_plan(hf.ExecConfig(
+                device="cpu", packed_exchange=packed, **kw))
+                .shuffle_census(P=world)["all_to_all"]
+                for packed in (True, False)]}
+    out["persisted_salted_join"] = persisted_salted_join(hf, gd, world)
+    return out
+
+
+def persisted_salted_join(hf, gd, world):
+    """A persisted probe (hash-partitioned on v, so the join still moves
+    it): each rank samples its own device shard and one all_gather hands
+    every rank every rank's sampled rows, so the ranks plan the same salted
+    join.  The sample equals the one taken from the shards' global arrays
+    (the reference's layout)."""
+    from repro_torch.core import ir, stats
+    cpu = hf.ExecConfig(device="cpu")
+    p = hf.table(gd["probe"], "probe").repartition(by="v").persist(
+        cpu, name="pp")
+    j = p.merge(hf.table(gd["dim"], "dim"), on="k")
+    acfg = hf.ExecConfig(device="cpu", adaptive_stats=True)
+    smp = stats.sample_scan(p.node, ("k", "v"), 256)
+    full = {}
+    for c in ("k", "v"):
+        parts = [None] * world
+        dist.all_gather_object(parts, p.node.columns[c].tolist())
+        full[c] = torch.tensor(sum(parts, []), dtype=p.node.columns[c].dtype)
+    glob = stats.sample_scan(ir.Scan("pp_global", full, layout=p.node.layout),
+                             ("k", "v"), 256)
+    plan = j.physical_plan(acfg).render()
+    t = j.collect(acfg)
+    views = [None] * world
+    dist.all_gather_object(views, (plan, {k: v.tolist()
+                                          for k, v in smp.items()}))
+    return {"cols": {k: v.tolist() for k, v in t.to_numpy().items()},
+            "overflow": bool(t.overflow), "plan": plan,
+            "same_on_every_rank": all(v == views[0] for v in views),
+            "sample_is_global": all(np.array_equal(smp[c], glob[c])
+                                    for c in smp),
+            "sample_rows": len(smp["k"])}
 
 
 def seg_matrix(hf, zd, cfg):
@@ -433,6 +542,7 @@ def test_two_gloo_ranks(tmp_path):
                       + "S = {}\nexec(" + repr(SORT_SRC) + ", S)\n"
                       + "F = {}\nexec(" + repr(FRAME_SRC) + ", F)\n"
                       + "Z = {}\nexec(" + repr(SEG_SRC) + ", Z)\n"
+                      + "G = {}\nexec(" + repr(GUARD_SRC) + ", G)\n"
                       + textwrap.dedent(RANK_SCRIPT))
     out = tmp_path / "res.json"
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
@@ -493,6 +603,35 @@ def test_two_gloo_ranks(tmp_path):
     feats = np.stack([want[c] for c in Z["FEATURES"]], 1).astype(np.float32)
     np.testing.assert_array_equal(got[np.lexsort(got.T[::-1])],
                                   feats[np.lexsort(feats.T[::-1])])
+    guard = res["__guard__"]
+    ps = guard["persisted_salted_join"]
+    assert ps["same_on_every_rank"] and ps["sample_is_global"], ps["plan"]
+    assert ps["sample_rows"] >= 256 and "Salt[build]" in ps["plan"], ps
+    assert not ps["overflow"]
+    want = G["skew_join"](rhf, GDATA).collect(rhf.ExecConfig()).to_numpy()
+    _assert_same_row_set({k: np.asarray(v, dtype=np.asarray(want[k]).dtype)
+                          for k, v in ps["cols"].items()}, want)
+    for name, (build, kw, fault) in G["GUARD_RUNS"].items():
+        r = guard[name]
+        assert not r["overflow"] and r["failures"] == [], (name, r)
+        assert sum(r["counts"]) == len(r["cols"]["k"]), name
+        # every run of the retry loop: a healed retry reruns the plan, a
+        # healed corruption reruns it unpacked
+        packed, unpacked = r["census"]
+        assert r["all_to_all"] == {"forced_overflow": 2 * packed,
+                                   "corrupt_heal": packed + unpacked
+                                   }.get(name, packed), (name, r)
+        # the reference's rows at P = 1 (the FaultPlan changes nothing
+        # there once healed)
+        want = build(rhf, GDATA).collect(rhf.ExecConfig(**kw)).to_numpy()
+        _assert_same_row_set({k: np.asarray(v, dtype=np.asarray(want[k]).dtype)
+                              for k, v in r["cols"].items()}, want)
+    assert [e[0] for e in guard["forced_overflow"]["events"]] == ["retry"]
+    assert [e[0] for e in guard["corrupt_heal"]["events"]] == ["degrade_packed"]
+    assert guard["salted_join"]["events"] == []
+    # salting adds no collective: as many all_to_all as the unsalted join
+    assert guard["salted_join"]["all_to_all"] \
+        == guard["unsalted_join"]["all_to_all"]
     direct = res["__direct__"]
     # rank 0 holds 0..4 valid of 8 rows, rank 1 holds 100..106: the left
     # halo of rank 1 is rank 0's valid tail, the right halo of rank 0 is

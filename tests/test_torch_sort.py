@@ -356,10 +356,14 @@ def test_replicated_persist_reenters_as_rep_host_table():
 
 
 def test_salt_op_is_refused_naming_item_8():
+    """ROADMAP section 1 item 8 brought the salted join: the executor now
+    runs a planned SaltOp, and nothing refuses it by naming the item."""
     from repro_torch.core import lower as tlower
     from repro_torch.core import physical_plan as tpp
+    assert tpp.SaltOp in tlower._EXECUTED
+    assert not hasattr(tlower, "_LATER")
     msg = tlower._unsupported(tpp.SaltOp.__new__(tpp.SaltOp))
-    assert "SaltOp" in msg and "item 8" in msg
+    assert "item 8" not in msg and "SaltOp" in msg
 
 
 def test_chip_smoke_fig12_plans_are_the_references():
