@@ -36,7 +36,7 @@ Phases, in order; any failure raises and the exit code is not 0:
    (0 ulps) in every mode, also around their 4096-output tile, on ragged
    ends, on views not 16-byte aligned and past the 1024 taps staged at
    once.
-3. The eight main paths, each with the launch counters zeroed just before
+3. The nine main paths, each with the launch counters zeroed just before
    it and read just after:
    - relational, through ``hf`` at P = 1: Fig. 8a filter, join and
      aggregate and TPCx-BB Q26 / Q26-multikey against numpy oracles;
@@ -92,6 +92,20 @@ Phases, in order; any failure raises and the exit code is not 0:
      retry, rendered by explain()) and after a packed-exchange corruption
      (degraded to the unpacked exchange), and a kernel fault that raises
      KernelBackendError; prefix_sum and segment_sums must have launched;
+   - serve, through ``repro_torch.launch.serve`` at P = 1: a Session
+     registers store_sales (25.6 M rows, hash-partitioned on ss_item_sk)
+     and item (256 k rows, replicated), timed with its collectives; two
+     passes of the three-query mix (Q26, per-item sums, a global
+     leaderboard rank), each query twice through ``submit``: pass 2 all
+     hits, no ``Lowered`` built, fewer collectives than pass 1 with
+     registration, its rows bitwise pass 1's, both against numpy, the same
+     prefix_sum and segment_sums launches in both; a second store_sales
+     (seed 7) served by the same plans, rebound, with its own rows; the
+     memory held after store_sales is registered again (does the cache pin
+     the replaced shards?); the mix as one-shot collect()s over host
+     tables; a 4-shard block state of store_sales with uneven counts
+     merged to P = 1 by ``reshard`` (one index_select, no host gather);
+     prefix_sum and segment_sums must have launched;
    - exchange_p2, two ranks on the one card joined by gloo (NCCL refuses
      two ranks on one card; gloo stages CUDA tensors through the host):
      Fig. 8a join at 2^24 x 2^20 rows, Q26, a sort of Fig. 8a's table and
@@ -104,8 +118,11 @@ Phases, in order; any failure raises and the exit code is not 0:
      1D_BLOCK block, bucket_scatter launched in each), the guardrails' skew
      join at 2^22 x 2^20 salted and unsalted (the salted per-rank max/mean
      lower, as many all_to_all), and Fig. 8a's aggregate at 2^24 rows
-     healed after a forced overflow and a corruption, through ``hf`` at
-     P = 2,
+     healed after a forced overflow and a corruption, and the serving
+     session over a 2^24-row store_sales (six concurrent submits with the
+     same cache outcomes on both ranks; a 1-shard state registered, split
+     1 -> 2 and its hash claim re-established by one exchange, then grouped
+     on its key with no exchange), through ``hf`` at P = 2,
      rows against numpy
      oracles, all_to_all calls against the plan's shuffle census (the
      persisted leg's fewer than the cold leg's), each rank of the sort
@@ -2543,6 +2560,223 @@ def guardrails_path(torch, hf, synth, queries: dict, checks: dict):
     torch.cuda.empty_cache()
 
 
+# The serving path: launch/serve.py's session at scale 128 (25.6 M
+# store_sales rows, 16 bytes each; 256 k items; 1.28 M customers), each
+# query of the mix twice a pass, and a 4-shard state of store_sales merged
+# to P = 1 with these uneven shares of its rows.
+SERVE_SCALE = 128
+SERVE_REPEATS = 2
+SERVE_SHARES = (0.4, 0.1, 0.3, 0.2)
+SERVE_NAMES = ("q26", "per_item", "leaderboard")
+SERVE_KEYS = {"q26": ("ss_customer_sk",), "per_item": ("ss_item_sk",),
+              "leaderboard": ("ss_customer_sk",)}
+SERVE_TOL = {"paid": (1e-4, 1e-2), "spend": (1e-4, 1e-2)}
+
+
+def serve_want(ss, it, n_items: int, n_cust: int) -> dict:
+    """The serve mix's rows from numpy bincounts (float sums in float64,
+    then float32), keyed by query; the leaderboard's ranks are checked
+    against its own spends (``check_serve``)."""
+    cust, item = ss["ss_customer_sk"], ss["ss_item_sk"]
+    paid = ss["ss_net_paid"].astype(np.float64)
+    cls = it["i_class_id"][item]
+    n_c = np.bincount(cust, minlength=n_cust)
+    k = np.flatnonzero(n_c > 4)
+    q26w = {"ss_customer_sk": k.astype(np.int32),
+            "c_i_count": n_c[k].astype(np.int32)}
+    for c in (1, 2):
+        q26w[f"id{c}"] = np.bincount(cust, weights=(cls == c),
+                                     minlength=n_cust)[k].astype(np.int32)
+    n_i = np.bincount(item, minlength=n_items)
+    ki = np.flatnonzero(n_i)
+    kc = np.flatnonzero(n_c)
+    return {"q26": q26w,
+            "per_item": {"ss_item_sk": ki.astype(np.int32),
+                         "paid": np.bincount(item, weights=paid,
+                                             minlength=n_items)[ki]
+                         .astype(np.float32),
+                         "n": n_i[ki].astype(np.int32)},
+            "leaderboard": {"ss_customer_sk": kc.astype(np.int32),
+                            "spend": np.bincount(cust, weights=paid,
+                                                 minlength=n_cust)[kc]
+                            .astype(np.float32)}}
+
+
+def check_serve(tag: str, name: str, out: dict, want: dict) -> None:
+    """One result of the mix against ``serve_want``: ints exact, float sums
+    within SERVE_TOL; the leaderboard's ranks exact against the descending
+    min-rank of the spends it returned."""
+    from scipy.stats import rankdata
+    got = sorted_rows(out, SERVE_KEYS[name])
+    if name == "leaderboard":
+        r = got.pop("r")
+        assert np.array_equal(r, rankdata(-got["spend"].astype(np.float64),
+                                          method="min")), f"{tag}.r"
+    check_equal(got, want[name], tag, SERVE_TOL)
+
+
+def synced_wall(torch, fn):
+    """(fn(), seconds) on the host clock, the card synchronised around."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def pass_record(res: dict, wall: float, launched: dict) -> dict:
+    """A pass's totals and each query's median plan and exec seconds."""
+    recs = res["records"]
+    med = {name: {f: round(float(np.median([getattr(r, f) for r in
+                                             recs[i::len(SERVE_NAMES)]])), 5)
+                  for f in ("plan_s", "exec_s")}
+           for i, name in enumerate(SERVE_NAMES)}
+    return {"wall_s": round(wall, 4), "queries": res["queries"],
+            "hits": res["hits"], "lowered_built": res["built"],
+            "collectives": res["collectives"],
+            "cache": [r.cache for r in recs], "median_s": med,
+            "launches": launched}
+
+
+def serve_path(torch, hf, synth, queries: dict, checks: dict):
+    """The serving layer through ``repro_torch.launch.serve`` at P = 1 on
+    the card: registration (timed, its collectives counted), the mix's two
+    passes through ``submit`` (the smoke contract, rows against numpy,
+    pass 2 bitwise pass 1's, the same launches), a second store_sales that
+    the same plans serve by rebinding, the mix as one-shot collect()s over
+    host tables, a 4-shard state merged to P = 1 on the card with no host
+    gather, and the memory a re-registered table leaves held."""
+    import gc
+    import tempfile
+    import types
+
+    from repro_torch.core import ir
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import serve
+    from repro_torch.runtime.reshard import _index_map, reshard
+    from repro_torch.runtime.session import Session
+
+    n_sales, n_items, n_cust = serve.sizes(SERVE_SCALE)
+    tables = serve.make_tables(SERVE_SCALE, seed=0)
+    ss, it = tables
+    ss_b = serve.make_tables(SERVE_SCALE, seed=7)[0]
+    want = serve_want(ss, it, n_items, n_cust)
+    cfg = hf.ExecConfig()
+    watched = ("prefix_sum", "segment_sums")
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as sdir, \
+            Session(cfg, session_dir=sdir) as sess:
+        _, wall = synced_wall(torch, lambda: serve.register_tables(
+            sess, SERVE_SCALE, tables=tables))
+        reg = sess.stats()["register_collectives"]
+        queries["serve_register"] = {
+            "wall_s": round(wall, 4), "collectives": reg,
+            "rows_in": n_sales + n_items,
+            "capacity": int(sess.table("store_sales").node.layout.capacity)}
+        log(f"serve_register: {queries['serve_register']}")
+        mix = serve.build_mix(sess)
+        runs = {}
+        for p in (1, 2):
+            before = {k: cuda.launches[k] for k in watched}
+            res, wall = synced_wall(torch, lambda: serve.run_pass(
+                sess, mix, SERVE_REPEATS))
+            launched = {k: cuda.launches[k] - before[k] for k in watched}
+            runs[p] = res
+            queries[f"serve_pass{p}"] = pass_record(res, wall, launched)
+            log(f"serve_pass{p}: {queries[f'serve_pass{p}']}")
+        p1, p2 = runs[1], runs[2]
+        fails = serve.smoke_failures(p1, p2, p1["collectives"] + reg)
+        assert not fails, fails
+        l1, l2 = (queries[f"serve_pass{p}"]["launches"] for p in (1, 2))
+        assert l1 == l2 and all(l1[k] > 0 for k in watched), (l1, l2)
+        for i, (t1, t2) in enumerate(zip(p1["tables"], p2["tables"])):
+            name = SERVE_NAMES[i % len(SERVE_NAMES)]
+            o1, o2 = t1.to_numpy(), t2.to_numpy()
+            check_serve(f"serve_{name}", name, o1, want)
+            assert all(o1[c].tobytes() == o2[c].tobytes() for c in o1), \
+                f"serve_{name}: pass 2 differs from pass 1"
+        checks["serve_pass2_bitwise"] = True
+
+        # the same plans over another table of the same shape: a rebind
+        serve.register_tables(sess, SERVE_SCALE, name="store_sales_b",
+                              tables=(ss_b, None))
+        res, wall = synced_wall(torch, lambda: serve.run_pass(
+            sess, serve.build_mix(sess, sales="store_sales_b"), 1))
+        assert res["hits"] == res["queries"] and res["built"] == 0, res
+        want_b = serve_want(ss_b, it, n_items, n_cust)
+        for name, t in zip(SERVE_NAMES, res["tables"]):
+            check_serve(f"serve_rebind_{name}", name, t.to_numpy(), want_b)
+        queries["serve_rebind"] = pass_record(res, wall, {})
+        log(f"serve_rebind: {queries['serve_rebind']}")
+
+        # does a cached plan keep a replaced table's shards alive?
+        del mix, p1, p2, runs, res, t1, t2
+        gc.collect()
+        held = torch.cuda.memory_allocated()
+        serve.register_tables(sess, SERVE_SCALE, tables=(ss, None))
+        gc.collect()
+        queries["serve_memory"] = {
+            "peak_gib": round(torch.cuda.max_memory_allocated() / 2**30, 3),
+            "held_gib_before_reregister": round(held / 2**30, 3),
+            "held_gib_after_reregister": round(
+                torch.cuda.memory_allocated() / 2**30, 3),
+            "store_sales_gib": round(16 * n_sales / 2**30, 3)}
+        log(f"serve_memory: {queries['serve_memory']}")
+
+    # the mix as one-shot collect()s over host tables, no session
+    host = {"store_sales": hf.table(ss, "store_sales"),
+            "item": hf.table(it, "item").replicate()}
+    for name, build in zip(SERVE_NAMES, serve.build_mix(
+            types.SimpleNamespace(table=host.__getitem__))):
+        t, wall, peak = timed_collect(torch, build(), cfg)
+        assert not t.overflow, name
+        check_serve(f"serve_oneshot_{name}", name, t.to_numpy(), want)
+        queries[f"serve_oneshot_{name}"] = {
+            "wall_s": round(wall, 4), "peak_gib": round(peak, 3),
+            "rows_in": n_sales + (n_items if name == "q26" else 0)}
+        log(f"serve_oneshot_{name}: {queries[f'serve_oneshot_{name}']}")
+
+    # a 4-shard block state of store_sales merged to P = 1 on the card
+    counts = (np.asarray(SERVE_SHARES) * n_sales).astype(np.int64)
+    counts[-1] = n_sales - counts[:-1].sum()
+    cap = int(counts.max())
+    state = {c: np.zeros(len(counts) * cap, v.dtype) for c, v in ss.items()}
+    lo = 0
+    for r, n in enumerate(counts):
+        for c, v in ss.items():
+            state[c][r * cap:r * cap + n] = v[lo:lo + n]
+        lo += n
+    layout = dict(kind="block", partitioned_by=(), ascending=True,
+                  globally_sorted=False, sorted_by=(), order_ascending=True,
+                  counts=counts, capacity=cap, nshards=len(counts),
+                  dist="1D_VAR")
+    p4 = hf.from_persisted_state(state, layout, name="ss4")
+    del state
+
+    def no_gather(self, src):
+        raise AssertionError("reshard gathered on the host")
+    gather = ir.ScanLayout.gather_host
+    ir.ScanLayout.gather_host = no_gather
+    try:
+        r1, wall = synced_wall(torch, lambda: reshard(p4, 1, cfg))
+    finally:
+        ir.ScanLayout.gather_host = gather
+    lay = r1.node.layout
+    assert lay.counts.tolist() == [n_sales] and lay.device_valid(1), lay
+    # the host's share: the index map from the counts, in numpy
+    _, map_wall = synced_wall(torch, lambda: _index_map(counts, cap, 1))
+    for c, v in ss.items():
+        got = r1.node.columns[c][:n_sales].cpu().numpy()
+        assert np.array_equal(got, v), f"serve_reshard.{c}"
+    queries["serve_reshard"] = {"wall_s": round(wall, 4), "rows_in": n_sales,
+                                "index_map_s": round(map_wall, 4),
+                                "shards": counts.tolist(), "to": 1,
+                                "capacity_in": cap}
+    log(f"serve_reshard: {queries['serve_reshard']}")
+    del p4, r1
+    torch.cuda.empty_cache()
+
+
 # The exchange path: two ranks on the one card, joined by gloo (NCCL refuses
 # two ranks on one card; gloo stages CUDA tensors through the host, so the
 # walls are gloo's, not NCCL's).  Fig. 8a join at a quarter of the
@@ -2699,6 +2933,7 @@ def exchange_rank(rank: int, world: int, port: int, out_dir: str) -> None:
     res["queries"]["p2_seg_matrix"] = p2_seg_matrix(
         torch, dist, hf, cuda, z, (ss, it, n_cust), cfg, calls)
     res["queries"].update(p2_guardrails(torch, dist, hf, synth, calls))
+    res["queries"].update(p2_serve(torch, dist, hf, calls))
     q = res["queries"]
     assert q["p2_fig12_q26_persisted"]["all_to_all"] \
         < q["p2_fig12_q26_cold"]["all_to_all"], q
@@ -2816,6 +3051,86 @@ def p2_guardrails(torch, dist, hf, synth, calls: list) -> dict:
     assert salted["occupancy_max_mean"] < plain["occupancy_max_mean"], \
         (salted, plain)
     assert salted["all_to_all"] == plain["all_to_all"], (salted, plain)
+    return out
+
+
+# the serving session at P = 2: launch/serve.py's tables at 2^24 sales rows
+P2_SERVE_SCALE = 2**24 / 200_000
+
+
+def p2_serve(torch, dist, hf, calls: list) -> dict:
+    """The serving session at P = world: store_sales (2^24 rows) and item
+    registered, the mix submitted six times at once (admission 4, workers
+    4; rows against numpy on rank 0, at least one hit, the same cache
+    outcomes on every rank, the all_to_all calls the records' count), then
+    a 1-shard state of store_sales registered into the 2-rank session (a
+    split 1 -> 2 whose hash claim one exchange re-establishes: 2
+    all_to_all) and grouped on its key (0 exchanges planned, 0 all_to_all)."""
+    from repro_torch.launch import serve
+    from repro_torch.runtime.session import Session
+    rank, world = dist.get_rank(), dist.get_world_size()
+    n_sales, n_items, n_cust = serve.sizes(P2_SERVE_SCALE)
+    tables = serve.make_tables(P2_SERVE_SCALE, seed=0)
+    ss, it = tables
+    want = serve_want(ss, it, n_items, n_cust) if rank == 0 else None
+    out = {}
+
+    def timed(tag, fn):
+        calls[0] = 0
+        dist.barrier()
+        res, wall = synced_wall(torch, fn)
+        out[tag] = {"wall_s": round(wall, 4), "all_to_all": calls[0],
+                    "nshards": world}
+        return res
+
+    with Session(hf.ExecConfig(), admission=4, workers=4) as sess:
+        timed("p2_serve_register", lambda: serve.register_tables(
+            sess, P2_SERVE_SCALE, tables=tables))
+        out["p2_serve_register"]["rows_in"] = n_sales + n_items
+        mix = serve.build_mix(sess)
+        tabs = timed("p2_serve_submit6", lambda: [
+            f.result() for f in [sess.submit(q()) for _ in range(2)
+                                 for q in mix]])
+        recs = [t.query_record for t in tabs]
+        cache = [r.cache for r in recs]
+        views = [None] * world
+        dist.all_gather_object(views, cache)
+        assert all(v == cache for v in views), views
+        assert "hit" in cache, cache
+        rec = out["p2_serve_submit6"]
+        assert rec["all_to_all"] == sum(r.collectives for r in recs), \
+            (rec, [r.collectives for r in recs])
+        rec.update(cache=cache, rows_in=6 * n_sales,
+                   rows_by_rank=[t.counts.tolist() for t in tabs])
+        if rank == 0:
+            for i, t in enumerate(tabs):
+                name = SERVE_NAMES[i % len(SERVE_NAMES)]
+                check_serve(f"p2_serve_{name}", name, t.to_numpy(), want)
+        layout = dict(kind="hash", partitioned_by=("ss_item_sk",),
+                      ascending=True, globally_sorted=False, sorted_by=(),
+                      order_ascending=True, counts=[n_sales],
+                      capacity=n_sales, nshards=1, dist="1D_VAR")
+        one = hf.from_persisted_state(ss, layout, name="ss1")
+        timed("p2_serve_split", lambda: sess.register("ss_split", one))
+        lay = sess.table("ss_split").node.layout
+        assert (lay.kind, lay.nshards) == ("hash", world), lay
+        assert out["p2_serve_split"]["all_to_all"] == 2, out
+        out["p2_serve_split"].update(rows_in=n_sales,
+                                     rows_by_rank=lay.counts.tolist())
+        g = sess.table("ss_split").groupby("ss_item_sk").agg(
+            paid=("ss_net_paid", "sum"), n=("ss_net_paid", "count"))
+        exchanges = g.lower(sess.cfg).pplan.counts()["hash_exchanges"]
+        assert exchanges == 0, exchanges
+        t = timed("p2_serve_split_groupby", lambda: sess.collect(g))
+        assert out["p2_serve_split_groupby"]["all_to_all"] == 0, out
+        out["p2_serve_split_groupby"].update(
+            rows_in=n_sales, exchanges=exchanges,
+            cache=t.query_record.cache)
+        if rank == 0:
+            check_serve("p2_serve_split_groupby", "per_item", t.to_numpy(),
+                        want)
+    for tag, q in out.items():
+        log(f"{tag} (rank {rank}): {q}")
     return out
 
 
@@ -3076,6 +3391,8 @@ def main(argv=None) -> int:
             "guardrails": (lambda: guardrails_path(torch, hf, synth,
                                                    queries, checks),
                            dict.fromkeys(("prefix_sum", "segment_sums"))),
+            "serve": (lambda: serve_path(torch, hf, synth, queries, checks),
+                      dict.fromkeys(("prefix_sum", "segment_sums"))),
             # counted in its ranks (each must launch bucket_scatter) and
             # summed over them; Q26's sums are integer (no segment_sums)
             "exchange_p2": (lambda: exchange_path(torch, queries),

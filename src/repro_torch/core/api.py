@@ -619,7 +619,12 @@ class DataFrame:
         to REP.  A result that still overflows after the retries raises
         :class:`CapacityOverflow` naming the op, instead of keeping
         truncated shards."""
-        cfg = cfg or ExecConfig()
+        return self._persist(cfg or ExecConfig(), name)[0]
+
+    def _persist(self, cfg: ExecConfig, name: str
+                 ) -> tuple["DataFrame", Lowered]:
+        """:meth:`persist`, with the plan that ran (the serving session
+        charges its collectives to registration)."""
         lowered, t = self._execute(cfg, gather=False)
         if t.overflow:
             from .errors import CapacityOverflow
@@ -645,7 +650,7 @@ class DataFrame:
             order_ascending=root_op.order.ascending,
             counts=t.counts.cpu().numpy().astype(np.int32),
             capacity=int(t.capacity), nshards=int(t.nshards), dist=t.dist)
-        return _persisted(name, t.columns, layout)
+        return _persisted(name, t.columns, layout), lowered
 
     def cache(self, cfg: ExecConfig | None = None, *,
               name: str = "cache") -> "DataFrame":

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import functools
 import os
+import threading
 from dataclasses import dataclass
 from typing import Any
 
@@ -29,7 +30,7 @@ from . import ir, physical as phys
 from . import physical_plan as pp
 from ..kernels import registry as kreg
 from .dtypes import NULL_CODE, categories_of, is_category, physical_dtype
-from .expr import evaluate, ext_tensor, externals, nulltag_for
+from .expr import evaluate, ext_dtype, ext_tensor, externals, nulltag_for
 from .table import DTable
 
 
@@ -147,10 +148,20 @@ class ExecConfig:
 
 
 class Lowered:
-    """A physical plan bound to its sources: call it to run on this rank."""
+    """A physical plan bound to its sources: call it to run on this rank.
+
+    A built ``Lowered`` runs again over other tables of the same shape:
+    ``__call__(scan_nodes=, externals=)`` rebinds its scans and free arrays
+    (the serving session's plan-cache hit, ``runtime/session.py``) without
+    planning or building anything.  ``Lowered.built`` counts the objects
+    built in this process."""
+
+    built = 0
 
     def __init__(self, root: ir.Node, cfg: ExecConfig, dists: dict[int, str],
                  pplan: pp.PhysicalPlan):
+        with _BUILT_LOCK:
+            Lowered.built += 1
         self.root = root
         self.cfg = cfg
         self.dists = dists
@@ -196,9 +207,15 @@ class Lowered:
                 if is_category(dt):
                     self.val_flags_meta.append(
                         ("code_range", pplan.root_id, c))
-        # op id -> the external arrays its expressions read, and this
-        # rank's shard of each, made once per (tag, rows, REP)
+        # the optimized plan's scans, in topological order (a plan-cache
+        # hit maps the query's scans onto them by position)
+        self.scans = [n for n in ir.topo_order(root) if isinstance(n, ir.Scan)]
+        # op id -> the external arrays its expressions read; a run feeds
+        # each op this rank's shard of each array, made once per (tag,
+        # rows, REP) in that run only, so an array that a rebind replaced
+        # never hands out a shard
         self.exts = _op_externals(pplan)
+        self._run_exts: dict[str, Any] = {}
         self._ext_shards: dict[tuple, torch.Tensor] = {}
 
     def _env(self, op: pp.POp, cols: dict) -> dict:
@@ -216,11 +233,11 @@ class Lowered:
         rep = op.dist == D.REP
         P, rank = (1, 0) if rep else (self.P, self.rank)
         env = dict(cols)
-        for tag, array in tags.items():
+        for tag in tags:
             key = (tag, cap, rep)
             t = self._ext_shards.get(key)
             if t is None:
-                a = ext_tensor(array)
+                a = ext_tensor(self._run_exts[tag])
                 if a.dim() != 1 or a.shape[0] > P * cap:
                     raise ValueError(
                         f"external array {tag} of shape {tuple(a.shape)} does "
@@ -236,8 +253,18 @@ class Lowered:
             env["ext:" + tag] = t
         return env
 
-    def _source(self, op: pp.Source):
-        """This rank's rows of a scan and their count.
+    def _on_device(self, op: pp.Source) -> bool:
+        """Does this Source take a persisted device shard by identity (its
+        layout re-enters at this shard count and it is not forced to
+        REP)?  Else it reads a host table."""
+        lay = op.node.layout
+        return lay is not None and lay.device_valid(self.P) \
+            and op.dist != D.REP
+
+    def _source(self, op: pp.Source, sub: ir.Scan | None = None):
+        """This rank's rows of a scan and their count, read from ``sub``
+        (a rebound scan of the same shape, see :meth:`_substitutes`) in
+        place of ``op.node`` when it is given.
 
         A persisted scan whose layout re-enters at this shard count (and
         is not forced to REP) hands over this rank's device shard by
@@ -245,15 +272,17 @@ class Lowered:
         copy, no re-pad.  Any other scan is a host table (a persisted one
         first gathers its valid prefixes, ``ScanLayout.gather_host``) and
         this rank takes its block, padded to the op's capacity."""
-        n, dev = op.node, self.device
+        dev = self.device
+        n = op.node if sub is None else sub
         lay = n.layout
-        if lay is not None and lay.device_valid(self.P) and op.dist != D.REP:
+        names = list(op.node.columns)
+        if self._on_device(op):
             cap = int(lay.capacity)
-            cols = {c: _shard(v, cap, self.rank).to(dev)
-                    for c, v in n.columns.items()}
+            cols = {c: _shard(n.columns[c], cap, self.rank).to(dev)
+                    for c in names}
             return cols, torch.tensor(int(lay.counts[self.rank]),
                                       dtype=torch.int32, device=dev)
-        cols = {c: _host(v) for c, v in n.columns.items()}
+        cols = {c: _host(n.columns[c]) for c in names}
         if lay is not None and lay.counts is not None:
             if any(len(v) != lay.nshards * lay.capacity for v in cols.values()):
                 raise ValueError(
@@ -277,13 +306,88 @@ class Lowered:
             out[c] = t
         return out, torch.tensor(cnt, dtype=torch.int32, device=dev)
 
-    def __call__(self, gather: bool = True) -> DTable:
+    def _substitutes(self, scan_nodes) -> dict[int, ir.Scan]:
+        """Check a rebind ``{str(scan.id): substitute}`` of this plan's
+        scans and key it by scan id.  The plan's capacities were planned
+        from its own sources, so a substitute must fit them: one of a
+        persisted device scan is persisted at this shard count with the
+        same capacity; one of a host scan has the same row count.  Either
+        holds every column the plan reads, with the same dtypes."""
+        if not scan_nodes:
+            return {}
+        ops = {op.node.id: op for op in self.pplan.ops
+               if isinstance(op, pp.Source)}
+        by_key = {str(s.id): s for s in self.scans}
+        unknown = sorted(set(scan_nodes) - set(by_key))
+        if unknown:
+            raise ValueError(f"scan rebind: this plan has no scan {unknown} "
+                             f"(its scans: {sorted(by_key)})")
+        subs = {}
+        for key, sub in scan_nodes.items():
+            s = by_key[key]
+            missing = [c for c in s.columns if c not in sub.columns]
+            if missing:
+                raise ValueError(f"scan rebind for {s.name!r}: substitute "
+                                 f"lacks columns {missing}")
+            bad = [c for c in s.columns if sub.schema[c] != s.schema[c]]
+            if bad:
+                raise ValueError(f"scan rebind for {s.name!r}: columns {bad} "
+                                 "differ in dtype")
+            lay, slay = s.layout, sub.layout
+            if self._on_device(ops[s.id]):
+                if (slay is None or not slay.device_valid(self.P)
+                        or int(slay.capacity) != int(lay.capacity)):
+                    got = None if slay is None else (slay.nshards,
+                                                     slay.capacity)
+                    raise ValueError(
+                        f"scan rebind for {s.name!r}: substitute must be "
+                        f"persisted at P={self.P} with capacity "
+                        f"{lay.capacity} (got {got})")
+            elif pp.scan_rows(sub) != pp.scan_rows(s):
+                raise ValueError(
+                    f"scan rebind for {s.name!r}: substitute has "
+                    f"{pp.scan_rows(sub)} rows, the plan's capacities were "
+                    f"planned for {pp.scan_rows(s)}")
+            subs[s.id] = sub
+        return subs
+
+    def _externals(self, rebind) -> dict[str, Any]:
+        """Every free array of the plan by tag, with ``rebind``'s arrays
+        (``{tag: array}``) in place of the ones the plan was built with.
+        A substitute has the same shape and dtype as the array it
+        replaces."""
+        arrays = {tag: a for tags in self.exts.values()
+                  for tag, a in tags.items()}
+        for tag, a in (rebind or {}).items():
+            if tag not in arrays:
+                raise ValueError(f"external rebind: this plan has no free "
+                                 f"array {tag} (it has {sorted(arrays)})")
+            old = arrays[tag]
+            if (tuple(a.shape) != tuple(old.shape)
+                    or ext_dtype(a) != ext_dtype(old)):
+                raise ValueError(
+                    f"external rebind of {tag}: {tuple(a.shape)} "
+                    f"{ext_dtype(a)} does not fit the plan's "
+                    f"{tuple(old.shape)} {ext_dtype(old)}")
+            arrays[tag] = a
+        return arrays
+
+    def __call__(self, gather: bool = True, *, scan_nodes=None,
+                 externals=None) -> DTable:
         """Run the plan on this rank.  With ``gather`` (the default) the
         result's columns hold every rank's shard, as ``collect()`` returns
         them; without it they hold this rank's own ``(capacity,)`` shard
         (``DTable.shard``), as ``persist()`` keeps them.  The counts and
         the overflow report are gathered either way, and the report is
-        read back to the host once."""
+        read back to the host once.
+
+        ``scan_nodes`` (``{str(scan.id): ir.Scan}``) runs the plan over
+        other tables of the same shape in place of its scans, and
+        ``externals`` (``{tag: array}``) over other free arrays in place of
+        its own; both are checked first (``ValueError``)."""
+        subs = self._substitutes(scan_nodes)
+        self._run_exts = self._externals(externals)
+        self._ext_shards = {}
         pplan, kernels, P = self.pplan, self.kernels, self.P
         packed = self.cfg.packed_exchange
         validate = self.cfg.validate
@@ -324,7 +428,7 @@ class Lowered:
         for op in pplan.ops:
             n = op.node
             if isinstance(op, pp.Source):
-                res = self._source(op)
+                res = self._source(op, subs.get(n.id))
 
             elif isinstance(op, pp.Compact):
                 cols, cnt = env[op.inputs[0]]
@@ -611,6 +715,8 @@ class Lowered:
                     kind, op_id, f"{detail}: in={a} out={b}"))
         return tuple(fails)
 
+
+_BUILT_LOCK = threading.Lock()
 
 # the physical ops this executor runs: every op the planner emits
 _EXECUTED = (pp.Source, pp.Compact, pp.Map, pp.WindowOp, pp.HashExchange,

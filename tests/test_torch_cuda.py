@@ -964,3 +964,74 @@ def test_salted_join_and_guardrails_on_card_match_cpu(card):
             else:
                 np.testing.assert_array_equal(got[c][og], want[c][ow],
                                               err_msg=name + c)
+
+
+@pytest.mark.cuda
+def test_serve_session_on_card_matches_cpu(card):
+    """The serving session on the card: "cuda" pinned to the current card
+    in the session's config and in every worker thread; the serve mix's
+    two passes (pass 2 all hits, no Lowered built, the same rows), a
+    rebound second table, and a 4-shard state merged on the card, each
+    against the same session on the CPU."""
+    import threading
+
+    from repro_torch import hiframes as hf
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import serve
+    from repro_torch.runtime.reshard import reshard
+    from repro_torch.runtime.session import Session
+
+    def runs(device):
+        with Session(hf.ExecConfig(device=device), workers=2) as sess:
+            if device == "cuda":
+                assert sess.cfg.device == f"cuda:{torch.cuda.current_device()}"
+                seen = [sess._pool.submit(torch.cuda.current_device).result()
+                        for _ in range(4)]
+                assert seen == [torch.cuda.current_device()] * 4, seen
+                assert threading.current_thread() is threading.main_thread()
+            ss, it = serve.register_tables(sess, 0.5)
+            mix = serve.build_mix(sess)
+            p1 = serve.run_pass(sess, mix, 1)
+            p2 = serve.run_pass(sess, mix, 1)
+            assert serve.smoke_failures(
+                p1, p2, p1["collectives"]
+                + sess.stats()["register_collectives"]) == []
+            serve.register_tables(sess, 0.5, name="b", tables=(
+                serve.make_tables(0.5, seed=7)[0], None))
+            pb = serve.run_pass(sess, serve.build_mix(sess, sales="b"), 1)
+            assert pb["hits"] == 3 and pb["built"] == 0
+            n = len(ss["ss_item_sk"])
+            lay = dict(kind="block", partitioned_by=(), ascending=True,
+                       globally_sorted=False, sorted_by=(),
+                       order_ascending=True, counts=[n // 2 + 1, n - n // 2 - 1],
+                       capacity=n // 2 + 2, nshards=2, dist="1D_VAR")
+            cols = {c: np.concatenate([v[:n // 2 + 1], np.zeros(1, v.dtype),
+                                       v[n // 2 + 1:], np.zeros(3, v.dtype)])
+                    for c, v in ss.items()}
+            r1 = reshard(hf.from_persisted_state(cols, lay, device=device),
+                         1, sess.cfg)
+            merged = {c: v[:n].cpu().numpy() for c, v in r1.node.columns.items()}
+            return ([t.to_numpy() for t in p1["tables"] + p2["tables"]
+                     + pb["tables"]], merged, ss)
+
+    before = cuda.launches["segment_sums"]
+    on_card, merged, ss = runs("cuda")
+    assert cuda.launches["segment_sums"] > before
+    on_cpu, merged_cpu, _ = runs("cpu")
+    for c, v in ss.items():
+        np.testing.assert_array_equal(merged[c], v)
+        np.testing.assert_array_equal(merged_cpu[c], v)
+    keys = ("ss_customer_sk", "ss_item_sk", "ss_customer_sk") * 3
+    for i, (got, want) in enumerate(zip(on_card, on_cpu)):
+        og = np.argsort(got[keys[i]], kind="stable")
+        ow = np.argsort(want[keys[i]], kind="stable")
+        for c in want:
+            if c in ("paid", "spend"):
+                np.testing.assert_allclose(got[c][og], want[c][ow],
+                                           rtol=1e-4, atol=1e-2)
+            elif c != "r":
+                np.testing.assert_array_equal(got[c][og], want[c][ow],
+                                              err_msg=f"{i}.{c}")
+    for a, b in zip(on_card[:3], on_card[3:6]):          # pass 2 = pass 1
+        for c in a:
+            assert a[c].tobytes() == b[c].tobytes(), c

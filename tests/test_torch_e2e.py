@@ -18,7 +18,9 @@ in 1D_BLOCK blocks, the guardrail queries of ``GUARD_SRC`` (a salted skew
 join, a forced overflow and a packed-exchange corruption, each healed),
 and direct checks of the halo exchange, the global
 rank, the sample sort (an empty rank, composite keys, descending), the
-rebalance and the limit across the two ranks.
+rebalance and the limit across the two ranks, and the serving session
+(concurrent submits in ticket order, a 1 -> 2 reshard on registration, the
+sidecar written by rank 0 alone).
 """
 import json
 import os
@@ -388,6 +390,8 @@ def main(rank, world, port, out):
     res["__guard__"] = guard_runs(hf, calls, world)
     res["__direct__"] = direct_checks(rank, world)
     res["__seg_matrix__"] = seg_matrix(hf, zd, cfg)
+    res["__serve__"] = serve_runs(hf, calls, os.path.join(
+        os.path.dirname(out), "serve"))
     if rank == 0:
         with open(out, "w") as f:
             json.dump(res, f)
@@ -451,6 +455,69 @@ def persisted_salted_join(hf, gd, world):
             "sample_is_global": all(np.array_equal(smp[c], glob[c])
                                     for c in smp),
             "sample_rows": len(smp["k"])}
+
+
+def serve_runs(hf, calls, sdir):
+    """The serving session at P = world (adaptive statistics on, so
+    planning samples each rank's persisted shard with an all_gather): six
+    concurrent submits, admission 4 and workers 4, then a 1-shard state
+    registered into the 2-rank session (a split 1 -> 2, its hash claim
+    re-established by one exchange) and grouped on its key.  Every rank's
+    record: the rows, the cache outcomes in completion order, the qids,
+    the all_to_all calls, the sidecar writes."""
+    from repro_torch.core import stats as st
+    from repro_torch.runtime.session import Session
+    os.makedirs(sdir, exist_ok=True)
+    saves, save = [0], st.StatsStore.save
+
+    def counted_save(self, path):
+        saves[0] += 1
+        return save(self, path)
+    st.StatsStore.save = counted_save
+    rng = np.random.default_rng(2)
+    f = {"k": rng.integers(0, 13, 300).astype(np.int32),
+         "v": rng.normal(size=300).astype(np.float32)}
+    order = np.argsort(f["k"], kind="stable")
+    state = {c: v[order] for c, v in f.items()}
+    layout = dict(kind="hash", partitioned_by=("k",), ascending=True,
+                  globally_sorted=False, sorted_by=("k",),
+                  order_ascending=True, counts=[300], capacity=300,
+                  nshards=1, dist="1D_VAR")
+    cfg = hf.ExecConfig(device="cpu", adaptive_stats=True)
+    out = {}
+    with Session(cfg, session_dir=sdir, admission=4, workers=4) as sess:
+        sess.register("t", hf.table(f, "t").repartition("k"))
+        q = lambda: sess.table("t").groupby("k").agg(s=("v", "sum"),
+                                                     c=("v", "count"))
+        tabs = [fu.result() for fu in [sess.submit(q()) for _ in range(6)]]
+        out["parity"] = [{k: v.tolist() for k, v in t.to_numpy().items()}
+                         for t in tabs]
+        out["cache"] = [t.query_record.cache for t in tabs]
+        calls[0] = 0
+        sess.register("one", hf.from_persisted_state(
+            state, layout, name="one", device="cpu"))
+        out["split_all_to_all"] = calls[0]
+        lay = sess.table("one").node.layout
+        out["split_layout"] = [lay.kind, list(lay.partitioned_by),
+                               lay.nshards, lay.counts.tolist()]
+        g = sess.table("one").groupby("k").agg(s=("v", "sum"))
+        out["split_exchanges"] = g.lower(sess.cfg).pplan.counts()[
+            "hash_exchanges"]
+        calls[0] = 0
+        t = sess.collect(g)
+        out["split_query_all_to_all"] = calls[0]
+        out["split_rows"] = {k: v.tolist() for k, v in t.to_numpy().items()}
+        recs = sess.stats()["records"]
+        out["records"] = [[r.qid, r.cache] for r in recs]
+        realized = dict(sess.store.realized)
+    st.StatsStore.save = save
+    out["saves"] = saves[0]
+    out["sidecar_is_store"] = st.StatsStore.load(
+        os.path.join(sdir, "stats.json")).realized == realized
+    out["realized"] = len(realized)
+    views = [None] * dist.get_world_size()
+    dist.all_gather_object(views, out)
+    return views
 
 
 def seg_matrix(hf, zd, cfg):
@@ -603,6 +670,30 @@ def test_two_gloo_ranks(tmp_path):
     feats = np.stack([want[c] for c in Z["FEATURES"]], 1).astype(np.float32)
     np.testing.assert_array_equal(got[np.lexsort(got.T[::-1])],
                                   feats[np.lexsort(feats.T[::-1])])
+    serve = res["__serve__"]
+    rng = np.random.default_rng(2)           # serve_runs' table
+    f = {"k": rng.integers(0, 13, 300).astype(np.int32),
+         "v": rng.normal(size=300).astype(np.float32)}
+    keys = np.unique(f["k"])
+    sums = np.array([f["v"][f["k"] == k].astype(np.float64).sum()
+                     for k in keys])
+    want = {"k": keys, "s": sums,
+            "c": np.array([(f["k"] == k).sum() for k in keys])}
+    for r in serve:
+        for rows in r["parity"] + [r["split_rows"]]:
+            _assert_same_row_set(
+                {k: np.asarray(v) for k, v in rows.items()},
+                {k: want[k] for k in rows})
+        # ticket order: six queries, then the split's group-by
+        assert [q for q, _ in r["records"]] == list(range(1, 8)), r
+        assert r["cache"][0] == "miss" and r["cache"].count("hit") >= 1
+        assert r["split_all_to_all"] == 2, r      # the one re-exchange
+        assert r["split_layout"][:3] == ["hash", ["k"], 2]
+        assert sum(r["split_layout"][3]) == 300
+        assert r["split_exchanges"] == 0 and r["split_query_all_to_all"] == 0
+        assert r["sidecar_is_store"] and r["realized"] > 0
+    assert serve[0]["records"] == serve[1]["records"]
+    assert serve[0]["saves"] >= 1 and serve[1]["saves"] == 0
     guard = res["__guard__"]
     ps = guard["persisted_salted_join"]
     assert ps["same_on_every_rank"] and ps["sample_is_global"], ps["plan"]
