@@ -36,7 +36,7 @@ Phases, in order; any failure raises and the exit code is not 0:
    (0 ulps) in every mode, also around their 4096-output tile, on ragged
    ends, on views not 16-byte aligned and past the 1024 taps staged at
    once.
-3. The nine main paths, each with the launch counters zeroed just before
+3. The ten main paths, each with the launch counters zeroed just before
    it and read just after:
    - relational, through ``hf`` at P = 1: Fig. 8a filter, join and
      aggregate and TPCx-BB Q26 / Q26-multikey against numpy oracles;
@@ -134,8 +134,21 @@ Phases, in order; any failure raises and the exit code is not 0:
      decode_attention must have launched exactly 28 x 256 times.  After the
      path, the served logits of two requests are held against the port's
      own no-cache forward (within 0.1), and the same path at 2 layers in
-     float32 (within 1e-3).
-4. Report: a JSON line of query wall times, LM serving times, peak memory
+     float32 (within 1e-3);
+   - train, through ``repro_torch.launch.train.run`` as its ``main``
+     drives it: the HiFrames token pipeline over ``synth.token_corpus``'s
+     2^24 documents (~17 G tokens) on the card (filter, int32 packing
+     cumsum, bucket aggregate), against numpy (rows and seeds exact,
+     offsets and sums as wrapping int32, the int64 total beside); then
+     qwen3-0.6b (28 layers, bf16, remat per block, random weights from a
+     seed) trained 10 AdamW steps of 8 x 2048 tokens under the
+     fault-tolerant driver, checkpoints every 5 steps: every loss finite,
+     the first within 0.5 of ln V; a restore into a fresh state, bitwise;
+     two more steps from the live and the restored state (the first loss
+     equal, the second within 1e-2); the step at 2 layers in float32 held
+     against the CPU (losses within 1e-4 relative).  prefix_sum must have
+     launched, decode_attention must not.
+4. Report: a JSON line of query wall times, LM serving and training times, peak memory
    and the checks' largest differences (with a digest of the bytes of the
    float32 cumsums, fig8b_cumsum's and the grouped one's, and of
    fig8a_aggregate's sums and means, to compare two runs), a JSON line of
@@ -146,7 +159,8 @@ Phases, in order; any failure raises and the exit code is not 0:
 register and shared-memory report: a short first check of new kernels.
 ``--profile DIR`` runs every query a second time under ``torch.profiler``
 and writes its per-op device-time table to ``DIR/profile_<query>.txt``, and
-profiles 4 LM decode steps (``DIR/profile_lm_decode.txt``).  These traces
+profiles 4 LM decode steps (``DIR/profile_lm_decode.txt``) and one train
+step (``DIR/profile_train_step.txt``).  These traces
 come minutes after the process's first profiler session and may miss
 device events (see ``one_call_profiles``).
 """
@@ -3305,6 +3319,265 @@ def lm_checks(torch, run: dict, queries: dict, checks: dict,
     torch.cuda.empty_cache()
 
 
+# The training path: qwen3-0.6b at its published widths and depth (bf16,
+# remat per block, random weights from a seed) trained through
+# launch/train.py's run(): the HiFrames token pipeline over a pretraining-
+# scale document table (2^24 documents, ~17 G tokens), 10 AdamW steps of
+# 8 x 2048 tokens under the fault-tolerant driver, checkpoints every 5
+# steps.  The steps are the first of a TRAIN_SCHEDULE-step cosine schedule,
+# so every step here, the resumed ones included, has lr > 0.  Then a
+# restore into a fresh state, two steps from each state, and the gradient
+# and step at 2 layers in float32 held against the CPU.
+TRAIN_DOCS = 2**24
+TRAIN_BATCH, TRAIN_SEQ = 8, 2048
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_MORE = 10, 5, 2
+TRAIN_SCHEDULE = 100
+TRAIN_HOLD = (2, 128)            # batch, seq of the float32 hold on the CPU
+BF16_OPS_PER_S = 989e12          # H100 SXM data sheet, dense bf16
+
+
+def wrap32(x: np.ndarray) -> np.ndarray:
+    """int64 values as the int32 they wrap to."""
+    return ((x + 2**31) % 2**32 - 2**31).astype(np.int32)
+
+
+def pipeline_checks(pipe, corpus: dict) -> dict:
+    """The token pipeline's plan outputs against numpy: the curated rows
+    and seeds exactly; the packing offsets, total and per-bucket token sums
+    as int32 sums that wrap, as the reference computes them; and the exact
+    (int64) total beside the wrapped one."""
+    cfg = pipe.cfg
+    mask = (corpus["length"] >= cfg.min_len) & \
+        (corpus["quality"] > np.float32(cfg.min_quality))
+    length, seed = corpus["length"][mask], corpus["seed"][mask]
+    assert np.array_equal(pipe.doc_len, length), "pipeline: curated lengths"
+    assert np.array_equal(pipe.doc_seed, seed), "pipeline: curated seeds"
+    exact = np.cumsum(length, dtype=np.int64)
+    want_offset = wrap32(exact - length)
+    assert np.array_equal(pipe.doc_offset, want_offset), "pipeline: offsets"
+    assert pipe.total_tokens == int(wrap32(exact[-1:])[0]), "pipeline: total"
+    bucket = (corpus["quality"][mask] * 10).astype(np.int32)
+    keys = np.unique(bucket)
+    tokens = np.array([int(length[bucket == k].sum(dtype=np.int64)) for k in keys])
+    docs = np.array([int((bucket == k).sum()) for k in keys])
+    order = np.argsort(pipe.bucket_stats["bucket"])
+    got = {k: np.asarray(v)[order] for k, v in pipe.bucket_stats.items()}
+    assert np.array_equal(got["bucket"], keys), "pipeline: buckets"
+    assert np.array_equal(got["tokens"], wrap32(tokens)), "pipeline: bucket tokens"
+    assert np.array_equal(got["docs"], docs), "pipeline: bucket docs"
+    return {"docs_in": int(len(mask)), "docs_curated": int(mask.sum()),
+            "total_tokens_int64": int(exact[-1]),
+            "total_tokens_int32": pipe.total_tokens,
+            "offsets_wrapped": int((pipe.doc_offset < 0).sum()),
+            "buckets": int(len(keys))}
+
+
+def differing_bits(torch, a: dict, b: dict) -> dict:
+    """Per leaf of two trees of tensors of one structure, dtype and shape,
+    the number of entries whose bits differ (leaves with none left out)."""
+    from repro_torch.models import lm
+    la, lb = dict(lm.leaves(a)), dict(lm.leaves(b))
+    assert la.keys() == lb.keys(), (sorted(la), sorted(lb))
+    bits = {2: torch.int16, 4: torch.int32, 8: torch.int64, 1: torch.uint8}
+    out = {}
+    for k, x in la.items():
+        y = lb[k]
+        assert x.dtype == y.dtype and x.shape == y.shape, k
+        if x.dtype.is_floating_point:
+            x, y = x.view(bits[x.element_size()]), y.view(bits[y.element_size()])
+        n = int((x != y.to(x.device)).sum())
+        if n:
+            out["/".join(k)] = n
+    return out
+
+
+def token_batches(torch, vocab: int, b: int, s: int, n: int, seed: int, dev):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        toks = rng.integers(0, vocab, (b, s + 1)).astype(np.int32)
+        out.append({"tokens": torch.from_numpy(toks[:, :-1].copy()).to(dev),
+                    "labels": torch.from_numpy(toks[:, 1:].copy()).to(dev)})
+    return out
+
+
+def train_hold(torch, cfg, ocfg) -> dict:
+    """The train step at ``cfg``'s widths with 2 layers in float32 (TF32
+    off) on the card and on the CPU from the same weights and batch: each
+    gradient leaf's largest difference over its largest |g|, the step's
+    loss, and the loss of the same batch after the update."""
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+
+    c = cfg.replace(n_layers=2, param_dtype="float32", compute_dtype="float32")
+    cpu_model = lm.init_params(c, seed=3, device="cpu")
+    card_model = lm.LM(c, lm.tree_map(lambda t: t.detach().to("cuda", copy=True),
+                                      cpu_model.tree()))
+    b, s = TRAIN_HOLD
+    out = {}
+    for name, model in (("cpu", cpu_model), ("cuda", card_model)):
+        batch = token_batches(torch, c.vocab, b, s, 1, 17, torch.device(name))[0]
+        params = model.tree()
+        opt = adamw.init_state(params, ocfg)
+        t0 = time.perf_counter()
+        # make_train_step's body at n_micro 1, keeping the gradient
+        loss, grads = steps.value_and_grad(steps.make_loss_fn(c), params, batch)
+        adamw.update(params, grads, opt, ocfg)
+        loss = float(loss)
+        dt = time.perf_counter() - t0
+        with torch.no_grad():
+            after = float(lm.loss_fn(params, batch, c))
+        out[name] = {"loss": loss, "after": after, "s": dt, "grads": grads}
+    cpu, card = out["cpu"], out["cuda"]
+    grad_rel = {"/".join(k): float((x.cpu() - y).abs().max() / y.abs().max())
+                for (k, x), (_, y) in zip(lm.leaves(card["grads"]),
+                                          lm.leaves(cpu["grads"]))}
+    return {"loss_cpu": cpu["loss"], "loss_cuda": card["loss"],
+            "loss_rel": abs(card["loss"] / cpu["loss"] - 1),
+            "after_cpu": cpu["after"], "after_cuda": card["after"],
+            "after_rel": abs(card["after"] / cpu["after"] - 1),
+            "grad_max_rel": max(grad_rel.values()), "grad_rel": grad_rel,
+            "step_s_cpu": round(cpu["s"], 3), "step_s_cuda": round(card["s"], 3)}
+
+
+def train_path(torch, queries: dict, checks: dict, profile_dir: str | None = None):
+    """The training path, through launch/train.py's ``run`` as its
+    ``main`` drives it (see TRAIN_*), then the restore, the resume and the
+    float32 hold; every check raises.  With ``profile_dir``, one more step
+    of the live state under torch.profiler (``profile_train_step.txt``)."""
+    import math
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import copy_into, restore
+    from repro_torch.configs import get_config
+    from repro_torch.data import synth
+    from repro_torch.launch import steps, train
+    from repro_torch.models import lm
+    from repro_torch.optim import OptConfig, adamw
+
+    cfg = get_config(LM_ARCH)
+    ocfg = OptConfig(lr=3e-4, warmup_steps=2, total_steps=TRAIN_SCHEDULE)
+    t0 = time.perf_counter()
+    corpus = synth.token_corpus(TRAIN_DOCS, cfg.vocab)
+    corpus_s = time.perf_counter() - t0
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = train.run(cfg, ocfg, corpus, steps=TRAIN_STEPS,
+                        batch=TRAIN_BATCH, seq=TRAIN_SEQ, ckpt_dir=ckpt_dir,
+                        ckpt_every=TRAIN_CKPT_EVERY, device="cuda",
+                        log_every=1)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        drv, pipe = res["driver"], res["pipeline"]
+        pipe_rec = pipeline_checks(pipe, corpus)
+        del corpus
+        losses = res["losses"]
+        assert len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)), losses
+        ln_v = math.log(cfg.vocab)
+        assert abs(losses[0] - ln_v) <= 0.5, (losses[0], ln_v)
+        step_s = float(np.median(drv.stats.times))
+        tok_s = TRAIN_BATCH * TRAIN_SEQ / step_s
+        rec = {"model": cfg.name, "layers": cfg.n_layers, "dtype": cfg.param_dtype,
+               "remat": cfg.remat, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+               "steps": res["steps"], "schedule_steps": TRAIN_SCHEDULE,
+               "corpus_s": round(corpus_s, 3),
+               "pipeline_s": round(res["pipeline_s"], 3), **pipe_rec,
+               "run_s": round(run_s, 3), "losses": losses,
+               "step_ms": [round(t * 1e3, 3) for t in drv.stats.times],
+               "step_median_ms": round(step_s * 1e3, 3),
+               "tokens_per_s": round(tok_s, 1),
+               "mfu_bf16": round(cfg.model_flops_per_token() * tok_s
+                                 / BF16_OPS_PER_S, 4),
+               "model_flops_per_token": cfg.model_flops_per_token(),
+               "peak_gib": round(peak / 2**30, 3),
+               "stragglers": res["stragglers"],
+               "saves": [{k: (round(v, 3) if isinstance(v, float) else v)
+                          for k, v in r.items()} for r in drv.saver.records]}
+        log(f"train: {rec}")
+
+        # restore into a fresh state, bitwise
+        fresh_model = lm.init_params(cfg, seed=1, device="cuda")
+        fresh = {"params": fresh_model.tree(),
+                 "opt": adamw.init_state(fresh_model.tree(), ocfg)}
+        t0 = time.perf_counter()
+        tree, step, meta = restore(ckpt_dir, fresh, device="cuda")
+        copy_into(fresh, tree)
+        torch.cuda.synchronize()
+        rec["restore_s"] = round(time.perf_counter() - t0, 3)
+        del tree
+        assert step == TRAIN_STEPS and meta == {"arch": cfg.name}, (step, meta)
+        differ = differing_bits(torch, fresh, drv.state)
+        assert not differ, f"restore: entries differ {differ}"
+        rec["restored_leaves"] = sum(1 for _ in lm.leaves(fresh))
+        checks["train_restore_bitwise"] = True
+
+        # two more steps on one batch from the live and from the restored
+        # state.  The second loss reads the first step's update, made at
+        # lr > 0 from the restored step, moments and parameters: a state
+        # restored wrong changes that update by a factor of order 1, so the
+        # loss by about as much as the update moved it (``moved``, the first
+        # loss less the second); one restored right differs only where the
+        # card sums a gradient in another order (atomics), a bf16 ulp at a
+        # few entries.  Hence the bound: 1 % of ``moved``.  (On an H100 the
+        # two states came out bitwise equal, PERF.md §6; scaling the
+        # restored v by 4 moves the second loss by ~30 % of ``moved``.)
+        step_fn = steps.make_train_step(cfg, ocfg)
+        batch = token_batches(torch, cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, 1, 23,
+                              torch.device("cuda"))[0]
+        rec["resume_lr"] = [float(adamw.lr_at(TRAIN_STEPS + i + 1, ocfg))
+                            for i in range(TRAIN_MORE)]
+        live, again = [], []
+        state = drv.state
+        for _ in range(TRAIN_MORE):
+            state, loss = step_fn(state, batch)
+            live.append(float(loss))
+        for _ in range(TRAIN_MORE):
+            fresh, loss = step_fn(fresh, batch)
+            again.append(float(loss))
+        moved = again[0] - again[1]
+        d = [abs(x - y) for x, y in zip(live, again)]
+        differ = differing_bits(torch, fresh, state)
+        rec |= {"resume_losses_live": live, "resume_losses_restored": again,
+                "resume_moved": moved, "resume_entries_differing": differ}
+        checks["train_resume_first_loss_diff"] = d[0]
+        checks["train_resume_second_loss_diff"] = d[1]
+        checks["train_resume_moved"] = moved
+        # the first step's forward sees the same bits and is deterministic
+        assert d[0] == 0.0, f"resume: first loss differs by {d[0]}"
+        assert moved > 0.0, f"resume: the step did not lower the loss {again}"
+        assert d[1] <= 0.01 * moved, \
+            f"resume: second loss differs by {d[1]}, the step moved it {moved}"
+        if profile_dir:
+            prof = profile_run(torch, lambda: float(step_fn(state, batch)[1]),
+                               os.path.join(profile_dir, "profile_train_step.txt"))
+            rec["profile_1_step"] = prof
+            log(f"train step profile: {prof}")
+        del fresh, fresh_model, state, batch, drv, res
+        torch.cuda.empty_cache()
+
+        hold = train_hold(torch, cfg, ocfg)
+        rec["hold_f32_2l"] = hold
+        checks["train_f32_2l_grad_rel_vs_cpu"] = hold["grad_max_rel"]
+        checks["train_f32_2l_loss_rel_vs_cpu"] = hold["loss_rel"]
+        checks["train_f32_2l_after_rel_vs_cpu"] = hold["after_rel"]
+        # float32 on both sides, TF32 off: only summation order differs.
+        # Every gradient leaf within 1e-4 x its largest |g|, the bound the
+        # CPU tests hold the port's gradients to against jax.grad
+        assert hold["grad_max_rel"] <= 1e-4, hold
+        assert hold["loss_rel"] <= 1e-4 and hold["after_rel"] <= 1e-4, hold
+        log(f"train hold (2 layers, float32, card against CPU): {hold}")
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    queries["train"] = rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true")
@@ -3398,7 +3671,11 @@ def main(argv=None) -> int:
             "exchange_p2": (lambda: exchange_path(torch, queries),
                             dict.fromkeys(("bucket_scatter", "prefix_sum"))),
             "lm": (lambda: lm_path(torch, queries, lm_runs),
-                   {"decode_attention": get_config(LM_ARCH).n_layers * LM_NEW})}
+                   {"decode_attention": get_config(LM_ARCH).n_layers * LM_NEW}),
+            # the pipeline's filter, cumsum and aggregate; the train steps
+            # run no hand-written kernel (no cache, no Pallas in the step)
+            "train": (lambda: train_path(torch, queries, checks, args.profile),
+                      dict.fromkeys(("prefix_sum",)))}
         launched = {}
         for path, (drive, must) in paths.items():
             t0 = time.perf_counter()
@@ -3414,6 +3691,7 @@ def main(argv=None) -> int:
                 assert count is None or launched[path][name] == count, \
                     f"{name}: {launched[path][name]} launches on the {path} " \
                     f"path, expected {count}"
+        assert launched["train"]["decode_attention"] == 0, launched["train"]
         t0 = time.perf_counter()
         lm_checks(torch, lm_runs["lm"], queries, checks, args.profile)
         log(f"lm checks: {time.perf_counter() - t0:.1f} s")

@@ -1,1 +1,2 @@
-"""Synthetic data for the paper's workloads (numpy only)."""
+"""Synthetic data for the paper's workloads (numpy only) and the LM
+training pipeline built on HiFrames (``pipeline``, imported on use)."""

@@ -1,0 +1,127 @@
+"""Training launcher: --arch <id> on one device.
+
+The port of the reference package's ``launch/train.py``, the dense family:
+the arch config -> parameters and AdamW state -> the HiFrames token
+pipeline -> the fault-tolerant driver (asynchronous checkpoints,
+preemption, straggler statistics).  On the card by default; on the CPU:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
+        --reduced --device cpu --steps 4 --batch 2 --seq 32
+
+``--resume`` continues from the latest checkpoint in ``--ckpt-dir``.
+``--model-axis`` other than 1, ``--production-mesh``, ``--moe-impl`` and
+every family but dense raise ``NotImplementedError`` (ROADMAP.md §1 item
+11).  ``run`` is the body, for callers with their own corpus.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import tempfile
+import time
+
+import torch
+
+from .. import configs
+from ..core.lower import ExecConfig
+from ..data.pipeline import PipelineConfig, TokenPipeline
+from ..data.synth import token_corpus
+from ..models import lm
+from ..models.config import ModelConfig
+from ..optim import OptConfig, adamw
+from ..runtime import FTConfig, TrainDriver
+from . import steps as S
+
+
+def _not_ported(what: str):
+    return NotImplementedError(f"{what} is not ported yet: ROADMAP.md §1 item 11")
+
+
+def run(cfg: ModelConfig, ocfg: OptConfig, corpus: dict, *, steps: int,
+        batch: int, seq: int, micro: int = 1, ckpt_dir: str,
+        resume: bool = False, device="cuda", ckpt_every: int = 50,
+        log_every: int = 5) -> dict:
+    """Train ``cfg`` for ``steps`` steps on batches of ``batch`` x ``seq``
+    tokens from ``corpus`` (``synth.token_corpus``'s table) on ``device``,
+    from random weights (seed 0), checkpointing every ``ckpt_every`` steps
+    with the arch's name as metadata.
+
+    Returns the driver's result ({"steps", "losses", "stragglers",
+    "mean_step_s"}) with "driver" (the TrainDriver: its state, step times
+    and saver records), "pipeline" (the closed TokenPipeline: its plan's
+    outputs), "pipeline_s" (its construction's wall: ingest, the relational
+    stages and their host copies) and "resumed_at" (the step resumed from,
+    or None)."""
+    lm.require_dense(cfg)
+    dev = lm.device_of(device)
+    exec_cfg = ExecConfig(device=dev.type)
+    model = lm.init_params(cfg, seed=0, device=dev)
+    params = model.tree()
+    state = {"params": params, "opt": adamw.init_state(params, ocfg)}
+    step_fn = S.make_train_step(cfg, ocfg, n_micro=micro)
+    t0 = time.perf_counter()
+    pipe = TokenPipeline(corpus, PipelineConfig(
+        vocab=cfg.vocab, seq_len=seq, global_batch=batch), exec_cfg)
+    pipeline_s = time.perf_counter() - t0
+    try:
+        driver = TrainDriver(FTConfig(ckpt_dir=ckpt_dir, ckpt_every=ckpt_every),
+                             state, step_fn, metadata={"arch": cfg.name})
+        resumed = None
+        if resume and driver.maybe_resume():
+            resumed = driver.step
+            print(f"resumed at step {driver.step}")
+
+        def batches():
+            for b in pipe:
+                yield {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+        res = driver.run(batches(), num_steps=steps, log_every=log_every)
+    finally:
+        pipe.close()
+    return {**res, "driver": driver, "pipeline": pipe, "pipeline_s": pipeline_s,
+            "resumed_at": resumed}
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", required=True, choices=configs.ARCH_IDS)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--micro", type=int, default=1)
+    ap.add_argument("--model-axis", type=int, default=1)
+    ap.add_argument("--production-mesh", action="store_true")
+    ap.add_argument("--moe-impl", default=None, choices=["gspmd", "ep"])
+    ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(),
+                                                       "repro_torch_train"))
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default) or cpu")
+    args = ap.parse_args(argv)
+
+    cfg = configs.get_reduced(args.arch) if args.reduced \
+        else configs.get_config(args.arch)
+    if args.moe_impl:
+        raise _not_ported("--moe-impl (the moe family)")
+    if args.model_axis != 1 or args.production_mesh:
+        raise _not_ported("a mesh (--model-axis, --production-mesh)")
+    lm.require_dense(cfg)
+    print(f"device {args.device}; model {cfg.name} "
+          f"{cfg.param_count()/1e6:.1f}M params")
+    ocfg = OptConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 1),
+                     total_steps=args.steps)
+    res = run(cfg, ocfg, token_corpus(2_000, cfg.vocab), steps=args.steps,
+              batch=args.batch, seq=args.seq, micro=args.micro,
+              ckpt_dir=args.ckpt_dir, resume=args.resume, device=args.device)
+    if res["losses"]:
+        print(f"done: {res['steps']} steps, loss {res['losses'][0]:.3f} -> "
+              f"{res['losses'][-1]:.3f}, {res['mean_step_s']*1e3:.0f} ms/step")
+    else:
+        print(f"done: at step {res['steps']}, no step to run")
+    return res
+
+
+if __name__ == "__main__":
+    main()

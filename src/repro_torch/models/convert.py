@@ -1,4 +1,6 @@
-"""Carry the reference package's LM weights into the port, bit for bit."""
+"""Carry the reference package's LM weights and optimizer state into the
+port bit for bit, and the port's back out as numpy in the reference's
+layout."""
 from __future__ import annotations
 
 import numpy as np
@@ -9,12 +11,10 @@ from .config import ModelConfig
 
 
 def _tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    a = np.array(a)                    # an owned, writable, contiguous copy
     # bfloat16 arrives as ml_dtypes.bfloat16, which torch.from_numpy
-    # refuses: carry its bits through int16
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
-    return torch.from_numpy(a).to(device)
+    # refuses: carry its bits across as a checkpoint does
+    from ..checkpoint.ckpt import from_host, host_array  # ckpt imports lm
+    return from_host(*host_array(a), device)
 
 
 def params_from_jax(cfg: ModelConfig, params: dict, device="cuda") -> lm.LM:
@@ -37,3 +37,25 @@ def params_from_jax(cfg: ModelConfig, params: dict, device="cuda") -> lm.LM:
 
     check(want, params, "")
     return lm.LM(cfg, lm.tree_map(lambda a: _tensor(a, dev), params))
+
+
+def opt_state_from_jax(state: dict, device="cuda") -> dict:
+    """The port's AdamW state holding the same values as the reference's
+    ``adamw.init_state``/``update`` state given as numpy arrays: ``m``,
+    ``v`` (and ``master``) as nested dicts in the parameters' layout,
+    ``step`` an int32 scalar."""
+    dev = lm.device_of(device)
+    out = {k: lm.tree_map(lambda a: _tensor(a, dev), state[k])
+           for k in ("m", "v", "master") if k in state}
+    out["step"] = _tensor(np.asarray(state["step"], np.int32), dev)
+    return out
+
+
+def to_numpy(tree) -> dict:
+    """A nested dict of tensors (``LM.tree()``, an optimizer state, a train
+    state) as numpy arrays on the host, copied, encoded as a checkpoint
+    stores them (``ckpt.host_array``): bfloat16 leaves come as their
+    ``uint16`` bits (numpy has no bfloat16); view them as
+    ``ml_dtypes.bfloat16`` to read the values."""
+    from ..checkpoint.ckpt import host_array  # ckpt imports lm
+    return lm.tree_map(lambda t: host_array(t)[0].copy(), tree)

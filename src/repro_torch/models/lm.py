@@ -1,13 +1,13 @@
 """Decoder-only LM: the dense family, for serving (prefill, then decode
-through a KV cache).
+through a KV cache) and training (``loss_fn``).
 
 The port of the reference package's ``models/lm.py``.  The model is an
-``nn.Module`` (embedding, a ``ModuleList`` of blocks, final norm) whose
-parameters keep the reference's layout and names (``wq`` (d, H*hd) used as
-``x @ wq``, ``embed`` (V, d), ...), so carrying the reference's weights over
-is a copy (``convert.params_from_jax``).  ``lax.scan`` over stacked layers
-becomes a loop over the blocks; each block's parameters are views of the
-stacked (L, ...) arrays they were made from.  Entry points that allocate
+``nn.Module`` (embedding, the per-layer parameters stacked over L, final
+norm) whose parameters keep the reference's layout and names (``wq``
+(L, d, H*hd), each layer's used as ``x @ wq``, ``embed`` (V, d), ...), so
+carrying the reference's weights over is a copy
+(``convert.params_from_jax``).  ``lax.scan`` over stacked layers becomes a
+loop over the layers' views of them.  Entry points that allocate
 (``init_params``, ``init_cache``) take ``device="cuda"`` by default and
 raise without a card.
 
@@ -17,8 +17,20 @@ with k/v (L, B, max_seq, Hkv, hd) and index (L,) int32 on the device, plus
 to learn where to write.  A step writes its K/V into the cache in place and
 returns the same dict.
 
-Not ported yet (ROADMAP.md §1 item 11): the moe, ssm, hybrid and vlm
-families (they raise ``NotImplementedError``), ``loss_fn`` and training.
+Training (``loss_fn``; ``launch/steps.py::make_train_step``): a forward
+takes each layer's weights as ``unbind`` views of the stacked parameters,
+so a gradient reaches the stacked tensor in one piece.  ``LM.tree()`` gives them
+as the reference's parameter tree (nested dicts under the reference's
+names), which the optimizer state and the checkpoints are keyed by.  They
+are built with ``requires_grad=False``, so serving tracks no gradients; the
+train step differentiates through detached aliases of them (the same
+storage), and ``model.requires_grad_()`` makes ``loss.backward()`` fill
+their ``.grad`` as in any module.  ``cfg.remat == "block"`` recomputes each
+block in the backward pass (``torch.utils.checkpoint``, the reference's
+``jax.checkpoint`` per layer).
+
+Not ported yet (ROADMAP.md §1 item 11): the moe, ssm, hybrid, vlm and
+encdec families (they raise ``NotImplementedError``).
 """
 from __future__ import annotations
 
@@ -28,6 +40,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .config import ModelConfig
 from .layers import attention_block, norm, swiglu
@@ -83,11 +96,16 @@ def _ln_shapes(cfg: ModelConfig, names: tuple[str, ...]) -> dict[str, tuple]:
     return {n: (cfg.d_model,) for n in names}
 
 
-def tree_map(fn, tree):
-    """``fn`` over the leaves of a nested dict."""
+def tree_map(fn, tree, *rest, path=None):
+    """``fn`` over the leaves of nested dicts of one structure (``rest`` is
+    read at ``tree``'s keys): ``fn(leaf, *rest_leaves)``, or, given a
+    ``path`` (a tuple: the keys above ``tree``), ``fn(path, leaf, ...)``
+    with each leaf's own path."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest),
+                            path=None if path is None else path + (k,))
+                for k, v in tree.items()}
+    return fn(tree, *rest) if path is None else fn(path, tree, *rest)
 
 
 def param_shapes(cfg: ModelConfig) -> dict:
@@ -105,40 +123,110 @@ def param_shapes(cfg: ModelConfig) -> dict:
     return out
 
 
-def _frozen(t: torch.Tensor) -> nn.Parameter:
+def leaves(tree, path=()):
+    """(path, leaf) pairs of a nested dict, keys in sorted order (the
+    reference's pytree order)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from leaves(tree[k], path + (k,))
+    else:
+        yield path, tree
+
+
+def _param(t: torch.Tensor) -> nn.Parameter:
+    # no gradient tracking unless asked for (module docstring)
     return nn.Parameter(t, requires_grad=False)
 
 
-class Block(nn.Module):
-    """One transformer layer: ``attn`` and ``mlp`` weights by name, and the
-    norm scales ``ln1``/``ln2`` (None for a non-parametric LayerNorm)."""
+class Block:
+    """One transformer layer's weights, views of the stacked tensors:
+    ``attn`` and ``mlp`` by name, and the norm scales ``ln1``/``ln2`` (None
+    for a non-parametric LayerNorm)."""
+
+    def __init__(self, tensors: dict):
+        self.attn = tensors["attn"]
+        self.mlp = tensors["mlp"]
+        self.ln1 = tensors.get("ln1")
+        self.ln2 = tensors.get("ln2")
+
+
+def unstack(layers: dict, n_layers: int) -> list[Block]:
+    """Each layer's weights as views of the stacked (L, ...) tensors, one
+    ``unbind`` a tensor: its backward is one ``stack`` of the L gradients."""
+    parts = tree_map(lambda t: t.unbind(0), layers)
+    return [Block(tree_map(lambda u, i=i: u[i], parts)) for i in range(n_layers)]
+
+
+class Layers(nn.Module):
+    """The per-layer parameters, stacked over a leading L dim."""
 
     def __init__(self, tensors: dict):
         super().__init__()
-        self.attn = nn.ParameterDict({k: _frozen(v)
+        self.attn = nn.ParameterDict({k: _param(v)
                                       for k, v in tensors["attn"].items()})
-        self.mlp = nn.ParameterDict({k: _frozen(v)
+        self.mlp = nn.ParameterDict({k: _param(v)
                                      for k, v in tensors["mlp"].items()})
         for name in ("ln1", "ln2"):
             self.register_parameter(
-                name, _frozen(tensors[name]) if name in tensors else None)
+                name, _param(tensors[name]) if name in tensors else None)
 
 
 class LM(nn.Module):
     """The dense decoder-only LM, built from a nested dict of tensors in
-    ``param_shapes(cfg)``'s layout (per-layer entries stacked over L)."""
+    ``param_shapes(cfg)``'s layout (per-layer entries stacked over L); the
+    tensors become its parameters without a copy."""
 
     def __init__(self, cfg: ModelConfig, tree: dict):
         super().__init__()
         require_dense(cfg)
         self.cfg = cfg
-        self.embed = _frozen(tree["embed"])
+        self.embed = _param(tree["embed"])
         self.register_parameter(
-            "lm_head", None if cfg.tie_embeddings else _frozen(tree["lm_head"]))
-        self.final_ln = _frozen(tree["final_ln"])
-        self.blocks = nn.ModuleList(
-            Block(tree_map(lambda t, i=i: t[i], tree["layers"]))
-            for i in range(cfg.n_layers))
+            "lm_head", None if cfg.tie_embeddings else _param(tree["lm_head"]))
+        self.final_ln = _param(tree["final_ln"])
+        self.layers = Layers(tree["layers"])
+
+    def tree(self) -> dict:
+        """The parameters as the reference's tree: nested dicts of the
+        module's own tensors (not copies), per-layer entries stacked."""
+        out: dict[str, Any] = {"embed": self.embed}
+        if self.lm_head is not None:
+            out["lm_head"] = self.lm_head
+        out["final_ln"] = self.final_ln
+        lay = self.layers
+        out["layers"] = {"attn": dict(lay.attn), "mlp": dict(lay.mlp)}
+        for name in ("ln1", "ln2"):
+            if getattr(lay, name) is not None:
+                out["layers"][name] = getattr(lay, name)
+        return out
+
+    @property
+    def blocks(self) -> list[Block]:
+        """Each layer's weights, views of the stacked parameters without
+        autograd history."""
+        return unstack(tree_map(torch.Tensor.detach, self.tree()["layers"]),
+                       self.cfg.n_layers)
+
+
+def copy_into(dst: dict, src: dict) -> None:
+    """Copy the leaves of nested dict ``src`` into the tensors of ``dst``
+    at the same paths, in place; paths ``src`` lacks keep their values.
+    Shapes must agree."""
+    for k, d in dst.items():
+        if k not in src:
+            continue
+        if isinstance(d, dict):
+            copy_into(d, src[k])
+            continue
+        s = src[k]
+        if not isinstance(s, torch.Tensor):
+            s = torch.as_tensor(s)
+        if tuple(s.shape) != tuple(d.shape):
+            raise ValueError(f"{k!r}: shape {tuple(s.shape)}, expected "
+                             f"{tuple(d.shape)}")
+        if s is not d:
+            with torch.no_grad():
+                d.copy_(s)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> LM:
@@ -177,19 +265,23 @@ def _transformer_block(lp: Block, x, cfg: ModelConfig, positions, cache=None):
     return x + swiglu(lp.mlp, norm(x, lp.ln2, cfg))
 
 
-def forward(params: LM, tokens, cfg: ModelConfig, *, caches=None,
+def forward(params, tokens, cfg: ModelConfig, *, caches=None,
             q_offset=None):
-    """Shared forward.  tokens: (B, S) int32.
+    """Shared forward.  params: an ``LM`` or its ``tree()`` (nested dicts of
+    tensors in ``param_shapes(cfg)``'s layout); tokens: (B, S) int32.
 
     caches: None for a full forward (logits at every position); a cache
     from ``init_cache`` for prefill and decode, written at its host_index.
     Returns (logits, caches, aux_loss) as the reference does; aux_loss is 0
-    for the dense family.
+    for the dense family.  Without a cache and with gradients tracked,
+    ``cfg.remat == "block"`` keeps only each block's input for the backward
+    pass and recomputes the rest.
     """
     require_dense(cfg)
+    tree = params.tree() if isinstance(params, LM) else params
     cdt = _dt(cfg)
     b, s = tokens.shape
-    x = F.embedding(tokens, params.embed).to(cdt)
+    x = F.embedding(tokens, tree["embed"]).to(cdt)
     positions = (torch.arange(s, dtype=torch.int32, device=x.device)[None, :]
                  + (q_offset or 0)).expand(b, s)
 
@@ -201,16 +293,40 @@ def forward(params: LM, tokens, cfg: ModelConfig, *, caches=None,
                   if s == 1 else None)
         layer_caches = [{"k": c["k"][i], "v": c["v"][i], "index": idx,
                          "length": length} for i in range(cfg.n_layers)]
-    for blk, cache in zip(params.blocks, layer_caches):
-        x = _transformer_block(blk, x, cfg, positions, cache=cache)
+    remat = (cfg.remat == "block" and caches is None and torch.is_grad_enabled()
+             and any(t.requires_grad for _, t in leaves(tree)))
+    for blk, cache in zip(unstack(tree["layers"], cfg.n_layers), layer_caches):
+        if remat:
+            x = checkpoint(_transformer_block, blk, x, cfg, positions,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _transformer_block(blk, x, cfg, positions, cache=cache)
     if caches is not None:
         c["index"].fill_(idx + s)
         caches["host_index"] = idx + s
 
-    x = norm(x, params.final_ln, cfg)
-    head = params.embed if cfg.tie_embeddings else params.lm_head
+    x = norm(x, tree["final_ln"], cfg)
+    head = tree["embed"] if cfg.tie_embeddings else tree["lm_head"]
     logits = x @ head.to(cdt).T
     return logits, caches, 0.0
+
+
+def loss_fn(params, batch: dict, cfg: ModelConfig):
+    """Causal LM loss, as the reference computes it: float32 logits,
+    ``logsumexp - gold`` at every position whose label is >= 0, the mean
+    over those positions (at least 1), plus 0.01 x the aux loss.
+    batch: {"tokens" (B, S) int32, "labels" (B, S) int32}."""
+    logits, _, aux = forward(params, batch["tokens"], cfg)
+    labels = batch["labels"]
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    # a masked label gathers row 0 (the reference wraps -1 to V - 1); either
+    # way the mask zeroes its term and its gradient
+    gold = torch.gather(logits, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    ll = (logz - gold) * mask
+    loss = ll.sum() / torch.clamp(mask.sum(), min=1.0)
+    return loss + 0.01 * aux
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """Capacity-overflow retry and graceful-degradation policy.
 
 One :class:`RetryPolicy` drives every re-execution decision of
-``DataFrame.collect()`` / ``persist()`` / ``collect_matrix()``:
+``DataFrame.collect()`` / ``persist()`` / ``collect_matrix()``, and its
+slack-doubling loop (``run_slack``) that of ``ft.run_with_overflow_retry``:
 
   * **Per-op escalation** (scope="op", the default): a failed run's
     ``DTable.overflow_ops`` attribution (core/lower.py capacity sites) maps
@@ -140,6 +141,28 @@ class RetryPolicy:
                 return lowered, t, tuple(events), cfg
             cfg = self._escalate(cfg, lowered, t, events, attempt)
             attempt += 1
+
+    # -- ft.run_with_overflow_retry's loop ----------------------------------
+
+    def run_slack(self, build_and_run, base_slack: float = 2.0):
+        """The slack-doubling loop: ``build_and_run(slack)`` returns a
+        DTable; an overflow doubles the slack.  Returns (table, attempts);
+        raises :class:`CapacityOverflow` once ``max_retries`` retries still
+        overflow."""
+        slack = base_slack
+        last = base_slack
+        for attempt in range(self.max_retries + 1):
+            table = build_and_run(slack)
+            if not getattr(table, "overflow", False):
+                return table, attempt
+            last = slack
+            slack *= 2.0
+        raise err.CapacityOverflow(
+            attempts=self.max_retries + 1,
+            message=(f"shuffle capacity overflow persisted after "
+                     f"{self.max_retries} retries (last slack attempted "
+                     f"{last}) — data skew exceeds plan bounds (cf. paper "
+                     "Q05 skew discussion)"))
 
     # -- escalation ----------------------------------------------------------
 

@@ -1035,3 +1035,117 @@ def test_serve_session_on_card_matches_cpu(card):
     for a, b in zip(on_card[:3], on_card[3:6]):          # pass 2 = pass 1
         for c in a:
             assert a[c].tobytes() == b[c].tobytes(), c
+
+
+# The training path: the train step, a checkpoint and the token
+# pipeline on the card against the CPU.
+
+@pytest.mark.cuda
+def test_train_step_on_card_matches_cpu(card):
+    """Two layers at qwen3-0.6b's widths (vocab cut to 4096) in float32 with
+    TF32 off: the gradient and one train step from the same weights and
+    batch on the card and on the CPU.  Every gradient leaf agrees within
+    1e-4 x its largest |g| (the bound the CPU tests hold against jax.grad),
+    and the step's loss and the loss of the batch after the step within
+    1e-5 relative (summation order only)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.optim import OptConfig, adamw
+
+    cfg = get_config("qwen3-0.6b").replace(n_layers=2, vocab=4096,
+                                           param_dtype="float32",
+                                           compute_dtype="float32")
+    ocfg = OptConfig(lr=3e-4, warmup_steps=2, total_steps=10)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 65)).astype(np.int32)
+    cpu_model = lm.init_params(cfg, seed=0, device="cpu")
+    card_model = lm.LM(cfg, lm.tree_map(lambda t: t.detach().to(card, copy=True),
+                                        cpu_model.tree()))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = []
+        for model, dev in ((cpu_model, torch.device("cpu")), (card_model, card)):
+            batch = {"tokens": torch.from_numpy(toks[:, :-1].copy()).to(dev),
+                     "labels": torch.from_numpy(toks[:, 1:].copy()).to(dev)}
+            _, grads = steps.value_and_grad(steps.make_loss_fn(cfg),
+                                            model.tree(), batch)
+            state = {"params": model.tree(),
+                     "opt": adamw.init_state(model.tree(), ocfg)}
+            state, loss = steps.make_train_step(cfg, ocfg)(state, batch)
+            with torch.no_grad():
+                after = lm.loss_fn(state["params"], batch, cfg)
+            out.append((float(loss), float(after), state, grads))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (lc, ac, sc, gc), (lg, ag, sg, gg) = out
+    assert abs(lg / lc - 1) <= 1e-5 and abs(ag / ac - 1) <= 1e-5, (lc, lg, ac, ag)
+    assert int(sg["opt"]["step"]) == 1 and sg["opt"]["step"].device.type == "cuda"
+    for (path, x), (_, y) in zip(lm.leaves(gg), lm.leaves(gc)):
+        assert x.device.type == "cuda"
+        err = float((x.cpu() - y).abs().max())
+        assert err <= 1e-4 * float(y.abs().max()), (path, err)
+
+
+@pytest.mark.cuda
+def test_checkpoint_from_cpu_restores_on_card_bitwise(card, tmp_path):
+    """A bf16 train state saved from the CPU restores onto the card with
+    the same bits, in place into a live state there."""
+    from repro_torch.checkpoint import copy_into, restore, save
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import lm
+    from repro_torch.optim import OptConfig, adamw
+
+    cfg = get_reduced("qwen3-0.6b")
+    ocfg = OptConfig(use_master=True)
+    model = lm.init_params(cfg, seed=0, device="cpu")
+    state = {"params": model.tree(), "opt": adamw.init_state(model.tree(), ocfg)}
+    state["opt"]["step"].fill_(4)
+    save(str(tmp_path), 4, state)
+    live_model = lm.init_params(cfg, seed=1, device=card)
+    live = {"params": live_model.tree(),
+            "opt": adamw.init_state(live_model.tree(), ocfg)}
+    tree, step, _ = restore(str(tmp_path), live)
+    assert step == 4
+    wq = live["params"]["layers"]["attn"]["wq"]
+    copy_into(live, tree)
+    assert live["params"]["layers"]["attn"]["wq"] is wq
+    bits = {2: torch.int16, 4: torch.int32}
+    for (path, x), (_, y) in zip(lm.leaves(live), lm.leaves(state)):
+        assert x.device.type == "cuda" and x.dtype == y.dtype, path
+        if x.dtype.is_floating_point:
+            x, y = x.view(bits[x.element_size()]), y.view(bits[y.element_size()])
+        assert torch.equal(x.cpu(), y), path
+    assert torch.equal(live_model.blocks[1].attn["wq"].cpu().view(torch.int16),
+                       model.blocks[1].attn["wq"].view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_token_pipeline_on_card_matches_cpu(card):
+    """The token pipeline's plan on the card (prefix_sum launched) gives the
+    CPU's curated rows, offsets, bucket statistics and batches exactly."""
+    from repro_torch import hiframes as hf
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.data.synth import token_corpus
+    from repro_torch.kernels import cuda
+
+    corpus = token_corpus(20_000, 4096)
+    pcfg = PipelineConfig(vocab=4096, seq_len=32, global_batch=4)
+    launched = cuda.launches["prefix_sum"]
+    on_card = TokenPipeline(corpus, pcfg)
+    on_cpu = TokenPipeline(corpus, pcfg, hf.ExecConfig(device="cpu"))
+    try:
+        assert cuda.launches["prefix_sum"] > launched
+        for name in ("doc_len", "doc_seed", "doc_offset"):
+            assert np.array_equal(getattr(on_card, name), getattr(on_cpu, name)), name
+        assert on_card.total_tokens == on_cpu.total_tokens
+        for k, v in on_cpu.bucket_stats.items():
+            order_a = np.argsort(on_card.bucket_stats["bucket"])
+            order_b = np.argsort(on_cpu.bucket_stats["bucket"])
+            assert np.array_equal(on_card.bucket_stats[k][order_a], v[order_b]), k
+        for _ in range(2):
+            a, b = next(on_card), next(on_cpu)
+            assert all(np.array_equal(a[k], b[k]) for k in a)
+    finally:
+        on_card.close()
+        on_cpu.close()
