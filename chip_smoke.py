@@ -11,8 +11,8 @@ Phases, in order; any failure raises and the exit code is not 0:
    PyTorch version on the card, at sizes 0 .. 2^27 (segment lengths 1, 64
    and 2^16; stencils of 1, 3, 5, 7 and 20 taps at centres 0, K // 2 and
    the main path's K - 1; decode_attention at the reference's test shapes
-   in float32 and bfloat16 and at the LM path's shape with lengths 1 ..
-   2304), then held again and timed on the main path's inputs with CUDA
+   in float32 and bfloat16 and at the moe and LM paths' decode shapes
+   with lengths 1 .. the cache's rows), then held again and timed on the main path's inputs with CUDA
    events (median of 15 runs, each the mean of back-to-back calls filling
    ~2 ms) beside the plain version, one PyTorch library
    call where there is one, and its bound (the larger of bytes moved /
@@ -32,12 +32,16 @@ Phases, in order; any failure raises and the exit code is not 0:
    over P counts) is held exactly at P = 1 .. 2048, around its tile, on one
    bucket, all rows invalid, an invalid tail, misaligned views and back to
    back calls, profiled as one kernel plus one memset, and timed at P = 8
-   and 256 beside torch.sort(stable=True).  The stencils are held bitwise
-   (0 ulps) in every mode, also around their 4096-output tile, on ragged
-   ends, on views not 16-byte aligned and past the 1024 taps staged at
-   once.
-3. The ten main paths, each with the launch counters zeroed just before
-   it and read just after:
+   and 256 beside torch.sort(stable=True); at the moe path's P = 64 over
+   each token's 6 distinct experts at n = 196,608 (its prefill) and 96 (a
+   decode step) and 24,576 (a train micro-batch), held against the
+   reference's one-hot cumsum rank too and
+   timed at 196,608 beside it and torch.sort(stable=True).  The stencils
+   are held bitwise (0 ulps) in every mode, also around their 4096-output
+   tile, on ragged ends, on views not 16-byte aligned and past the 1024
+   taps staged at once.
+3. The twelve main paths, each with the launch counters zeroed just
+   before it and read just after:
    - relational, through ``hf`` at P = 1: Fig. 8a filter, join and
      aggregate and TPCx-BB Q26 / Q26-multikey against numpy oracles;
      prefix_sum and segment_sums must have launched;
@@ -147,7 +151,26 @@ Phases, in order; any failure raises and the exit code is not 0:
      two more steps from the live and the restored state (the first loss
      equal, the second within 1e-2); the step at 2 layers in float32 held
      against the CPU (losses within 1e-4 relative).  prefix_sum must have
-     launched, decode_attention must not.
+     launched, decode_attention must not;
+   - moe, through ``repro_torch.launch.steps``: deepseek-moe-16b as
+     published (28 layers, 1 dense + 27 MoE of 64 experts, top 6, 2 shared;
+     bf16, random weights from a seed, 32.75 GB) serves 16 prompts of 2048
+     tokens with 128 greedy new tokens; decode_attention must have launched
+     exactly 28 x 128 times and bucket_scatter (each MoE layer's ranks
+     within its experts) 27 x (1 + 128).  After the path: the same weights
+     at capacity factor E / top_k (no row dropped, checked) serve 2 x 256
+     prompt tokens + 32 new, held against the no-cache forward (within
+     0.1), and 2 layers (1 dense + 1 MoE) at full width in float32 are held
+     against the CPU: a full forward and a prefill + decode (logits within
+     1e-3) and the train step's loss (within 1e-4 relative) and gradient
+     (each leaf within 1e-4 x its largest |g|, remat per block as trained);
+   - moe_train, through ``repro_torch.launch.train.run``: deepseek-moe-16b
+     at full width and 4 layers (1 dense + 3 MoE, bf16, remat per block)
+     trained 5 AdamW steps of 8 x 2048 tokens in 4 micro-batches on a
+     2^16-document token corpus; every loss finite, the first within 0.5
+     of ln V; the one checkpoint restored into a fresh state, bitwise.
+     prefix_sum and bucket_scatter must have launched, decode_attention
+     must not.
 4. Report: a JSON line of query wall times, LM serving and training times, peak memory
    and the checks' largest differences (with a digest of the bytes of the
    float32 cumsums, fig8b_cumsum's and the grouped one's, and of
@@ -353,11 +376,18 @@ def one_call_profiles(torch, n: int) -> dict:
     return out
 
 
-# bucket_scatter (csrc/bucket_scatter.cu): the bucket counts it is held at,
-# and the two it is timed at (a node of 8 cards; a 256-rank deployment)
-BUCKET_PS = (1, 2, 8, 255, 256, 1024, 2048)
+# bucket_scatter (csrc/bucket_scatter.cu): the bucket counts it is held at
+# (384: kimi-k2's experts), and the two it is timed at (a node of 8 cards;
+# a 256-rank deployment)
+BUCKET_PS = (1, 2, 8, 255, 256, 384, 1024, 2048)
 BUCKET_TIMED_PS = (8, 256)
 BUCKET_KERNEL = "scatter_tiles"
+# and at the moe paths' shapes: P = E = 64 over the T·k rows of
+# deepseek-moe-16b's prefill (16 x 2048 tokens, top 6), decode step (16
+# tokens) and train micro-batch (8 // 4 x 2048 tokens), timed at the
+# prefill's
+MOE_BUCKET_P = 64
+MOE_BUCKET_NS = (16 * 2048 * 6, 16 * 6, 8 // 4 * 2048 * 6)
 
 
 def bucket_scatter_phases(torch, sizes, record: dict):
@@ -435,6 +465,36 @@ def bucket_scatter_phases(torch, sizes, record: dict):
            "library_note": "no one-call equivalent; stable_sort_ms is "
                            "torch.sort(dest, stable=True), a reference point",
            "tile_rows_by_p": tiles, "by_p": by_p}
+
+    # the moe path's shapes: each token's top_k distinct experts
+    P, k = MOE_BUCKET_P, 6
+
+    def expert_ids(n):
+        d = torch.rand((n // k, P), device=dev, generator=g).argsort(1)[:, :k]
+        return d.reshape(-1).to(torch.int32).contiguous()
+    for n in MOE_BUCKET_NS:
+        held(expert_ids(n), P, f"moe n={n}")
+    n = MOE_BUCKET_NS[0]
+    dest = expert_ids(n)
+    held(dest, P, f"moe timed inputs n={n}")
+
+    def onehot_rank():
+        # the reference's formula (src/repro/models/moe.py:83-85) in torch
+        onehot = torch.nn.functional.one_hot(dest.long(), P).to(torch.int32)
+        return ((torch.cumsum(onehot, 0, dtype=torch.int32) - onehot)
+                * onehot).sum(1, dtype=torch.int32)
+    assert torch.equal(onehot_rank(), hp.bucket_scatter_cuda(dest, P)[0]), \
+        "bucket_scatter against the one-hot cumsum rank"
+    moe = {"n": n, "P": P,
+           "ms": time_ms(lambda: hp.bucket_scatter_cuda(dest, P), torch),
+           "plain_ms": time_ms(lambda: hp.bucket_scatter_plain(dest, P), torch),
+           "onehot_cumsum_ms": time_ms(onehot_rank, torch),
+           "stable_sort_ms": time_ms(lambda: torch.sort(dest, stable=True),
+                                     torch)}
+    moe["bound_ms"], moe["bound_by"] = bound_ms(8.0 * n + 4 * P, n)
+    rec["moe_p64"] = moe
+    log(f"bucket_scatter P={P}: ok at the moe path's n = {MOE_BUCKET_NS}; "
+        f"timed {moe}")
     record["bucket_scatter"] = rec
 
 
@@ -1098,9 +1158,9 @@ LM_MID = LM_PROMPT + LM_NEW // 2
 
 def decode_attention_phases(torch, record: dict):
     """decode_attention against its plain version: the reference's test
-    shapes (random and full lengths) in float32 and bfloat16, and the LM
-    decode path's shape with per-row lengths 1, 511, 512, 513, 2048, 2304
-    and random ones.  Both compute in float32 and round once to q's dtype,
+    shapes (random and full lengths) in float32 and bfloat16, and the
+    decode shapes of the moe and LM paths, each with per-row lengths 1,
+    511, 512, 513, 2048, its cache's rows and random ones.  Both compute in float32 and round once to q's dtype,
     so an element may differ by 2e-5 (the reference's float32 tolerance
     between its kernel and its oracle) plus, in bfloat16, one rounding
     step of the output: |got - want| <= 2^-7 |want| + 2e-5."""
@@ -1147,18 +1207,20 @@ def decode_attention_phases(torch, record: dict):
                 held(q, k, v, lens, f"{(b, s, hkv, gq, hd)} {dt} {what} lengths")
         log(f"decode_attention {(b, s, hkv, gq, hd)}: ok in float32 and bfloat16")
 
-    cfg = get_config(LM_ARCH)
-    b, s = LM_BATCH, LM_PROMPT + LM_NEW
-    hkv, gq, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.hd
-    edges = torch.tensor([1, 511, 512, 513, 2048, 2304], dtype=torch.int32)
-    for dt in (bf16, f32):
-        q, k, v = inputs(b, s, hkv, gq, hd, dt)
-        length = torch.randint(1, s + 1, (b,), device=dev, generator=g,
-                               dtype=torch.int32)
-        length[:len(edges)] = edges
-        held(q, k, v, length, f"main path shape {dt}")
-        log(f"decode_attention main path shape {(b, s, hkv, gq, hd)} {dt}: ok")
-        del q, k, v
+    for arch, b, s in ((MOE_ARCH, MOE_BATCH, MOE_PROMPT + MOE_NEW),
+                       (LM_ARCH, LM_BATCH, LM_PROMPT + LM_NEW)):
+        cfg = get_config(arch)
+        hkv, gq, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.hd
+        edges = torch.tensor([1, 511, 512, 513, 2048, s], dtype=torch.int32)
+        for dt in (bf16, f32):
+            q, k, v = inputs(b, s, hkv, gq, hd, dt)
+            length = torch.randint(1, s + 1, (b,), device=dev, generator=g,
+                                   dtype=torch.int32)
+            length[:len(edges)] = edges
+            held(q, k, v, length, f"{arch} path shape {dt}")
+            log(f"decode_attention {arch} path shape {(b, s, hkv, gq, hd)} "
+                f"{dt}: ok")
+            del q, k, v
 
     # timed at the main path's shape in bfloat16, all rows at LM_MID
     q, k, v = inputs(b, s, hkv, gq, hd, bf16)
@@ -3183,19 +3245,22 @@ def exchange_path(torch, queries: dict) -> dict:
     return {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
 
 
-def lm_serve(torch, cfg, keep: list, seed: int = 0) -> dict:
+def lm_serve(torch, cfg, keep: list, seed: int = 0,
+             shape: tuple = (LM_BATCH, LM_PROMPT, LM_NEW), model=None) -> dict:
     """Serve ``cfg`` as examples/serve_lm.py does, through the port's entry
-    points (launch/steps.py): random weights from ``seed`` on the card,
-    LM_BATCH prompts of LM_PROMPT token ids from numpy, one prefill into a
-    cache of LM_PROMPT + LM_NEW rows, then LM_NEW greedy decode steps.
-    Returns timings, the tokens, and the logits of requests ``keep`` at the
-    prefill's last position and at every decode step."""
+    points (launch/steps.py): random weights from ``seed`` on the card (or
+    ``model``), ``shape`` = (requests, prompt tokens, new tokens): the
+    prompts' token ids from numpy, one prefill into a cache of prompt + new
+    rows, then greedy decode steps.  Returns timings, the tokens, and the
+    logits of requests ``keep`` at the prefill's last position and at every
+    decode step."""
     from repro_torch.launch import steps
     from repro_torch.models import lm
 
     dev = torch.device("cuda")
-    b, s, t = LM_BATCH, LM_PROMPT, LM_NEW
-    model = lm.init_params(cfg, seed=seed, device=dev)
+    b, s, t = shape
+    if model is None:
+        model = lm.init_params(cfg, seed=seed, device=dev)
     prompts = np.random.default_rng(seed).integers(0, cfg.vocab, (b, s))
     tokens = torch.from_numpy(prompts.astype(np.int32)).to(dev)
     prefill = steps.make_prefill_step(cfg, s + t)
@@ -3224,7 +3289,7 @@ def lm_serve(torch, cfg, keep: list, seed: int = 0) -> dict:
     assert caches["host_index"] == s + t
     assert bool((caches["layers"]["index"] == s + t).all())
     return {"model": model, "tokens": tokens, "gen": torch.cat(gen, 1),
-            "kept": torch.stack(kept, 1), "keep": keep,
+            "kept": torch.stack(kept, 1), "keep": keep, "shape": shape,
             "stats": {
                 "prefill_ms": round(t_prefill * 1e3, 3),
                 "prefill_tok_s": round(b * s / t_prefill, 1),
@@ -3244,13 +3309,14 @@ def lm_against_full_forward(torch, cfg, run: dict) -> float:
     from repro_torch.models import lm
 
     keep, gen, kept = run["keep"], run["gen"], run["kept"]
-    assert gen.shape == (LM_BATCH, LM_NEW)
+    b, s, t = run["shape"]
+    assert gen.shape == (b, t)
     assert bool(((gen >= 0) & (gen < cfg.vocab)).all())
-    assert kept.shape == (len(keep), LM_NEW + 1, cfg.vocab)
+    assert kept.shape == (len(keep), t + 1, cfg.vocab)
     assert bool(torch.isfinite(kept.float()).all())
     seq = torch.cat([run["tokens"][keep], gen[keep]], 1)
     full = lm.forward(run["model"], seq, cfg)[0]
-    want = full[:, LM_PROMPT - 1:]
+    want = full[:, s - 1:]
     assert bool(torch.isfinite(want.float()).all())
     return float((kept.float() - want.float()).abs().max())
 
@@ -3401,19 +3467,30 @@ def token_batches(torch, vocab: int, b: int, s: int, n: int, seed: int, dev):
     return out
 
 
-def train_hold(torch, cfg, ocfg) -> dict:
-    """The train step at ``cfg``'s widths with 2 layers in float32 (TF32
-    off) on the card and on the CPU from the same weights and batch: each
-    gradient leaf's largest difference over its largest |g|, the step's
-    loss, and the loss of the same batch after the update."""
-    from repro_torch.launch import steps
+def hold_models(torch, cfg) -> tuple:
+    """``cfg``'s widths at 2 layers in float32: random weights from a seed
+    on the CPU, and a copy of them on the card."""
     from repro_torch.models import lm
-    from repro_torch.optim import adamw
 
     c = cfg.replace(n_layers=2, param_dtype="float32", compute_dtype="float32")
     cpu_model = lm.init_params(c, seed=3, device="cpu")
     card_model = lm.LM(c, lm.tree_map(lambda t: t.detach().to("cuda", copy=True),
                                       cpu_model.tree()))
+    return cpu_model, card_model
+
+
+def train_hold(torch, cfg, ocfg, models=None) -> dict:
+    """The train step at ``cfg``'s widths with 2 layers in float32 (TF32
+    off) on the card and on the CPU from the same weights (``models`` from
+    ``hold_models``, made here if None; the step updates them) and batch:
+    each gradient leaf's largest difference over its largest |g|, the
+    step's loss, and the loss of the same batch after the update."""
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+
+    c = cfg.replace(n_layers=2, param_dtype="float32", compute_dtype="float32")
+    cpu_model, card_model = models or hold_models(torch, cfg)
     b, s = TRAIN_HOLD
     out = {}
     for name, model in (("cpu", cpu_model), ("cuda", card_model)):
@@ -3578,6 +3655,273 @@ def train_path(torch, queries: dict, checks: dict, profile_dir: str | None = Non
     queries["train"] = rec
 
 
+# The moe path: deepseek-moe-16b as published (28 layers: 1 dense with ff
+# 10944, then 27 MoE with 64 routed experts of ff 1408, top 6, and 2 shared;
+# d 2048, 16 heads, V 102400; bf16, random weights from a seed), served
+# through launch/steps.py: 16 requests of 2048 prompt tokens, 128 greedy new
+# tokens (cut from 256 to keep the script within its time limit).  Every
+# MoE layer ranks its T·k rows within their experts through bucket_scatter
+# (P = E = 64), once in the prefill and once a decode step.  After the path:
+# the same weights at capacity_factor E / top_k (C >= T: no row dropped)
+# held against the no-cache forward; full width at 2 layers (1 dense + 1
+# MoE) in float32 held against the CPU, its logits and its train step's
+# gradient.  Then moe_train: 4 layers (1 dense + 3 MoE) at full width
+# trained through launch/train.run, one checkpoint at the end, restored
+# bitwise.
+MOE_ARCH = "deepseek-moe-16b"
+MOE_BATCH, MOE_PROMPT, MOE_NEW = 16, 2048, 128
+MOE_NODROP = (2, 256, 32)        # requests, prompt tokens, new tokens
+MOE_HOLD = (2, 128, 8)           # requests, tokens, of them decoded last
+MOE_TRAIN_LAYERS = 4
+MOE_TRAIN_STEPS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 5, 8, 2048
+MOE_TRAIN_DOCS = 2**16
+
+
+class RouteRecorder:
+    """Wraps ``repro_torch.models.moe.route`` while in use.  With ``first``,
+    keeps the first ``first`` calls' (counts, C, rows) and then unwraps
+    itself, so that the calls after them run as the port runs them; without
+    it, counts every call and sums the rows each drops on the device (no
+    host synchronisation)."""
+
+    def __init__(self, first: int | None = None):
+        self.first_n, self.calls, self.first, self.dropped = first, 0, [], None
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._orig = orig = moe.route
+
+        def route(p, xt, cfg):
+            r = orig(p, xt, cfg)
+            self.calls += 1
+            if self.first_n is not None:
+                self.first.append((r.counts, r.C, r.slot.numel()))
+                if len(self.first) == self.first_n:
+                    moe.route = orig
+                return r
+            over = (r.counts - r.C).clamp(min=0).sum()
+            self.dropped = over if self.dropped is None else self.dropped + over
+            return r
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.route = self._orig
+
+    def dropped_rows(self) -> int:
+        return 0 if self.dropped is None else int(self.dropped)
+
+
+def moe_path(torch, queries: dict, runs: dict):
+    """The moe serving path (see MOE_*); requests 0 and MOE_BATCH - 1 kept
+    for the checks after the path."""
+    from repro_torch.configs import get_config
+    cfg = get_config(MOE_ARCH)
+    torch.cuda.empty_cache()
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    # the prefill's routings recorded; the decode steps run unwrapped
+    with RouteRecorder(first=n_moe) as rec:
+        run = lm_serve(torch, cfg, keep=[0, MOE_BATCH - 1],
+                       shape=(MOE_BATCH, MOE_PROMPT, MOE_NEW))
+    assert rec.calls == n_moe, rec.calls
+    # each prefill layer's share of its T·k rows dropped: Σ max(counts - C,
+    # 0) / (T·k)
+    shares = [float((c - C).clamp(min=0).sum()) / n for c, C, n in rec.first]
+    queries["moe_serve"] = {
+        "model": cfg.name, "layers": cfg.n_layers, "experts": cfg.n_experts,
+        "top_k": cfg.top_k, "capacity_factor": cfg.capacity_factor,
+        "params": cfg.param_count(), "active_params": cfg.active_param_count(),
+        "requests": MOE_BATCH, "prompt_tokens": MOE_PROMPT,
+        "new_tokens": MOE_NEW, **run["stats"],
+        "prefill_capacity": rec.first[0][1],
+        "prefill_drop_share_first_moe_layer": shares[0],
+        "prefill_drop_share_by_layer": shares}
+    log(f"moe_serve: {queries['moe_serve']}")
+    runs["moe"] = run
+
+
+def moe_hold(torch, cfg, models) -> dict:
+    """``cfg``'s widths at 2 layers (1 dense + 1 MoE) in float32 (TF32 off)
+    on the card and on the CPU from the same weights and tokens: the largest
+    logit difference of a full forward, and of a prefill of the first
+    tokens followed by the last MOE_HOLD[2] fed one by one."""
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+
+    c = cfg.replace(n_layers=2, param_dtype="float32", compute_dtype="float32")
+    b, s, t = MOE_HOLD
+    cpu_model, card_model = models
+    toks = np.random.default_rng(5).integers(0, c.vocab, (b, s)).astype(np.int32)
+    out = {}
+    for name, model in (("cpu", cpu_model), ("cuda", card_model)):
+        tokens = torch.from_numpy(toks).to(name)
+        with torch.no_grad():
+            full, _, aux = lm.forward(model, tokens, c)
+            logits, caches = steps.make_prefill_step(c, s)(
+                model, {"tokens": tokens[:, :s - t]})
+            served = [logits]
+            for i in range(s - t, s):
+                logits, caches = steps.make_decode_step(c)(
+                    model, tokens[:, i:i + 1], caches)
+                served.append(logits)
+        out[name] = (full.cpu(), torch.stack(served, 1).cpu(), float(aux))
+    (fc, sc, ac), (fg, sg, ag) = out["cpu"], out["cuda"]
+    return {"forward_max_abs": float((fg - fc).abs().max()),
+            "served_max_abs": float((sg - sc).abs().max()),
+            "aux_cpu": ac, "aux_cuda": ag,
+            "logit_scale": float(fc.abs().max())}
+
+
+def moe_checks(torch, run: dict, queries: dict, checks: dict):
+    """After the counted moe path: (a) its bf16 logits finite and in range;
+    the same weights at capacity_factor E / top_k (no row dropped, checked)
+    serving MOE_NODROP, held against the no-cache forward within 0.1; (b)
+    moe_hold within 1e-3; (c) train_hold on the same 2-layer weights: the
+    loss within 1e-4 relative, each gradient leaf within 1e-4 x its
+    largest |g|."""
+    from repro_torch.configs import get_config
+    from repro_torch.optim import OptConfig
+
+    cfg = get_config(MOE_ARCH)
+    b, s, t = run["shape"]
+    gen, kept = run["gen"], run["kept"]
+    assert gen.shape == (b, t) and bool(((gen >= 0) & (gen < cfg.vocab)).all())
+    assert kept.shape == (2, t + 1, cfg.vocab)
+    assert bool(torch.isfinite(kept.float()).all()), "moe_serve: logits not finite"
+    model = run["model"]
+    run.clear()
+    torch.cuda.empty_cache()
+
+    nd = cfg.replace(capacity_factor=cfg.n_experts / cfg.top_k)
+    with RouteRecorder() as rec:
+        run_nd = lm_serve(torch, nd, keep=[0, MOE_NODROP[0] - 1],
+                          shape=MOE_NODROP, seed=2, model=model)
+        d = lm_against_full_forward(torch, nd, run_nd)
+    dropped = rec.dropped_rows()
+    checks["moe_nodrop_rows_dropped"] = dropped
+    checks["moe_nodrop_vs_full_forward"] = d
+    queries["moe_nodrop"] = {"capacity_factor": nd.capacity_factor,
+                             "route_calls": rec.calls, **run_nd["stats"]}
+    assert dropped == 0, f"moe_nodrop: {dropped} rows dropped at C >= T"
+    assert d <= 0.1, f"moe bf16: decode logits differ from the full forward by {d}"
+    log(f"moe_nodrop ({nd.n_layers} layers, bf16, capacity factor "
+        f"{nd.capacity_factor}): 0 rows dropped in {rec.calls} routings; max "
+        f"|decode - full forward| = {d}")
+    del model, run_nd
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    models = hold_models(torch, cfg)
+    hold = moe_hold(torch, cfg, models)
+    hold["s"] = round(time.perf_counter() - t0, 3)
+    queries["moe_hold_f32_2l"] = hold
+    checks["moe_f32_2l_forward_vs_cpu"] = hold["forward_max_abs"]
+    checks["moe_f32_2l_served_vs_cpu"] = hold["served_max_abs"]
+    assert max(hold["forward_max_abs"], hold["served_max_abs"]) <= 1e-3, hold
+    log(f"moe hold (2 layers, float32, card against CPU): {hold}")
+
+    # the train step's gradient through the dispatch (index_put), the
+    # combine's gather and the routing recomputed under remat, against the
+    # CPU's, as train_path holds the dense step
+    t0 = time.perf_counter()
+    ocfg = OptConfig(lr=3e-4, warmup_steps=2, total_steps=TRAIN_SCHEDULE)
+    grad = train_hold(torch, cfg, ocfg, models)
+    grad["s"] = round(time.perf_counter() - t0, 3)
+    del models
+    queries["moe_train_hold_f32_2l"] = grad
+    checks["moe_f32_2l_grad_rel_vs_cpu"] = grad["grad_max_rel"]
+    checks["moe_f32_2l_loss_rel_vs_cpu"] = grad["loss_rel"]
+    checks["moe_f32_2l_after_rel_vs_cpu"] = grad["after_rel"]
+    assert grad["grad_max_rel"] <= 1e-4, grad
+    assert grad["loss_rel"] <= 1e-4 and grad["after_rel"] <= 1e-4, grad
+    log(f"moe train hold (2 layers, float32, card against CPU): {grad}")
+    torch.cuda.empty_cache()
+
+
+def moe_train_path(torch, queries: dict, checks: dict):
+    """deepseek-moe-16b at full width and MOE_TRAIN_LAYERS layers trained
+    through launch/train.py's ``run`` (bf16, remat per block, n_micro
+    DEFAULT_MICRO's 4) on a small token corpus: every loss finite, the
+    first within 0.5 of ln V; the one checkpoint (at the end) restored into
+    a fresh state, bitwise."""
+    import math
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import copy_into, restore
+    from repro_torch.configs import get_config
+    from repro_torch.data import synth
+    from repro_torch.launch import steps, train
+    from repro_torch.models import lm
+    from repro_torch.optim import OptConfig, adamw
+
+    cfg = get_config(MOE_ARCH).replace(n_layers=MOE_TRAIN_LAYERS)
+    micro = steps.DEFAULT_MICRO[cfg.name]
+    ocfg = OptConfig(lr=3e-4, warmup_steps=2, total_steps=TRAIN_SCHEDULE)
+    corpus = synth.token_corpus(MOE_TRAIN_DOCS, cfg.vocab)
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_moe_train_")
+    torch.cuda.empty_cache()
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        # ckpt_every past the last step: the driver's one save at the end
+        res = train.run(cfg, ocfg, corpus, steps=MOE_TRAIN_STEPS,
+                        batch=MOE_TRAIN_BATCH, seq=MOE_TRAIN_SEQ, micro=micro,
+                        ckpt_dir=ckpt_dir, ckpt_every=MOE_TRAIN_STEPS + 1,
+                        device="cuda", log_every=1)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        drv = res["driver"]
+        losses = res["losses"]
+        assert len(losses) == MOE_TRAIN_STEPS and all(map(math.isfinite, losses)), losses
+        ln_v = math.log(cfg.vocab)
+        assert abs(losses[0] - ln_v) <= 0.5, (losses[0], ln_v)
+        step_s = float(np.median(drv.stats.times))
+        tok_s = MOE_TRAIN_BATCH * MOE_TRAIN_SEQ / step_s
+        rec = {"model": cfg.name, "layers": cfg.n_layers, "dtype": cfg.param_dtype,
+               "remat": cfg.remat, "n_micro": micro, "batch": MOE_TRAIN_BATCH,
+               "seq": MOE_TRAIN_SEQ, "steps": res["steps"],
+               "params": cfg.param_count(),
+               "active_params": cfg.active_param_count(),
+               "pipeline_s": round(res["pipeline_s"], 3),
+               "run_s": round(run_s, 3), "losses": losses,
+               "step_ms": [round(x * 1e3, 3) for x in drv.stats.times],
+               "step_median_ms": round(step_s * 1e3, 3),
+               "tokens_per_s": round(tok_s, 1),
+               "mfu_bf16": round(6 * cfg.active_param_count() * tok_s
+                                 / BF16_OPS_PER_S, 4),
+               "peak_gib": round(peak / 2**30, 3),
+               "stragglers": res["stragglers"],
+               "saves": [{k: (round(v, 3) if isinstance(v, float) else v)
+                          for k, v in r.items()} for r in drv.saver.records]}
+        log(f"moe_train: {rec}")
+
+        # restore into a fresh state on the card, bitwise (the tree read
+        # onto the host first: two states and a tree would not fit)
+        fresh_model = lm.init_params(cfg, seed=1, device="cuda")
+        fresh = {"params": fresh_model.tree(),
+                 "opt": adamw.init_state(fresh_model.tree(), ocfg)}
+        t0 = time.perf_counter()
+        tree, step, meta = restore(ckpt_dir, fresh, device="cpu")
+        copy_into(fresh, tree)
+        torch.cuda.synchronize()
+        rec["restore_s"] = round(time.perf_counter() - t0, 3)
+        del tree
+        assert step == MOE_TRAIN_STEPS and meta == {"arch": cfg.name}, (step, meta)
+        differ = differing_bits(torch, fresh, drv.state)
+        assert not differ, f"moe restore: entries differ {differ}"
+        rec["restored_leaves"] = sum(1 for _ in lm.leaves(fresh))
+        checks["moe_train_restore_bitwise"] = True
+        del fresh, fresh_model, drv, res
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    queries["moe_train"] = rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true")
@@ -3641,6 +3985,7 @@ def main(argv=None) -> int:
         # kernels each path must launch: None for at least once, a number
         # for exactly that many (the LM path: one per layer and decode step)
         lm_runs: dict = {}
+        moe_cfg = get_config(MOE_ARCH)
         paths = {
             "relational": (lambda: main_path(torch, hf, synth, queries,
                                              args.profile, checks),
@@ -3675,7 +4020,18 @@ def main(argv=None) -> int:
             # the pipeline's filter, cumsum and aggregate; the train steps
             # run no hand-written kernel (no cache, no Pallas in the step)
             "train": (lambda: train_path(torch, queries, checks, args.profile),
-                      dict.fromkeys(("prefix_sum",)))}
+                      dict.fromkeys(("prefix_sum",))),
+            # one decode_attention a layer and decode step; one bucket_scatter
+            # a MoE layer in the prefill and in each decode step
+            "moe": (lambda: moe_path(torch, queries, lm_runs),
+                    {"decode_attention": moe_cfg.n_layers * MOE_NEW,
+                     "bucket_scatter": (moe_cfg.n_layers
+                                        - moe_cfg.first_dense_layers)
+                     * (1 + MOE_NEW)}),
+            # the pipeline and the MoE layers' routing (twice a micro-batch
+            # with remat: forward and recomputation); no decode
+            "moe_train": (lambda: moe_train_path(torch, queries, checks),
+                          dict.fromkeys(("prefix_sum", "bucket_scatter")))}
         launched = {}
         for path, (drive, must) in paths.items():
             t0 = time.perf_counter()
@@ -3691,10 +4047,16 @@ def main(argv=None) -> int:
                 assert count is None or launched[path][name] == count, \
                     f"{name}: {launched[path][name]} launches on the {path} " \
                     f"path, expected {count}"
-        assert launched["train"]["decode_attention"] == 0, launched["train"]
-        t0 = time.perf_counter()
-        lm_checks(torch, lm_runs["lm"], queries, checks, args.profile)
-        log(f"lm checks: {time.perf_counter() - t0:.1f} s")
+            if path == "lm":
+                t0 = time.perf_counter()
+                lm_checks(torch, lm_runs["lm"], queries, checks, args.profile)
+                log(f"lm checks: {time.perf_counter() - t0:.1f} s")
+            elif path == "moe":
+                t0 = time.perf_counter()
+                moe_checks(torch, lm_runs["moe"], queries, checks)
+                log(f"moe checks: {time.perf_counter() - t0:.1f} s")
+        for path in ("train", "moe_train"):
+            assert launched[path]["decode_attention"] == 0, launched[path]
         log(f"checks (max abs diff; bitwise): {checks}")
         for r in record.values():
             by_path = {p: c[r["name"]] for p, c in launched.items()}

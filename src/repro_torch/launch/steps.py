@@ -1,4 +1,4 @@
-"""Step builders: train, prefill and decode (the dense family).
+"""Step builders: train, prefill and decode (the dense and moe families).
 
 The port of the reference package's ``launch/steps.py``: the train step its
 ``launch/train.py`` drives (``make_train_step``, with the loss wrapper,
@@ -39,7 +39,7 @@ def micro_batches(cfg: ModelConfig, shape: ShapeSpec, mesh=None) -> int:
 def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
     """(shape, dtype) of every model input of an (architecture x shape)
     cell, allocating nothing."""
-    lm.require_dense(cfg)
+    lm.require_ported(cfg)
     b, s = shape.batch, shape.seq
     i32 = torch.int32
     if shape.kind == "train":
@@ -53,7 +53,7 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
 
 def make_loss_fn(cfg: ModelConfig):
     """(params, batch) -> scalar loss."""
-    lm.require_dense(cfg)
+    lm.require_ported(cfg)
     return functools.partial(lm.loss_fn, cfg=cfg)
 
 
@@ -109,7 +109,7 @@ def make_train_step(cfg: ModelConfig, ocfg: OptConfig, n_micro: int = 1):
 def make_prefill_step(cfg: ModelConfig, max_seq: int):
     """(params, batch) -> (last_logits, caches): a fresh ``max_seq`` cache on
     the tokens' device, filled with the prompts ``batch["tokens"]`` (B, S)."""
-    lm.require_dense(cfg)
+    lm.require_ported(cfg)
 
     def prefill(params, batch):
         tokens = batch["tokens"]
@@ -123,7 +123,7 @@ def make_prefill_step(cfg: ModelConfig, max_seq: int):
 
 def make_decode_step(cfg: ModelConfig):
     """(params, token (B, 1), caches) -> (logits (B, V), caches)."""
-    lm.require_dense(cfg)
+    lm.require_ported(cfg)
 
     def step(params, token, caches):
         return lm.decode_step(params, token, caches, cfg)

@@ -1,17 +1,19 @@
 """Training launcher: --arch <id> on one device.
 
-The port of the reference package's ``launch/train.py``, the dense family:
-the arch config -> parameters and AdamW state -> the HiFrames token
-pipeline -> the fault-tolerant driver (asynchronous checkpoints,
+The port of the reference package's ``launch/train.py``, the dense and moe
+families: the arch config -> parameters and AdamW state -> the HiFrames
+token pipeline -> the fault-tolerant driver (asynchronous checkpoints,
 preemption, straggler statistics).  On the card by default; on the CPU:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
         --reduced --device cpu --steps 4 --batch 2 --seq 32
 
 ``--resume`` continues from the latest checkpoint in ``--ckpt-dir``.
-``--model-axis`` other than 1, ``--production-mesh``, ``--moe-impl`` and
-every family but dense raise ``NotImplementedError`` (ROADMAP.md §1 item
-11).  ``run`` is the body, for callers with their own corpus.
+``--moe-impl gspmd`` sets the config's ``moe_impl`` as the reference does;
+``--moe-impl ep``, ``--model-axis`` other than 1, ``--production-mesh`` and
+the families other than dense and moe raise ``NotImplementedError``
+(ROADMAP.md §1 item 11).  ``run`` is the body, for callers with their own
+corpus.
 """
 from __future__ import annotations
 
@@ -52,7 +54,7 @@ def run(cfg: ModelConfig, ocfg: OptConfig, corpus: dict, *, steps: int,
     outputs), "pipeline_s" (its construction's wall: ingest, the relational
     stages and their host copies) and "resumed_at" (the step resumed from,
     or None)."""
-    lm.require_dense(cfg)
+    lm.require_ported(cfg)
     dev = lm.device_of(device)
     exec_cfg = ExecConfig(device=dev.type)
     model = lm.init_params(cfg, seed=0, device=dev)
@@ -103,11 +105,13 @@ def main(argv=None) -> dict:
 
     cfg = configs.get_reduced(args.arch) if args.reduced \
         else configs.get_config(args.arch)
+    if args.moe_impl == "ep":
+        raise _not_ported("--moe-impl ep (expert parallelism over a mesh)")
     if args.moe_impl:
-        raise _not_ported("--moe-impl (the moe family)")
+        cfg = cfg.replace(moe_impl=args.moe_impl)
     if args.model_axis != 1 or args.production_mesh:
         raise _not_ported("a mesh (--model-axis, --production-mesh)")
-    lm.require_dense(cfg)
+    lm.require_ported(cfg)
     print(f"device {args.device}; model {cfg.name} "
           f"{cfg.param_count()/1e6:.1f}M params")
     ocfg = OptConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 1),

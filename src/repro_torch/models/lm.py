@@ -1,5 +1,5 @@
-"""Decoder-only LM: the dense family, for serving (prefill, then decode
-through a KV cache) and training (``loss_fn``).
+"""Decoder-only LM: the dense and moe families, for serving (prefill, then
+decode through a KV cache) and training (``loss_fn``).
 
 The port of the reference package's ``models/lm.py``.  The model is an
 ``nn.Module`` (embedding, the per-layer parameters stacked over L, final
@@ -11,8 +11,15 @@ loop over the layers' views of them.  Entry points that allocate
 (``init_params``, ``init_cache``) take ``device="cuda"`` by default and
 raise without a card.
 
-The cache is the reference's pytree, ``{"layers": {"k", "v", "index"}}``
-with k/v (L, B, max_seq, Hkv, hd) and index (L,) int32 on the device, plus
+The moe family (``models/moe.py``) keeps the reference's two stacks:
+``"dense_layers"``, the first ``first_dense_layers`` blocks with a SwiGLU of
+``d_ff_first_dense``, then ``"layers"``, the rest, each with a routed
+``moe`` in place of the MLP; a forward runs them in that order and sums
+the MoE blocks' aux losses.
+
+The cache is the reference's pytree, one ``{"k", "v", "index"}`` a stack
+(``{"layers": ...}``, and ``"dense_layers"`` for the moe family) with k/v
+(L, B, max_seq, Hkv, hd) and index (L,) int32 on the device, plus
 ``"host_index"``: index[0] as a host int, so a step never waits on the card
 to learn where to write.  A step writes its K/V into the cache in place and
 returns the same dict.
@@ -29,8 +36,8 @@ their ``.grad`` as in any module.  ``cfg.remat == "block"`` recomputes each
 block in the backward pass (``torch.utils.checkpoint``, the reference's
 ``jax.checkpoint`` per layer).
 
-Not ported yet (ROADMAP.md §1 item 11): the moe, ssm, hybrid, vlm and
-encdec families (they raise ``NotImplementedError``).
+Not ported yet (ROADMAP.md §1 item 11): the ssm, hybrid, vlm and encdec
+families (they raise ``NotImplementedError``).
 """
 from __future__ import annotations
 
@@ -42,8 +49,12 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from . import moe as moe_mod
 from .config import ModelConfig
 from .layers import attention_block, norm, swiglu
+
+#: the families the port runs
+FAMILIES = ("dense", "moe")
 
 
 def _dt(cfg: ModelConfig) -> torch.dtype:
@@ -54,11 +65,21 @@ def _pdt(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.param_dtype)
 
 
-def require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+def require_ported(cfg: ModelConfig) -> None:
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet (the "
-            f"dense family is): ROADMAP.md §1 item 11")
+            f"{' and '.join(FAMILIES)} families are): ROADMAP.md §1 item 11")
+
+
+def stacks(cfg: ModelConfig) -> dict[str, int]:
+    """The stacks of layers, in the order a forward runs them, and their
+    depths: ``{"layers": L}``, or for the moe family with first dense
+    layers ``{"dense_layers": first_dense_layers, "layers": the rest}``."""
+    fd = cfg.first_dense_layers if cfg.family == "moe" else 0
+    out = {"dense_layers": fd} if fd else {}
+    out["layers"] = cfg.n_layers - fd
+    return out
 
 
 def device_of(device) -> torch.device:
@@ -111,15 +132,21 @@ def tree_map(fn, tree, *rest, path=None):
 def param_shapes(cfg: ModelConfig) -> dict:
     """Nested dict of parameter shapes, per-layer entries stacked over a
     leading L dim (the reference's layout)."""
-    require_dense(cfg)
+    require_ported(cfg)
     d, V = cfg.d_model, cfg.vocab
     out: dict[str, Any] = {"embed": (V, d)}
     if not cfg.tie_embeddings:
         out["lm_head"] = (V, d)
     out["final_ln"] = (d,)
-    layer = {"attn": _attn_shapes(cfg), "mlp": _mlp_shapes(d, cfg.d_ff)}
-    layer |= _ln_shapes(cfg, ("ln1", "ln2"))
-    out["layers"] = tree_map(lambda s: (cfg.n_layers, *s), layer)
+    for name, n in stacks(cfg).items():
+        if name == "layers" and cfg.family == "moe":
+            ffn = {"moe": moe_mod.moe_param_shapes(cfg)}
+        else:
+            ff = cfg.d_ff_first_dense if name == "dense_layers" else cfg.d_ff
+            ffn = {"mlp": _mlp_shapes(d, ff)}
+        layer = {"attn": _attn_shapes(cfg), **ffn}
+        layer |= _ln_shapes(cfg, ("ln1", "ln2"))
+        out[name] = tree_map(lambda s, n=n: (n, *s), layer)
     return out
 
 
@@ -140,12 +167,15 @@ def _param(t: torch.Tensor) -> nn.Parameter:
 
 class Block:
     """One transformer layer's weights, views of the stacked tensors:
-    ``attn`` and ``mlp`` by name, and the norm scales ``ln1``/``ln2`` (None
-    for a non-parametric LayerNorm)."""
+    ``attn`` by name, ``mlp`` (a SwiGLU's) or ``moe`` (the router, the
+    experts and the shared experts, nested as the reference's), the other
+    None, and the norm scales ``ln1``/``ln2`` (None for a non-parametric
+    LayerNorm)."""
 
     def __init__(self, tensors: dict):
         self.attn = tensors["attn"]
-        self.mlp = tensors["mlp"]
+        self.mlp = tensors.get("mlp")
+        self.moe = tensors.get("moe")
         self.ln1 = tensors.get("ln1")
         self.ln2 = tensors.get("ln2")
 
@@ -157,34 +187,41 @@ def unstack(layers: dict, n_layers: int) -> list[Block]:
     return [Block(tree_map(lambda u, i=i: u[i], parts)) for i in range(n_layers)]
 
 
-class Layers(nn.Module):
-    """The per-layer parameters, stacked over a leading L dim."""
+class Params(nn.Module):
+    """A nested dict of tensors as a module: a leaf becomes a parameter
+    (without a copy), a dict a submodule; ``tree()`` gives the dict back.
+    A stack of layers is one: ``model.layers.attn["wq"]`` (L, d, H*hd)."""
 
     def __init__(self, tensors: dict):
         super().__init__()
-        self.attn = nn.ParameterDict({k: _param(v)
-                                      for k, v in tensors["attn"].items()})
-        self.mlp = nn.ParameterDict({k: _param(v)
-                                     for k, v in tensors["mlp"].items()})
-        for name in ("ln1", "ln2"):
-            self.register_parameter(
-                name, _param(tensors[name]) if name in tensors else None)
+        for k, v in tensors.items():
+            if isinstance(v, dict):
+                self.add_module(k, Params(v))
+            else:
+                self.register_parameter(k, _param(v))
+
+    def __getitem__(self, name):
+        return getattr(self, name)
+
+    def tree(self) -> dict:
+        return dict(self._parameters) | {k: m.tree() for k, m in self._modules.items()}
 
 
 class LM(nn.Module):
-    """The dense decoder-only LM, built from a nested dict of tensors in
+    """The decoder-only LM, built from a nested dict of tensors in
     ``param_shapes(cfg)``'s layout (per-layer entries stacked over L); the
     tensors become its parameters without a copy."""
 
     def __init__(self, cfg: ModelConfig, tree: dict):
         super().__init__()
-        require_dense(cfg)
+        require_ported(cfg)
         self.cfg = cfg
         self.embed = _param(tree["embed"])
         self.register_parameter(
             "lm_head", None if cfg.tie_embeddings else _param(tree["lm_head"]))
         self.final_ln = _param(tree["final_ln"])
-        self.layers = Layers(tree["layers"])
+        for name in stacks(cfg):
+            setattr(self, name, Params(tree[name]))
 
     def tree(self) -> dict:
         """The parameters as the reference's tree: nested dicts of the
@@ -193,19 +230,17 @@ class LM(nn.Module):
         if self.lm_head is not None:
             out["lm_head"] = self.lm_head
         out["final_ln"] = self.final_ln
-        lay = self.layers
-        out["layers"] = {"attn": dict(lay.attn), "mlp": dict(lay.mlp)}
-        for name in ("ln1", "ln2"):
-            if getattr(lay, name) is not None:
-                out["layers"][name] = getattr(lay, name)
+        for name in stacks(self.cfg):
+            out[name] = getattr(self, name).tree()
         return out
 
     @property
     def blocks(self) -> list[Block]:
-        """Each layer's weights, views of the stacked parameters without
-        autograd history."""
-        return unstack(tree_map(torch.Tensor.detach, self.tree()["layers"]),
-                       self.cfg.n_layers)
+        """Each layer's weights in the order a forward runs them, views of
+        the stacked parameters without autograd history."""
+        tree = tree_map(torch.Tensor.detach, self.tree())
+        return [blk for name, n in stacks(self.cfg).items()
+                for blk in unstack(tree[name], n)]
 
 
 def copy_into(dst: dict, src: dict) -> None:
@@ -235,7 +270,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> LM:
     shape: 1-D scales are ones; other shapes of at most two dims ending in
     d_model (embeddings, per-layer norm scales) are 0.02 N(0, 1); the rest
     N(0, 1) / sqrt(shape[-2]).  The distributions are the reference's, the
-    numbers another generator's."""
+    numbers another generator's.  A leaf is drawn in float32 and scaled in
+    place before its cast, so a (27, 64, 2048, 1408) expert leaf needs one
+    float32 copy beside its bf16 one, not two."""
     dev = device_of(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     pdt = _pdt(cfg)
@@ -249,7 +286,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> LM:
             scale = 0.02
         else:
             scale = 1.0 / math.sqrt(shape[-2] if len(shape) >= 2 else shape[-1])
-        return (torch.randn(shape, generator=gen, device=dev) * scale).to(pdt)
+        return torch.randn(shape, generator=gen, device=dev).mul_(scale).to(pdt)
 
     return LM(cfg, tree_map(init_one, param_shapes(cfg)))
 
@@ -260,9 +297,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> LM:
 
 
 def _transformer_block(lp: Block, x, cfg: ModelConfig, positions, cache=None):
+    """One block: (x, aux), aux the MoE's load-balancing loss (0.0 for a
+    SwiGLU block)."""
     x = x + attention_block(lp.attn, norm(x, lp.ln1, cfg), cfg, positions,
                             cache=cache)
-    return x + swiglu(lp.mlp, norm(x, lp.ln2, cfg))
+    if lp.moe is None:
+        return x + swiglu(lp.mlp, norm(x, lp.ln2, cfg)), 0.0
+    y, aux = moe_mod.moe_block(lp.moe, norm(x, lp.ln2, cfg), cfg)
+    return x + y, aux
 
 
 def forward(params, tokens, cfg: ModelConfig, *, caches=None,
@@ -272,12 +314,13 @@ def forward(params, tokens, cfg: ModelConfig, *, caches=None,
 
     caches: None for a full forward (logits at every position); a cache
     from ``init_cache`` for prefill and decode, written at its host_index.
-    Returns (logits, caches, aux_loss) as the reference does; aux_loss is 0
-    for the dense family.  Without a cache and with gradients tracked,
-    ``cfg.remat == "block"`` keeps only each block's input for the backward
-    pass and recomputes the rest.
+    Returns (logits, caches, aux_loss) as the reference does; aux_loss is
+    the sum of the MoE blocks' (0.0 for the dense family).  Without a cache
+    and with gradients tracked, ``cfg.remat == "block"`` keeps only each
+    block's input for the backward pass and recomputes the rest (the
+    routing too: the same experts and slots, since both are deterministic).
     """
-    require_dense(cfg)
+    require_ported(cfg)
     tree = params.tree() if isinstance(params, LM) else params
     cdt = _dt(cfg)
     b, s = tokens.shape
@@ -285,30 +328,37 @@ def forward(params, tokens, cfg: ModelConfig, *, caches=None,
     positions = (torch.arange(s, dtype=torch.int32, device=x.device)[None, :]
                  + (q_offset or 0)).expand(b, s)
 
-    layer_caches = [None] * cfg.n_layers
+    depth = stacks(cfg)
     if caches is not None:
-        c, idx = caches["layers"], caches["host_index"]
+        idx = caches["host_index"]
         # the decode kernel's (B,) lengths, made once for all layers
         length = (torch.full((b,), idx + 1, dtype=torch.int32, device=x.device)
                   if s == 1 else None)
-        layer_caches = [{"k": c["k"][i], "v": c["v"][i], "index": idx,
-                         "length": length} for i in range(cfg.n_layers)]
     remat = (cfg.remat == "block" and caches is None and torch.is_grad_enabled()
              and any(t.requires_grad for _, t in leaves(tree)))
-    for blk, cache in zip(unstack(tree["layers"], cfg.n_layers), layer_caches):
-        if remat:
-            x = checkpoint(_transformer_block, blk, x, cfg, positions,
-                           use_reentrant=False, preserve_rng_state=False)
-        else:
-            x = _transformer_block(blk, x, cfg, positions, cache=cache)
+    total_aux = 0.0
+    for name, n in depth.items():
+        layer_caches = [None] * n
+        if caches is not None:
+            c = caches[name]
+            layer_caches = [{"k": c["k"][i], "v": c["v"][i], "index": idx,
+                             "length": length} for i in range(n)]
+        for blk, cache in zip(unstack(tree[name], n), layer_caches):
+            if remat:
+                x, aux = checkpoint(_transformer_block, blk, x, cfg, positions,
+                                    use_reentrant=False, preserve_rng_state=False)
+            else:
+                x, aux = _transformer_block(blk, x, cfg, positions, cache=cache)
+            total_aux = total_aux + aux
     if caches is not None:
-        c["index"].fill_(idx + s)
+        for name in depth:
+            caches[name]["index"].fill_(idx + s)
         caches["host_index"] = idx + s
 
     x = norm(x, tree["final_ln"], cfg)
     head = tree["embed"] if cfg.tie_embeddings else tree["lm_head"]
     logits = x @ head.to(cdt).T
-    return logits, caches, 0.0
+    return logits, caches, total_aux
 
 
 def loss_fn(params, batch: dict, cfg: ModelConfig):
@@ -335,11 +385,15 @@ def loss_fn(params, batch: dict, cfg: ModelConfig):
 
 
 def init_cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
-    """(shape, dtype) of every entry of the decode cache."""
-    require_dense(cfg)
-    L, hkv, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
-    kv = ((L, batch, max_seq, hkv, hd), _dt(cfg))
-    return {"layers": {"k": kv, "v": kv, "index": ((L,), torch.int32)}}
+    """(shape, dtype) of every entry of the decode cache: one {k, v, index}
+    a stack of layers."""
+    require_ported(cfg)
+    hkv, hd = cfg.n_kv_heads, cfg.hd
+
+    def attn_cache(n):
+        kv = ((n, batch, max_seq, hkv, hd), _dt(cfg))
+        return {"k": kv, "v": kv, "index": ((n,), torch.int32)}
+    return {name: attn_cache(n) for name, n in stacks(cfg).items()}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda") -> dict:

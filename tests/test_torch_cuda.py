@@ -1149,3 +1149,162 @@ def test_token_pipeline_on_card_matches_cpu(card):
     finally:
         on_card.close()
         on_cpu.close()
+
+
+# The moe family: each MoE layer's ranks within its experts come from
+# bucket_scatter at P = E.
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [64, 384])
+@pytest.mark.parametrize("n", [96, 12 * 517, 196_608])
+def test_bucket_scatter_at_moe_shapes_matches_plain(card, P, n):
+    """Each token's top 6 distinct experts, as a MoE layer routes them:
+    slots and counts on the card equal to the plain version's."""
+    from repro_torch.kernels.hash_partition import hash_partition as hp
+    k = 6
+    g = torch.Generator(device=card).manual_seed(n + P)
+    dest = torch.rand((n // k, P), device=card, generator=g).argsort(1)[:, :k]
+    dest = dest.reshape(-1).to(torch.int32).contiguous()
+    got = hp.bucket_scatter_cuda(dest, P)
+    want = hp.bucket_scatter_plain(dest.cpu(), P)
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+
+
+def _moe_inputs(cfg, seed, b=3, s=40):
+    rng = np.random.default_rng(seed)
+    from repro_torch.models import lm, moe
+
+    def draw(shape):
+        return torch.from_numpy(
+            (rng.normal(size=shape) / np.sqrt(shape[-2])).astype(np.float32))
+    p = lm.tree_map(draw, moe.moe_param_shapes(cfg))
+    x = torch.from_numpy(rng.normal(size=(b, s, cfg.d_model)).astype(np.float32))
+    return p, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "kimi-k2-1t-a32b"])
+@pytest.mark.parametrize("capacity_factor", [1.25, 0.25])
+def test_moe_block_on_card_matches_cpu(card, arch, capacity_factor):
+    """A reduced config's MoE block in float32 (TF32 off) on the card and
+    on the CPU from the same weights and input: the same experts, slots and
+    counts, one bucket_scatter launch a call, out and aux within 1e-5."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import cuda
+    from repro_torch.models import lm, moe
+
+    cfg = get_reduced(arch).replace(capacity_factor=capacity_factor,
+                                    param_dtype="float32", compute_dtype="float32")
+    p, x = _moe_inputs(cfg, 4)
+    pc = lm.tree_map(lambda t: t.to(card), p)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want_r = moe.route(p, x.reshape(-1, cfg.d_model), cfg)
+        want, want_aux = moe.moe_block(p, x, cfg)
+        before = cuda.launches["bucket_scatter"]
+        got_r = moe.route(pc, x.to(card).reshape(-1, cfg.d_model), cfg)
+        got, aux = moe.moe_block(pc, x.to(card), cfg)
+        assert cuda.launches["bucket_scatter"] == before + 2
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert torch.equal(got_r.topi.cpu(), want_r.topi)
+    assert torch.equal(got_r.slot.cpu(), want_r.slot)
+    assert torch.equal(got_r.counts.cpu(), want_r.counts)
+    assert got_r.C == want_r.C
+    assert float((got.cpu() - want).abs().max()) <= 1e-5
+    assert abs(float(aux) - float(want_aux)) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_moe_prefill_and_decode_on_card_match_cpu(card):
+    """deepseek-moe-16b reduced (head_dim 32) in float32 (TF32 off): prefill
+    and 3 decode steps on the card (decode_attention and bucket_scatter
+    launched) and on the CPU from the same weights: logits and caches
+    within 1e-4."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+
+    # head_dim 32: the decode kernel takes hd 32, 64 or 128
+    cfg = get_reduced("deepseek-moe-16b").replace(
+        head_dim=32, param_dtype="float32", compute_dtype="float32")
+    toks = np.random.default_rng(1).integers(0, cfg.vocab, (2, 9)).astype(np.int32)
+    cpu_model = lm.init_params(cfg, seed=0, device="cpu")
+    card_model = lm.LM(cfg, lm.tree_map(lambda t: t.to(card, copy=True),
+                                        cpu_model.tree()))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = []
+    try:
+        for model, dev in ((cpu_model, torch.device("cpu")), (card_model, card)):
+            tokens = torch.from_numpy(toks).to(dev)
+            before = dict(cuda.launches)
+            logits, caches = steps.make_prefill_step(cfg, 9)(
+                model, {"tokens": tokens[:, :6]})
+            seq = [logits]
+            for i in range(6, 9):
+                logits, caches = steps.make_decode_step(cfg)(
+                    model, tokens[:, i:i + 1], caches)
+                seq.append(logits)
+            launched = {k: cuda.launches[k] - before[k] for k in before}
+            out.append((torch.stack(seq, 1).cpu(), caches, launched))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (lc, cc, _), (lg, cg, launched) = out
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    assert launched["bucket_scatter"] == n_moe * 4
+    assert launched["decode_attention"] == cfg.n_layers * 3
+    assert float((lg - lc).abs().max()) <= 1e-4
+    for name in lm.stacks(cfg):
+        for k in ("k", "v"):
+            assert float((cg[name][k].cpu() - cc[name][k]).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", ["block", "none"])
+@pytest.mark.parametrize("capacity_factor", [1.25, 0.25])
+def test_moe_train_step_on_card_matches_cpu(card, remat, capacity_factor):
+    """deepseek-moe-16b reduced in float32 (TF32 off), from the same weights
+    and batch on the card and on the CPU: the loss (cross entropy + 0.01
+    aux) within 1e-5 relative and every gradient leaf within 1e-4 x its
+    largest |g|.  The gradient runs back through the dispatch (index_put),
+    the combine's gather and, with remat, the routing recomputed in the
+    backward pass: one bucket_scatter a MoE layer in the forward, one more
+    in the recomputation."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+
+    cfg = get_reduced("deepseek-moe-16b").replace(
+        remat=remat, capacity_factor=capacity_factor,
+        param_dtype="float32", compute_dtype="float32")
+    toks = np.random.default_rng(3).integers(0, cfg.vocab, (2, 33)).astype(np.int32)
+    cpu_model = lm.init_params(cfg, seed=1, device="cpu")
+    card_model = lm.LM(cfg, lm.tree_map(lambda t: t.detach().to(card, copy=True),
+                                        cpu_model.tree()))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = []
+        for model, dev in ((cpu_model, torch.device("cpu")), (card_model, card)):
+            batch = {"tokens": torch.from_numpy(toks[:, :-1].copy()).to(dev),
+                     "labels": torch.from_numpy(toks[:, 1:].copy()).to(dev)}
+            before = cuda.launches["bucket_scatter"]
+            loss, grads = steps.value_and_grad(steps.make_loss_fn(cfg),
+                                               model.tree(), batch)
+            out.append((float(loss), grads,
+                        cuda.launches["bucket_scatter"] - before))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (lc, gc, _), (lg, gg, launched) = out
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    assert launched == n_moe * (2 if remat == "block" else 1)
+    assert abs(lg / lc - 1) <= 1e-5, (lc, lg)
+    for (path, x), (_, y) in zip(lm.leaves(gg), lm.leaves(gc)):
+        assert x.device.type == "cuda"
+        err = float((x.cpu() - y).abs().max())
+        assert err <= 1e-4 * float(y.abs().max()), (path, err)
+    assert float(gc["layers"]["moe"]["router"].abs().max()) > 0

@@ -139,14 +139,19 @@ def _leaves(tree, path=()):
 
 
 def _port_tensor(model, path, layer):
-    """The port's tensor at a reference parameter path (and layer)."""
-    if path[0] != "layers":
+    """The port's tensor at a reference parameter path (and layer of its
+    stack; the moe family's blocks run its dense_layers first)."""
+    if path[0] not in tlm.stacks(model.cfg):
         return getattr(model, path[0])
-    blk = model.blocks[layer]
-    return getattr(blk, path[1]) if len(path) == 2 else getattr(blk, path[1])[path[2]]
+    first = tlm.stacks(model.cfg).get("dense_layers", 0) if path[0] == "layers" else 0
+    t = getattr(model.blocks[first + layer], path[1])
+    for k in path[2:]:
+        t = t[k]
+    return t
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "olmo-1b"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "olmo-1b", "deepseek-moe-16b",
+                                  "kimi-k2-1t-a32b"])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_params_from_jax_is_bit_exact(arch, dtype):
     rcfg = rget_reduced(arch).replace(param_dtype=dtype)
@@ -155,7 +160,8 @@ def test_params_from_jax_is_bit_exact(arch, dtype):
     model = params_from_jax(cfg, params, device="cpu")
     n = 0
     for path, a in _leaves(params):
-        for layer in (range(cfg.n_layers) if path[0] == "layers" else [None]):
+        stacked = path[0] in tlm.stacks(cfg)
+        for layer in (range(a.shape[0]) if stacked else [None]):
             want = a if layer is None else a[layer]
             got = _port_tensor(model, path, layer)
             assert str(got.dtype) == f"torch.{dtype}", path
@@ -326,8 +332,7 @@ def test_cache_raises_past_max_seq():
 
 
 def test_other_families_raise():
-    for arch in ("deepseek-moe-16b", "falcon-mamba-7b", "zamba2-7b", "qwen2-vl-2b",
-                 "whisper-base"):
+    for arch in ("falcon-mamba-7b", "zamba2-7b", "qwen2-vl-2b", "whisper-base"):
         cfg = get_reduced(arch)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tsteps.make_prefill_step(cfg, 8)
