@@ -12,7 +12,11 @@ Phases, in order; any failure raises and the exit code is not 0:
    and 2^16; stencils of 1, 3, 5, 7 and 20 taps at centres 0, K // 2 and
    the main path's K - 1; decode_attention at the reference's test shapes
    in float32 and bfloat16 and at the moe and LM paths' decode shapes
-   with lengths 1 .. the cache's rows), then held again and timed on the main path's inputs with CUDA
+   with lengths 1 .. the cache's rows, and at head widths 112 (the hybrid
+   path's) and 96, in float32 and bfloat16, at the reference's shapes, a
+   group of 4 and the hybrid's decode shape (8, 2112, 32, 1, 112) with
+   lengths 1 .. 2112, timed there too beside SDPA), then held again and
+   timed on the main path's inputs with CUDA
    events (median of 15 runs, each the mean of back-to-back calls filling
    ~2 ms) beside the plain version, one PyTorch library
    call where there is one, and its bound (the larger of bytes moved /
@@ -40,7 +44,7 @@ Phases, in order; any failure raises and the exit code is not 0:
    are held bitwise (0 ulps) in every mode, also around their 4096-output
    tile, on ragged ends, on views not 16-byte aligned and past the 1024
    taps staged at once.
-3. The twelve main paths, each with the launch counters zeroed just
+3. The fourteen main paths, each with the launch counters zeroed just
    before it and read just after:
    - relational, through ``hf`` at P = 1: Fig. 8a filter, join and
      aggregate and TPCx-BB Q26 / Q26-multikey against numpy oracles;
@@ -134,8 +138,8 @@ Phases, in order; any failure raises and the exit code is not 0:
      launched in each rank, prefix_sum in the sum over the ranks;
    - lm, through ``repro_torch.launch.steps`` as examples/serve_lm.py
      drives the reference: qwen3-0.6b (28 layers, bf16, random weights from
-     a seed) serves 32 prompts of 2048 tokens with 256 greedy new tokens;
-     decode_attention must have launched exactly 28 x 256 times.  After the
+     a seed) serves 32 prompts of 2048 tokens with 128 greedy new tokens;
+     decode_attention must have launched exactly 28 x 128 times.  After the
      path, the served logits of two requests are held against the port's
      own no-cache forward (within 0.1), and the same path at 2 layers in
      float32 (within 1e-3);
@@ -165,12 +169,32 @@ Phases, in order; any failure raises and the exit code is not 0:
      1e-3) and the train step's loss (within 1e-4 relative) and gradient
      (each leaf within 1e-4 x its largest |g|, remat per block as trained);
    - moe_train, through ``repro_torch.launch.train.run``: deepseek-moe-16b
-     at full width and 4 layers (1 dense + 3 MoE, bf16, remat per block)
+     at full width and 2 layers (1 dense + 1 MoE, bf16, remat per block)
      trained 5 AdamW steps of 8 x 2048 tokens in 4 micro-batches on a
      2^16-document token corpus; every loss finite, the first within 0.5
      of ln V; the one checkpoint restored into a fresh state, bitwise.
      prefix_sum and bucket_scatter must have launched, decode_attention
-     must not.
+     must not;
+   - ssm, through ``repro_torch.launch.steps``: falcon-mamba-7b as
+     published (64 Mamba1 layers, d 4096, d_inner 8192, state 16, dt_rank
+     256, V 65024, chunk 256; bf16, random weights from a seed, 13.55 GiB)
+     serves 8 prompts of 2048 tokens with 64 greedy new tokens;
+     decode_attention must not launch (no attention, no kernel on the
+     path: the scan is plain PyTorch);
+   - hybrid, the same way: zamba2-7b as published (81 Mamba2 layers, d
+     3584, d_inner 7168, 112 heads of 64, state 64, chunk 64; one shared
+     attention + SwiGLU block of 32 heads of 112, ff 14336, after every 6
+     layers and after the tail; V 32000; 12.7 GiB) serves 8 x 2048 prompt
+     tokens + 64 new (max_seq 2112); decode_attention must have launched
+     exactly 14 x 64 = 896 times, at hd 112.
+   After each of the two: the served logits of two requests against the
+   port's own no-cache forward (within 0.1); one layer of the prefill timed
+   beside its scan alone, with the scan's bound; and the full widths in
+   float32 (falcon at 2 layers, zamba2 at 3 of period 2: one group and a
+   tail) held against the CPU: a forward and a prefill of 120 tokens + 8
+   decode steps (logits within 1e-3) and the train step (remat as
+   trained; the loss within 1e-4 relative, each gradient leaf within 1e-4
+   x its largest |g|).
 4. Report: a JSON line of query wall times, LM serving and training times, peak memory
    and the checks' largest differences (with a digest of the bytes of the
    float32 cumsums, fig8b_cumsum's and the grouped one's, and of
@@ -1148,19 +1172,24 @@ def window_kernel_phases(torch, sizes, record: dict):
 
 
 # The LM serving path: qwen3-0.6b at its published widths and depth, 32
-# requests of 2048 prompt tokens and 256 greedy new tokens (the cache holds
-# 2048 + 256 rows and fills exactly).  decode_attention is timed at the
-# middle of the decode, 2176 rows.
+# requests of 2048 prompt tokens and 128 greedy new tokens (cut from 256 to
+# keep the script within its time limit; the cache holds 2048 + 128 rows and
+# fills exactly).  decode_attention is timed at the cache's last step, 2176
+# rows, the length its earlier runs were timed at.
 LM_ARCH = "qwen3-0.6b"
-LM_BATCH, LM_PROMPT, LM_NEW = 32, 2048, 256
-LM_MID = LM_PROMPT + LM_NEW // 2
+LM_BATCH, LM_PROMPT, LM_NEW = 32, 2048, 128
+LM_MID = LM_PROMPT + LM_NEW
 
 
 def decode_attention_phases(torch, record: dict):
     """decode_attention against its plain version: the reference's test
     shapes (random and full lengths) in float32 and bfloat16, and the
     decode shapes of the moe and LM paths, each with per-row lengths 1,
-    511, 512, 513, 2048, its cache's rows and random ones.  Both compute in float32 and round once to q's dtype,
+    511, 512, 513, 2048, its cache's rows and random ones; then at the
+    hybrid's head width 112 and at 96 (the lanes past hd idle): the
+    reference's shapes, a group of 4, and the hybrid path's decode shape
+    with lengths 1 .. its cache's rows, timed there beside SDPA (the
+    record's ``hd112``).  Both compute in float32 and round once to q's dtype,
     so an element may differ by 2e-5 (the reference's float32 tolerance
     between its kernel and its oracle) plus, in bfloat16, one rounding
     step of the output: |got - want| <= 2^-7 |want| + 2e-5."""
@@ -1254,6 +1283,62 @@ def decode_attention_phases(torch, record: dict):
     kv_bytes = 2.0 * b * LM_MID * hkv * hd * 2
     rec["bound_ms"], rec["bound_by"] = bound_ms(
         kv_bytes + 2.0 * q.numel() * 2 + 4.0 * b, 4.0 * b * hkv * gq * hd * LM_MID)
+    del q, k, v, ks, vs, qs, lib, got
+
+    # the hybrid's head width (zamba2-7b: 3584 / 32 = 112) and 96, in the
+    # row layout of the next width (128) with the lanes past hd idle: the
+    # reference's test shapes, a group of 4, and the hybrid's decode shape
+    # with lengths 1 .. its cache's rows
+    hb, hs = SSM_BATCH, SSM_PROMPT + SSM_NEW
+    hcfg = get_config(SSM_ARCHS["hybrid"])
+    hkv, gq, hhd = hcfg.n_kv_heads, hcfg.n_heads // hcfg.n_kv_heads, hcfg.hd
+    for dt in err:                       # the wide cases' own maxima
+        err[dt] = 0.0
+    edges = (1, 2, 63, 64, 65, 511, 512, 513, 2047, 2048, 2049, hs)
+    for hd in (hhd, 96):
+        for b, s, kvh, gg in ((1, 128, 2, 2), (2, 512, 2, 4), (4, 1024, 8, 7),
+                              (2, 700, 4, 1), (8, 1024, 8, 4), (hb, hs, hkv, gq)):
+            for dt in (f32, bf16):
+                q, k, v = inputs(b, s, kvh, gg, hd, dt)
+                length = torch.randint(1, s + 1, (b,), device=dev, generator=g,
+                                       dtype=torch.int32)
+                cases = [length, torch.full_like(length, s)]
+                if s == hs:
+                    cases += [torch.tensor(edges[i:i + b], dtype=torch.int32,
+                                           device=dev).repeat(2)[:b]
+                              for i in range(0, len(edges), b)]
+                for lens in cases:
+                    held(q, k, v, lens, f"{(b, s, kvh, gg, hd)} {dt}")
+                del q, k, v
+            log(f"decode_attention hd {hd} {(b, s, kvh, gg)} and the reference's "
+                f"shapes: ok in float32 and bfloat16")
+
+    # timed at the hybrid's decode shape in bfloat16, every row at the
+    # cache's last step (hs rows)
+    q, k, v = inputs(hb, hs, hkv, gq, hhd, bf16)
+    full = torch.full((hb,), hs, dtype=torch.int32, device=dev)
+    got = held(q, k, v, full, "hybrid timed inputs")
+    qs = q.reshape(hb, hkv * gq, 1, hhd)
+    ks, vs = (t.permute(0, 2, 1, 3).contiguous() for t in (k, v))
+    mask = torch.ones((hb, 1, 1, hs), dtype=torch.bool, device=dev)
+    lib = sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True)
+    wide = {"shape": f"bf16 q ({hb}, {hkv}, {gq}, {hhd}), k/v ({hb}, {hs}, "
+                     f"{hkv}, {hhd}), all lengths {hs}",
+            "max_abs_err_f32": err[f32], "max_abs_err_bf16": err[bf16],
+            "library_max_abs_diff": float(
+                (got.float().reshape(hb, hkv * gq, 1, hhd) - lib.float()).abs().max()),
+            "ms": time_ms(lambda: da.decode_attention_cuda(q, k, v, full), torch),
+            "plain_ms": time_ms(lambda: da.decode_attention_plain(q, k, v, full),
+                                torch),
+            "library_ms": time_ms(
+                lambda: sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True), torch)}
+    wide["bound_ms"], wide["bound_by"] = bound_ms(
+        2.0 * hb * hs * hkv * hhd * 2 + 2.0 * q.numel() * 2 + 4.0 * hb,
+        4.0 * hb * hkv * gq * hhd * hs)
+    rec[f"hd{hhd}"] = wide
+    rec["max_abs_err"] = max(rec["max_abs_err"], *err.values())
+    rec["max_share_of_tolerance"] = {"f32": of_bound[f32], "bf16": of_bound[bf16]}
+    rec["max_ulps_bf16"] = worst_bf16[0]
     record["decode_attention"] = rec
     del q, k, v, ks, vs, qs, lib, got
     cuda.reset_launches()
@@ -3245,6 +3330,15 @@ def exchange_path(torch, queries: dict) -> dict:
     return {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
 
 
+def cache_indexes(caches: dict):
+    """Every attention cache's device ``index`` in a decode cache."""
+    for k, c in caches.items():
+        if k == "index":
+            yield c
+        elif isinstance(c, dict):
+            yield from cache_indexes(c)
+
+
 def lm_serve(torch, cfg, keep: list, seed: int = 0,
              shape: tuple = (LM_BATCH, LM_PROMPT, LM_NEW), model=None) -> dict:
     """Serve ``cfg`` as examples/serve_lm.py does, through the port's entry
@@ -3287,7 +3381,7 @@ def lm_serve(torch, cfg, keep: list, seed: int = 0,
     t_decode = time.perf_counter() - t0
     step_ms = [marks[i].elapsed_time(marks[i + 1]) for i in range(t)]
     assert caches["host_index"] == s + t
-    assert bool((caches["layers"]["index"] == s + t).all())
+    assert all(bool((i == s + t).all()) for i in cache_indexes(caches))
     return {"model": model, "tokens": tokens, "gen": torch.cat(gen, 1),
             "kept": torch.stack(kept, 1), "keep": keep, "shape": shape,
             "stats": {
@@ -3467,12 +3561,21 @@ def token_batches(torch, vocab: int, b: int, s: int, n: int, seed: int, dev):
     return out
 
 
+def hold_cfg(cfg):
+    """``cfg``'s widths in float32 at 2 layers; the hybrid family at 3
+    layers of period 2 (one group and a tail: two shared applications)."""
+    c = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    if cfg.family == "hybrid":
+        return c.replace(n_layers=3, shared_attn_period=2)
+    return c.replace(n_layers=2)
+
+
 def hold_models(torch, cfg) -> tuple:
-    """``cfg``'s widths at 2 layers in float32: random weights from a seed
-    on the CPU, and a copy of them on the card."""
+    """``hold_cfg(cfg)``: random weights from a seed on the CPU, and a copy
+    of them on the card."""
     from repro_torch.models import lm
 
-    c = cfg.replace(n_layers=2, param_dtype="float32", compute_dtype="float32")
+    c = hold_cfg(cfg)
     cpu_model = lm.init_params(c, seed=3, device="cpu")
     card_model = lm.LM(c, lm.tree_map(lambda t: t.detach().to("cuda", copy=True),
                                       cpu_model.tree()))
@@ -3480,16 +3583,16 @@ def hold_models(torch, cfg) -> tuple:
 
 
 def train_hold(torch, cfg, ocfg, models=None) -> dict:
-    """The train step at ``cfg``'s widths with 2 layers in float32 (TF32
-    off) on the card and on the CPU from the same weights (``models`` from
-    ``hold_models``, made here if None; the step updates them) and batch:
+    """The train step at ``hold_cfg(cfg)`` (TF32 off) on the card and on
+    the CPU from the same weights (``models`` from ``hold_models``, made
+    here if None; the step updates them) and batch:
     each gradient leaf's largest difference over its largest |g|, the
     step's loss, and the loss of the same batch after the update."""
     from repro_torch.launch import steps
     from repro_torch.models import lm
     from repro_torch.optim import adamw
 
-    c = cfg.replace(n_layers=2, param_dtype="float32", compute_dtype="float32")
+    c = hold_cfg(cfg)
     cpu_model, card_model = models or hold_models(torch, cfg)
     b, s = TRAIN_HOLD
     out = {}
@@ -3665,14 +3768,14 @@ def train_path(torch, queries: dict, checks: dict, profile_dir: str | None = Non
 # the same weights at capacity_factor E / top_k (C >= T: no row dropped)
 # held against the no-cache forward; full width at 2 layers (1 dense + 1
 # MoE) in float32 held against the CPU, its logits and its train step's
-# gradient.  Then moe_train: 4 layers (1 dense + 3 MoE) at full width
-# trained through launch/train.run, one checkpoint at the end, restored
-# bitwise.
+# gradient.  Then moe_train: 2 layers (1 dense + 1 MoE; cut from 4 to keep
+# the script within its time limit) at full width trained through
+# launch/train.run, one checkpoint at the end, restored bitwise.
 MOE_ARCH = "deepseek-moe-16b"
 MOE_BATCH, MOE_PROMPT, MOE_NEW = 16, 2048, 128
 MOE_NODROP = (2, 256, 32)        # requests, prompt tokens, new tokens
-MOE_HOLD = (2, 128, 8)           # requests, tokens, of them decoded last
-MOE_TRAIN_LAYERS = 4
+SERVE_HOLD = (2, 128, 8)         # requests, tokens, of them decoded last
+MOE_TRAIN_LAYERS = 2
 MOE_TRAIN_STEPS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 5, 8, 2048
 MOE_TRAIN_DOCS = 2**16
 
@@ -3741,16 +3844,16 @@ def moe_path(torch, queries: dict, runs: dict):
     runs["moe"] = run
 
 
-def moe_hold(torch, cfg, models) -> dict:
-    """``cfg``'s widths at 2 layers (1 dense + 1 MoE) in float32 (TF32 off)
-    on the card and on the CPU from the same weights and tokens: the largest
-    logit difference of a full forward, and of a prefill of the first
-    tokens followed by the last MOE_HOLD[2] fed one by one."""
+def serve_hold(torch, cfg, models) -> dict:
+    """``hold_cfg(cfg)`` (the moe family: 1 dense + 1 MoE layer) in float32
+    (TF32 off) on the card and on the CPU from the same weights and tokens:
+    the largest logit difference of a full forward, and of a prefill of the
+    first tokens followed by the last SERVE_HOLD[2] fed one by one."""
     from repro_torch.launch import steps
     from repro_torch.models import lm
 
-    c = cfg.replace(n_layers=2, param_dtype="float32", compute_dtype="float32")
-    b, s, t = MOE_HOLD
+    c = hold_cfg(cfg)
+    b, s, t = SERVE_HOLD
     cpu_model, card_model = models
     toks = np.random.default_rng(5).integers(0, c.vocab, (b, s)).astype(np.int32)
     out = {}
@@ -3777,7 +3880,7 @@ def moe_checks(torch, run: dict, queries: dict, checks: dict):
     """After the counted moe path: (a) its bf16 logits finite and in range;
     the same weights at capacity_factor E / top_k (no row dropped, checked)
     serving MOE_NODROP, held against the no-cache forward within 0.1; (b)
-    moe_hold within 1e-3; (c) train_hold on the same 2-layer weights: the
+    serve_hold within 1e-3; (c) train_hold on the same 2-layer weights: the
     loss within 1e-4 relative, each gradient leaf within 1e-4 x its
     largest |g|."""
     from repro_torch.configs import get_config
@@ -3813,7 +3916,7 @@ def moe_checks(torch, run: dict, queries: dict, checks: dict):
 
     t0 = time.perf_counter()
     models = hold_models(torch, cfg)
-    hold = moe_hold(torch, cfg, models)
+    hold = serve_hold(torch, cfg, models)
     hold["s"] = round(time.perf_counter() - t0, 3)
     queries["moe_hold_f32_2l"] = hold
     checks["moe_f32_2l_forward_vs_cpu"] = hold["forward_max_abs"]
@@ -3922,6 +4025,172 @@ def moe_train_path(torch, queries: dict, checks: dict):
     queries["moe_train"] = rec
 
 
+# The ssm and hybrid serving paths: falcon-mamba-7b (64 Mamba1 layers, d
+# 4096, d_inner 8192, state 16, dt_rank 256, V 65024, chunk 256) and
+# zamba2-7b (81 Mamba2 layers, d 3584, d_inner 7168, 112 SSD heads of 64,
+# state 64, chunk 64; one shared attention + SwiGLU block of 32 heads of
+# 112, ff 14336, after every 6 layers and after the tail: 14 applications;
+# V 32000), as published, bf16, random weights from a seed: 8 requests of
+# 2048 prompt tokens, then 64 greedy new tokens (max_seq 2112, the hybrid's
+# 14 KV caches fill exactly).  After each path: two requests against the
+# no-cache forward; one layer of the prefill timed beside its scan alone;
+# the float32 holds (hold_cfg) against the CPU.
+SSM_ARCHS = {"ssm": "falcon-mamba-7b", "hybrid": "zamba2-7b"}
+SSM_BATCH, SSM_PROMPT, SSM_NEW = 8, 2048, 64
+SSM_F32 = (2, 256, 8)            # the full-depth float32 serve: requests, prompt, new
+
+
+def shared_applications(cfg) -> int:
+    """The hybrid family's shared-block applications a forward (0 for any
+    other family): one a group, one more after a tail."""
+    from repro_torch.models import lm
+    if cfg.family != "hybrid":
+        return 0
+    _, groups, tail = lm.shared_groups(cfg)
+    return groups + (tail > 0)
+
+
+def ssm_path(torch, queries: dict, runs: dict, family: str):
+    """The ssm or hybrid serving path (see SSM_*); requests 0 and
+    SSM_BATCH - 1 kept for the checks after the path."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    cfg = get_config(SSM_ARCHS[family])
+    torch.cuda.empty_cache()
+    run = lm_serve(torch, cfg, keep=[0, SSM_BATCH - 1],
+                   shape=(SSM_BATCH, SSM_PROMPT, SSM_NEW))
+    queries[f"{family}_serve"] = {
+        "model": cfg.name, "layers": cfg.n_layers,
+        "params": sum(int(np.prod(s)) for _, s in lm.leaves(lm.param_shapes(cfg))),
+        "shared_applications": shared_applications(cfg),
+        "requests": SSM_BATCH, "prompt_tokens": SSM_PROMPT,
+        "new_tokens": SSM_NEW, **run["stats"]}
+    log(f"{family}_serve: {queries[f'{family}_serve']}")
+    runs[family] = run
+
+
+def scan_profile(torch, cfg, model, prefill_ms: float) -> dict:
+    """One Mamba layer at the prefill's shape (SSM_BATCH x SSM_PROMPT,
+    bf16, a zero state as a prefill's), timed with CUDA events beside its
+    scan alone (``ssm.selective_scan`` on that layer's inputs), the scan's
+    bound, and the layers' share of the served prefill.  The bound: the
+    scan's float32 inputs read once and y and h written once, against its
+    operations (Mamba1: per (token, channel, state) the decay's product and
+    exp, dBx's product, h's multiply-add and y's: 7; Mamba2, per (token,
+    head, channel, state): dBx's product, h's and y's multiply-adds: 5) at
+    the float32 rate."""
+    from repro_torch.models import lm, ssm
+    from repro_torch.models.layers import norm
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    blk = model.blocks[0]
+    x = torch.randn((SSM_BATCH, SSM_PROMPT, cfg.d_model), device=dev,
+                    generator=gen).to(getattr(torch, cfg.compute_dtype))
+    conv, h = ssm.ssm_state_shapes(cfg, SSM_BATCH)
+    state = (torch.zeros(conv, dtype=x.dtype, device=dev),
+             torch.zeros(h, dtype=torch.float32, device=dev))
+    with torch.no_grad():
+        layer_ms = time_ms(lambda: lm._mamba_block(blk, x, cfg, state=state), torch)
+        args = ssm.scan_inputs(blk.mamba, norm(x, blk.ln1, cfg), cfg, state)[3]
+        scan_ms = time_ms(lambda: ssm.selective_scan(cfg, *args), torch)
+    xs, h0 = args[0], args[5]
+    read = sum(4.0 * a.numel() for a in args)
+    ops = (7 if cfg.mamba_version == 1 else 5) * xs.numel() * cfg.ssm_state
+    bound, by = bound_ms(read + 4.0 * (xs.numel() + h0.numel()), ops)
+    return {"layer_ms": layer_ms, "scan_ms": scan_ms,
+            "scan_share_of_layer": scan_ms / layer_ms,
+            "layers_share_of_prefill": cfg.n_layers * layer_ms / prefill_ms,
+            "scan_bound_ms": bound, "scan_bound_by": by,
+            "scan_of_bound": bound / scan_ms,
+            "shape": f"x ({SSM_BATCH}, {SSM_PROMPT}, {cfg.d_model}) "
+                     f"{cfg.compute_dtype}, chunk {cfg.ssm_chunk}"}
+
+
+def forward_noise(torch, cfg, run: dict) -> float:
+    """The no-cache forward against itself: the kept requests' logits at
+    the prompt's last position from a forward over the prompt alone and
+    from one over prompt + generated tokens (the same tokens and weights;
+    only the shapes of the GEMMs and of the attention differ): their
+    largest absolute difference, the bf16 forward's own noise."""
+    from repro_torch.models import lm
+
+    keep = run["keep"]
+    s = run["shape"][1]
+    seq = torch.cat([run["tokens"][keep], run["gen"][keep]], 1)
+    with torch.no_grad():
+        short = lm.forward(run["model"], seq[:, :s], cfg)[0][:, s - 1]
+        full = lm.forward(run["model"], seq, cfg)[0][:, s - 1]
+    return float((short.float() - full.float()).abs().max())
+
+
+def ssm_checks(torch, run: dict, queries: dict, checks: dict, family: str):
+    """After the counted ssm or hybrid path: (a) its bf16 logits against
+    the no-cache forward within 0.1, or within twice the no-cache forward's
+    own noise (``forward_noise``) where that is larger: zamba2-7b's bf16
+    forward differs from itself by more than 0.1 at two lengths (PERF.md
+    §6), so (a') the same weights' widths and depth in float32
+    serve SSM_F32 against their no-cache forward within 1e-3; the scan's
+    profile; (b) serve_hold within 1e-3; (c) train_hold on the same
+    weights (remat as trained): the loss within 1e-4 relative, each
+    gradient leaf within 1e-4 x its largest |g|."""
+    from repro_torch.configs import get_config
+    from repro_torch.optim import OptConfig
+
+    cfg = get_config(SSM_ARCHS[family])
+    d = lm_against_full_forward(torch, cfg, run)
+    noise = forward_noise(torch, cfg, run)
+    bound = max(0.1, 2 * noise)
+    checks[f"{family}_bf16_vs_full_forward"] = d
+    checks[f"{family}_bf16_full_forward_noise"] = noise
+    assert d <= bound, f"{family} bf16: decode logits differ from the full " \
+        f"forward by {d} (bound {bound}: the forward's own noise {noise})"
+    log(f"{family} bf16, {cfg.n_layers} layers: max |decode - full forward| = "
+        f"{d}; the no-cache forward against itself {noise}")
+    prof = scan_profile(torch, cfg, run["model"],
+                        queries[f"{family}_serve"]["prefill_ms"])
+    queries[f"{family}_scan"] = prof
+    log(f"{family} scan (one layer of the prefill): {prof}")
+    run.clear()
+    torch.cuda.empty_cache()
+
+    c32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    run32 = lm_serve(torch, c32, keep=[0, SSM_F32[0] - 1], seed=1, shape=SSM_F32)
+    d = lm_against_full_forward(torch, c32, run32)
+    checks[f"{family}_f32_full_depth_vs_full_forward"] = d
+    queries[f"{family}_serve_f32"] = run32["stats"]
+    assert d <= 1e-3, f"{family} float32: decode logits differ from the full forward by {d}"
+    log(f"{family} float32, {cfg.n_layers} layers: max |decode - full forward| = "
+        f"{d}; {run32['stats']}")
+    run32.clear()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    models = hold_models(torch, cfg)
+    hold = serve_hold(torch, cfg, models)
+    hold["s"] = round(time.perf_counter() - t0, 3)
+    queries[f"{family}_hold_f32"] = hold
+    checks[f"{family}_f32_forward_vs_cpu"] = hold["forward_max_abs"]
+    checks[f"{family}_f32_served_vs_cpu"] = hold["served_max_abs"]
+    assert max(hold["forward_max_abs"], hold["served_max_abs"]) <= 1e-3, hold
+    log(f"{family} hold (float32, card against CPU): {hold}")
+
+    t0 = time.perf_counter()
+    ocfg = OptConfig(lr=3e-4, warmup_steps=2, total_steps=TRAIN_SCHEDULE)
+    grad = train_hold(torch, cfg, ocfg, models)
+    grad["s"] = round(time.perf_counter() - t0, 3)
+    del models
+    queries[f"{family}_train_hold_f32"] = grad
+    checks[f"{family}_f32_grad_rel_vs_cpu"] = grad["grad_max_rel"]
+    checks[f"{family}_f32_loss_rel_vs_cpu"] = grad["loss_rel"]
+    checks[f"{family}_f32_after_rel_vs_cpu"] = grad["after_rel"]
+    assert grad["grad_max_rel"] <= 1e-4, grad
+    assert grad["loss_rel"] <= 1e-4 and grad["after_rel"] <= 1e-4, grad
+    log(f"{family} train hold (float32, card against CPU): {grad}")
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true")
@@ -3986,6 +4255,7 @@ def main(argv=None) -> int:
         # for exactly that many (the LM path: one per layer and decode step)
         lm_runs: dict = {}
         moe_cfg = get_config(MOE_ARCH)
+        hybrid_cfg = get_config(SSM_ARCHS["hybrid"])
         paths = {
             "relational": (lambda: main_path(torch, hf, synth, queries,
                                              args.profile, checks),
@@ -4031,7 +4301,14 @@ def main(argv=None) -> int:
             # the pipeline and the MoE layers' routing (twice a micro-batch
             # with remat: forward and recomputation); no decode
             "moe_train": (lambda: moe_train_path(torch, queries, checks),
-                          dict.fromkeys(("prefix_sum", "bucket_scatter")))}
+                          dict.fromkeys(("prefix_sum", "bucket_scatter"))),
+            # no hand-written kernel on the ssm path: an attention-free model
+            "ssm": (lambda: ssm_path(torch, queries, lm_runs, "ssm"),
+                    {"decode_attention": 0}),
+            # one decode_attention a shared application and decode step
+            "hybrid": (lambda: ssm_path(torch, queries, lm_runs, "hybrid"),
+                       {"decode_attention": shared_applications(hybrid_cfg)
+                        * SSM_NEW})}
         launched = {}
         for path, (drive, must) in paths.items():
             t0 = time.perf_counter()
@@ -4042,7 +4319,7 @@ def main(argv=None) -> int:
             log(f"{path} path: {time.perf_counter() - t0:.1f} s, launches "
                 f"{launched[path]}")
             for name, count in must.items():
-                assert launched[path][name] > 0, \
+                assert count == 0 or launched[path][name] > 0, \
                     f"{name} never launched on the {path} path"
                 assert count is None or launched[path][name] == count, \
                     f"{name}: {launched[path][name]} launches on the {path} " \
@@ -4055,6 +4332,10 @@ def main(argv=None) -> int:
                 t0 = time.perf_counter()
                 moe_checks(torch, lm_runs["moe"], queries, checks)
                 log(f"moe checks: {time.perf_counter() - t0:.1f} s")
+            elif path in SSM_ARCHS:
+                t0 = time.perf_counter()
+                ssm_checks(torch, lm_runs[path], queries, checks, path)
+                log(f"{path} checks: {time.perf_counter() - t0:.1f} s")
         for path in ("train", "moe_train"):
             assert launched[path]["decode_attention"] == 0, launched[path]
         log(f"checks (max abs diff; bitwise): {checks}")

@@ -12,6 +12,13 @@
 //     bytes each (8 bf16 or 4 float32), so every K and V load is one
 //     16-byte vector load; a warp walks 32 / (hd / VEC) rows at a time, and
 //     each lane keeps UNROLL rows of K and V in flight before it computes;
+//   * any other hd, a multiple of VEC up to 128 (zamba2's 112: 14 lanes
+//     in bf16, 28 in float32; 96), takes the layout of width HDP = 128:
+//     128 / VEC lanes a row, of which the lanes past hd load nothing and
+//     hold zeros, so they add 0 to the dot-product shuffles and to the
+//     output (one partial layout keeps the build short; an hd below 64
+//     idles more lanes).  hd 32, 64 and 128 are their own HDP (FULL),
+//     compiled with no such lane test;
 //   * the G query heads of the KV head are held in registers, so each K and
 //     V row is read once for the whole group (the TPU kernel's grouped
 //     dot_general);
@@ -61,19 +68,23 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
-template <typename T, int HD, int G>
+// HDP: the row layout's width (32, 64 or 128); FULL: hd == HDP, else the
+// row holds hd_arg < HDP values and the lanes past them are idle
+template <typename T, int HDP, int G, bool FULL>
 __global__ void __launch_bounds__(THREADS)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const int* __restrict__ length,
-                        T* __restrict__ out, int S, int Hkv, float scale) {
+                        T* __restrict__ out, int S, int Hkv, int hd_arg,
+                        float scale) {
   constexpr int VEC = 16 / sizeof(T);    // values per lane per row
-  constexpr int LPR = HD / VEC;          // lanes per row
+  constexpr int LPR = HDP / VEC;         // lanes per row
   constexpr int RPW = 32 / LPR;          // rows per warp per step
   constexpr int NG = WARPS * RPW;        // row groups per block
-  static_assert(HD % VEC == 0 && 32 % LPR == 0, "hd 32, 64 or 128");
+  static_assert(HDP % VEC == 0 && 32 % LPR == 0, "HDP 32, 64 or 128");
   __shared__ float sm_m[WARPS][G];
   __shared__ float sm_l[WARPS][G];
-  __shared__ float sm_acc[WARPS][G][HD];
+  __shared__ float sm_acc[WARPS][G][HDP];
+  const int HD = FULL ? HDP : hd_arg;    // the row's values
 
   const int bh = blockIdx.x;             // (b, kv head)
   const int b = bh / Hkv;
@@ -83,12 +94,13 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int sub = lane % LPR;            // which VEC slice of the row
   const int row_in_step = lane / LPR;
   const int len = min(length[b], S);
+  const bool live = FULL || sub * VEC < HD;   // the lane holds row values
 
   float qf[G][VEC];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    const uint4 r = __ldg(reinterpret_cast<const uint4*>(
-        q + ((size_t)bh * G + g) * HD + sub * VEC));
+    const uint4 r = live ? __ldg(reinterpret_cast<const uint4*>(
+        q + ((size_t)bh * G + g) * HD + sub * VEC)) : make_uint4(0, 0, 0, 0);
     unpack(r, qf[g]);
   }
   float m[G], l[G], acc[G][VEC];
@@ -114,7 +126,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = base + row_in_step + u * NG;
       ok[u] = r < len;
       kr[u] = vr[u] = make_uint4(0, 0, 0, 0);
-      if (ok[u]) {
+      if (ok[u] && live) {
         kr[u] = __ldg(reinterpret_cast<const uint4*>(kb + r * stride));
         vr[u] = __ldg(reinterpret_cast<const uint4*>(vb + r * stride));
       }
@@ -214,42 +226,47 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD, int G>
+template <typename T, int HDP, int G, bool FULL>
 void launch(const void* q, const void* k, const void* v, const void* length,
-            void* out, int B, int S, int Hkv, float scale, cudaStream_t s) {
-  decode_attention_kernel<T, HD, G><<<B * Hkv, THREADS, 0, s>>>(
+            void* out, int B, int S, int Hkv, int HD, float scale,
+            cudaStream_t s) {
+  decode_attention_kernel<T, HDP, G, FULL><<<B * Hkv, THREADS, 0, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(length),
-      static_cast<T*>(out), S, Hkv, scale);
+      static_cast<T*>(out), S, Hkv, HD, scale);
 }
 
-template <typename T, int HD>
+template <typename T, int HDP, bool FULL>
 bool launch_g(int G, const void* q, const void* k, const void* v,
-              const void* length, void* out, int B, int S, int Hkv,
+              const void* length, void* out, int B, int S, int Hkv, int HD,
               float scale, cudaStream_t s) {
+#define DA_CASE(g)                                                          \
+  case g:                                                                   \
+    launch<T, HDP, g, FULL>(q, k, v, length, out, B, S, Hkv, HD, scale, s); \
+    return true;
   switch (G) {
-    case 1: launch<T, HD, 1>(q, k, v, length, out, B, S, Hkv, scale, s); return true;
-    case 2: launch<T, HD, 2>(q, k, v, length, out, B, S, Hkv, scale, s); return true;
-    case 3: launch<T, HD, 3>(q, k, v, length, out, B, S, Hkv, scale, s); return true;
-    case 4: launch<T, HD, 4>(q, k, v, length, out, B, S, Hkv, scale, s); return true;
-    case 5: launch<T, HD, 5>(q, k, v, length, out, B, S, Hkv, scale, s); return true;
-    case 6: launch<T, HD, 6>(q, k, v, length, out, B, S, Hkv, scale, s); return true;
-    case 7: launch<T, HD, 7>(q, k, v, length, out, B, S, Hkv, scale, s); return true;
-    case 8: launch<T, HD, 8>(q, k, v, length, out, B, S, Hkv, scale, s); return true;
+    DA_CASE(1) DA_CASE(2) DA_CASE(3) DA_CASE(4)
+    DA_CASE(5) DA_CASE(6) DA_CASE(7) DA_CASE(8)
     default: return false;
   }
+#undef DA_CASE
 }
 
+// hd 32, 64, 128 in their own layout; any other multiple of VEC up to 128
+// in the 128-wide one
 template <typename T>
 bool launch_hd(int HD, int G, const void* q, const void* k, const void* v,
                const void* length, void* out, int B, int S, int Hkv,
                float scale, cudaStream_t s) {
+  constexpr int VEC = 16 / sizeof(T);
   switch (HD) {
-    case 32: return launch_g<T, 32>(G, q, k, v, length, out, B, S, Hkv, scale, s);
-    case 64: return launch_g<T, 64>(G, q, k, v, length, out, B, S, Hkv, scale, s);
-    case 128: return launch_g<T, 128>(G, q, k, v, length, out, B, S, Hkv, scale, s);
-    default: return false;
+    case 32: return launch_g<T, 32, true>(G, q, k, v, length, out, B, S, Hkv, HD, scale, s);
+    case 64: return launch_g<T, 64, true>(G, q, k, v, length, out, B, S, Hkv, HD, scale, s);
+    case 128: return launch_g<T, 128, true>(G, q, k, v, length, out, B, S, Hkv, HD, scale, s);
+    default: break;
   }
+  if (HD <= 0 || HD > 128 || HD % VEC) return false;
+  return launch_g<T, 128, false>(G, q, k, v, length, out, B, S, Hkv, HD, scale, s);
 }
 
 }  // namespace
@@ -257,7 +274,8 @@ bool launch_hd(int HD, int G, const void* q, const void* k, const void* v,
 extern "C" {
 
 // Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
-// a shape the kernel does not take (hd not 32/64/128, G outside [1, 8]).
+// a shape the kernel does not take (hd not a multiple of 16 bytes' values
+// up to 128, G outside [1, 8]).
 int decode_attention(const void* q, const void* k, const void* v,
                      const void* length, void* out, int B, int S, int Hkv,
                      int G, int HD, int bf16, float scale, void* stream) {

@@ -8,8 +8,9 @@
 
 Replaces the TPU kernel ``decode_attention_pallas`` of the reference
 package's ``kernels/decode_attention/decode_attention.py``.  The CUDA kernel
-is ``csrc/decode_attention.cu`` (float32 and bfloat16; hd 32, 64 or 128;
-G from 1 to 8; see its header).  The plain version is the math of the
+is ``csrc/decode_attention.cu`` (float32 and bfloat16; hd any multiple of
+16 bytes' values up to 128: of 8 in bfloat16, of 4 in float32, so zamba2's
+112 too; G from 1 to 8; see its header).  The plain version is the math of the
 reference's oracle ``ref.py::decode_attention_ref``.  The contract is
 1 <= length <= S, which the decode path always meets (length = index + 1).
 The registry hands CPU callers the plain version and CUDA callers the
@@ -23,7 +24,7 @@ import torch
 
 from .. import cuda
 
-HEAD_DIMS = (32, 64, 128)
+MAX_HEAD_DIM = 128
 MAX_GROUP = 8
 
 
@@ -58,9 +59,12 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if tuple(length.shape) != (b,):
         raise ValueError(f"decode_attention: length must be ({b},), got "
                          f"{tuple(length.shape)}")
-    if hd not in HEAD_DIMS or not 1 <= g <= MAX_GROUP or s < 1:
-        raise ValueError(f"decode_attention: hd {hd} not in {HEAD_DIMS}, or "
-                         f"G {g} outside [1, {MAX_GROUP}], or S {s} < 1")
+    vec = 16 // q.element_size()          # values in one 16-byte load
+    if not (0 < hd <= MAX_HEAD_DIM and hd % vec == 0) \
+            or not 1 <= g <= MAX_GROUP or s < 1:
+        raise ValueError(f"decode_attention: hd {hd} not a multiple of {vec} "
+                         f"up to {MAX_HEAD_DIM}, or G {g} outside [1, "
+                         f"{MAX_GROUP}], or S {s} < 1")
     for t in (q, k, v):
         if t.data_ptr() % 16:
             raise ValueError("decode_attention: q, k and v must be 16-byte "

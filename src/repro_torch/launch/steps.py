@@ -1,4 +1,5 @@
-"""Step builders: train, prefill and decode (the dense and moe families).
+"""Step builders: train, prefill and decode (the dense, moe, ssm and hybrid
+families).
 
 The port of the reference package's ``launch/steps.py``: the train step its
 ``launch/train.py`` drives (``make_train_step``, with the loss wrapper,

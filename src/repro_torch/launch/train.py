@@ -1,9 +1,9 @@
 """Training launcher: --arch <id> on one device.
 
-The port of the reference package's ``launch/train.py``, the dense and moe
-families: the arch config -> parameters and AdamW state -> the HiFrames
-token pipeline -> the fault-tolerant driver (asynchronous checkpoints,
-preemption, straggler statistics).  On the card by default; on the CPU:
+The port of the reference package's ``launch/train.py``, the dense, moe,
+ssm and hybrid families: the arch config -> parameters and AdamW state ->
+the HiFrames token pipeline -> the fault-tolerant driver (asynchronous
+checkpoints, preemption, straggler statistics).  On the card by default; on the CPU:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
         --reduced --device cpu --steps 4 --batch 2 --seq 32
@@ -11,7 +11,7 @@ preemption, straggler statistics).  On the card by default; on the CPU:
 ``--resume`` continues from the latest checkpoint in ``--ckpt-dir``.
 ``--moe-impl gspmd`` sets the config's ``moe_impl`` as the reference does;
 ``--moe-impl ep``, ``--model-axis`` other than 1, ``--production-mesh`` and
-the families other than dense and moe raise ``NotImplementedError``
+the vlm and encdec families raise ``NotImplementedError``
 (ROADMAP.md §1 item 11).  ``run`` is the body, for callers with their own
 corpus.
 """

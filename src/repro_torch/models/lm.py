@@ -1,5 +1,5 @@
-"""Decoder-only LM: the dense and moe families, for serving (prefill, then
-decode through a KV cache) and training (``loss_fn``).
+"""Decoder-only LM: the dense, moe, ssm and hybrid families, for serving
+(prefill, then decode through a cache) and training (``loss_fn``).
 
 The port of the reference package's ``models/lm.py``.  The model is an
 ``nn.Module`` (embedding, the per-layer parameters stacked over L, final
@@ -17,12 +17,24 @@ The moe family (``models/moe.py``) keeps the reference's two stacks:
 ``moe`` in place of the MLP; a forward runs them in that order and sums
 the MoE blocks' aux losses.
 
+The ssm family (falcon-mamba) is one stack ``"layers"`` of Mamba1 blocks
+(``{"mamba", "ln1"}``, ``models/ssm.py``).  The hybrid family (zamba2)
+stacks Mamba2 blocks the same way and adds ``"shared_block"``, ONE
+attention + SwiGLU block (``{"attn", "mlp", "ln1", "ln2"}``, no L axis)
+applied after every group of ``shared_attn_period`` Mamba2 layers, and once
+more after the tail of L % period layers: zamba2-7b's 81 layers at period
+6 apply it 13 + 1 times, each application with its own KV cache.
+
 The cache is the reference's pytree, one ``{"k", "v", "index"}`` a stack
 (``{"layers": ...}``, and ``"dense_layers"`` for the moe family) with k/v
 (L, B, max_seq, Hkv, hd) and index (L,) int32 on the device, plus
 ``"host_index"``: index[0] as a host int, so a step never waits on the card
 to learn where to write.  A step writes its K/V into the cache in place and
-returns the same dict.
+returns the same dict.  An ssm or hybrid cache holds, as the reference's,
+``"layers"``: (conv tail (L, B, k-1, din) in the compute dtype, h (L, B,
+...) float32), and for the hybrid family ``"shared"``: {"grp": an attention
+cache of n_groups, "tail": one without the L axis}; a step overwrites the
+layers' states in place.
 
 Training (``loss_fn``; ``launch/steps.py::make_train_step``): a forward
 takes each layer's weights as ``unbind`` views of the stacked parameters,
@@ -34,10 +46,11 @@ train step differentiates through detached aliases of them (the same
 storage), and ``model.requires_grad_()`` makes ``loss.backward()`` fill
 their ``.grad`` as in any module.  ``cfg.remat == "block"`` recomputes each
 block in the backward pass (``torch.utils.checkpoint``, the reference's
-``jax.checkpoint`` per layer).
+``jax.checkpoint`` per layer; per group of Mamba2 layers and its shared
+block for the hybrid family, as the reference's ``group_body``).
 
-Not ported yet (ROADMAP.md §1 item 11): the ssm, hybrid, vlm and encdec
-families (they raise ``NotImplementedError``).
+Not ported yet (ROADMAP.md §1 item 11): the vlm and encdec families (they
+raise ``NotImplementedError``).
 """
 from __future__ import annotations
 
@@ -50,11 +63,12 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from . import moe as moe_mod
+from . import ssm as ssm_mod
 from .config import ModelConfig
 from .layers import attention_block, norm, swiglu
 
 #: the families the port runs
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def _dt(cfg: ModelConfig) -> torch.dtype:
@@ -80,6 +94,20 @@ def stacks(cfg: ModelConfig) -> dict[str, int]:
     out = {"dense_layers": fd} if fd else {}
     out["layers"] = cfg.n_layers - fd
     return out
+
+
+def unstacked(cfg: ModelConfig) -> tuple[str, ...]:
+    """The blocks with no L axis: ``("shared_block",)`` for the hybrid
+    family, else none."""
+    return ("shared_block",) if cfg.family == "hybrid" else ()
+
+
+def shared_groups(cfg: ModelConfig) -> tuple[int, int, int]:
+    """The hybrid family's (period, groups, tail): the shared block follows
+    each of ``groups`` runs of ``period`` Mamba2 layers, and once more the
+    ``tail`` of L % period layers when there is one."""
+    period = cfg.shared_attn_period or cfg.n_layers
+    return (period, *divmod(cfg.n_layers, period))
 
 
 def device_of(device) -> torch.device:
@@ -139,14 +167,23 @@ def param_shapes(cfg: ModelConfig) -> dict:
         out["lm_head"] = (V, d)
     out["final_ln"] = (d,)
     for name, n in stacks(cfg).items():
-        if name == "layers" and cfg.family == "moe":
-            ffn = {"moe": moe_mod.moe_param_shapes(cfg)}
+        if cfg.family in ("ssm", "hybrid"):
+            mshapes = (ssm_mod.mamba1_param_shapes
+                       if cfg.family == "ssm" or cfg.mamba_version == 1
+                       else ssm_mod.mamba2_param_shapes)
+            layer = {"mamba": mshapes(cfg)} | _ln_shapes(cfg, ("ln1",))
         else:
-            ff = cfg.d_ff_first_dense if name == "dense_layers" else cfg.d_ff
-            ffn = {"mlp": _mlp_shapes(d, ff)}
-        layer = {"attn": _attn_shapes(cfg), **ffn}
-        layer |= _ln_shapes(cfg, ("ln1", "ln2"))
+            if name == "layers" and cfg.family == "moe":
+                ffn = {"moe": moe_mod.moe_param_shapes(cfg)}
+            else:
+                ff = cfg.d_ff_first_dense if name == "dense_layers" else cfg.d_ff
+                ffn = {"mlp": _mlp_shapes(d, ff)}
+            layer = {"attn": _attn_shapes(cfg), **ffn}
+            layer |= _ln_shapes(cfg, ("ln1", "ln2"))
         out[name] = tree_map(lambda s, n=n: (n, *s), layer)
+    if cfg.family == "hybrid":
+        shared = {"attn": _attn_shapes(cfg), "mlp": _mlp_shapes(d, cfg.d_ff)}
+        out["shared_block"] = shared | _ln_shapes(cfg, ("ln1", "ln2"))
     return out
 
 
@@ -166,16 +203,17 @@ def _param(t: torch.Tensor) -> nn.Parameter:
 
 
 class Block:
-    """One transformer layer's weights, views of the stacked tensors:
-    ``attn`` by name, ``mlp`` (a SwiGLU's) or ``moe`` (the router, the
-    experts and the shared experts, nested as the reference's), the other
-    None, and the norm scales ``ln1``/``ln2`` (None for a non-parametric
-    LayerNorm)."""
+    """One layer's weights, views of the stacked tensors: a transformer
+    layer's ``attn`` by name and ``mlp`` (a SwiGLU's) or ``moe`` (the
+    router, the experts and the shared experts, nested as the reference's),
+    or a Mamba layer's ``mamba``; the parts a layer lacks None; the norm
+    scales ``ln1``/``ln2`` (None for a non-parametric LayerNorm)."""
 
     def __init__(self, tensors: dict):
-        self.attn = tensors["attn"]
+        self.attn = tensors.get("attn")
         self.mlp = tensors.get("mlp")
         self.moe = tensors.get("moe")
+        self.mamba = tensors.get("mamba")
         self.ln1 = tensors.get("ln1")
         self.ln2 = tensors.get("ln2")
 
@@ -220,7 +258,7 @@ class LM(nn.Module):
         self.register_parameter(
             "lm_head", None if cfg.tie_embeddings else _param(tree["lm_head"]))
         self.final_ln = _param(tree["final_ln"])
-        for name in stacks(cfg):
+        for name in (*stacks(cfg), *unstacked(cfg)):
             setattr(self, name, Params(tree[name]))
 
     def tree(self) -> dict:
@@ -230,14 +268,15 @@ class LM(nn.Module):
         if self.lm_head is not None:
             out["lm_head"] = self.lm_head
         out["final_ln"] = self.final_ln
-        for name in stacks(self.cfg):
+        for name in (*stacks(self.cfg), *unstacked(self.cfg)):
             out[name] = getattr(self, name).tree()
         return out
 
     @property
     def blocks(self) -> list[Block]:
         """Each layer's weights in the order a forward runs them, views of
-        the stacked parameters without autograd history."""
+        the stacked parameters without autograd history (the hybrid
+        family's shared block, which has no L axis, is not among them)."""
         tree = tree_map(torch.Tensor.detach, self.tree())
         return [blk for name, n in stacks(self.cfg).items()
                 for blk in unstack(tree[name], n)]
@@ -296,6 +335,68 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> LM:
 # ---------------------------------------------------------------------------
 
 
+def _mamba_block(lp: Block, x, cfg: ModelConfig, state=None):
+    """One Mamba layer: (x, new state or None)."""
+    fwd = (ssm_mod.mamba1_forward if cfg.mamba_version == 1
+           else ssm_mod.mamba2_forward)
+    h, new_state = fwd(lp.mamba, norm(x, lp.ln1, cfg), cfg, state=state)
+    return x + h, new_state
+
+
+def _ssm_stack(tree, x, cfg: ModelConfig, positions, caches, attn_cache,
+               remat: bool):
+    """The ssm and hybrid families' layers over x.  ``attn_cache(c, i)``
+    makes a shared application's per-call cache from an entry of
+    ``caches["shared"]`` (None for None).  Each layer's new state is
+    written into ``caches["layers"]`` in place.  With ``remat``, each layer
+    is recomputed in the backward pass, except in the hybrid family's
+    groups, where each group (its Mamba2 layers and the shared block after
+    them) is, as the reference's ``jax.checkpoint(group_body)``; its tail
+    layers are per layer and its last shared application is not."""
+    n = cfg.n_layers
+    blks = unstack(tree["layers"], n)
+
+    def layer(i, h, per_layer=remat):
+        if caches is not None:
+            conv, hs = caches["layers"]
+            h, (tail, last) = _mamba_block(blks[i], h, cfg, state=(conv[i], hs[i]))
+            conv[i].copy_(tail)
+            hs[i].copy_(last)
+            return h
+        if per_layer:
+            return checkpoint(_mamba_block, blks[i], h, cfg, use_reentrant=False,
+                              preserve_rng_state=False)[0]
+        return _mamba_block(blks[i], h, cfg)[0]
+
+    if cfg.family == "ssm":
+        for i in range(n):
+            x = layer(i, x)
+        return x
+
+    shared = Block(tree["shared_block"])
+    period, n_groups, tail = shared_groups(cfg)
+    grp = tail_cache = None
+    if caches is not None:
+        grp, tail_cache = caches["shared"]["grp"], caches["shared"].get("tail")
+
+    def shared_apply(h, cache):
+        return _transformer_block(shared, h, cfg, positions, cache=cache)[0]
+
+    def group(g, h):
+        for i in range(g * period, (g + 1) * period):
+            h = layer(i, h, per_layer=False)
+        return shared_apply(h, attn_cache(grp, g))
+
+    for g in range(n_groups):
+        x = (checkpoint(group, g, x, use_reentrant=False, preserve_rng_state=False)
+             if remat else group(g, x))
+    if tail:
+        for i in range(n_groups * period, n):
+            x = layer(i, x)
+        x = shared_apply(x, attn_cache(tail_cache, None))
+    return x
+
+
 def _transformer_block(lp: Block, x, cfg: ModelConfig, positions, cache=None):
     """One block: (x, aux), aux the MoE's load-balancing loss (0.0 for a
     SwiGLU block)."""
@@ -315,10 +416,11 @@ def forward(params, tokens, cfg: ModelConfig, *, caches=None,
     caches: None for a full forward (logits at every position); a cache
     from ``init_cache`` for prefill and decode, written at its host_index.
     Returns (logits, caches, aux_loss) as the reference does; aux_loss is
-    the sum of the MoE blocks' (0.0 for the dense family).  Without a cache
-    and with gradients tracked, ``cfg.remat == "block"`` keeps only each
-    block's input for the backward pass and recomputes the rest (the
-    routing too: the same experts and slots, since both are deterministic).
+    the sum of the MoE blocks' (0.0 for the other families).  Without a
+    cache and with gradients tracked, ``cfg.remat == "block"`` keeps only
+    each block's input (each group's, in the hybrid family's groups) for
+    the backward pass and recomputes the rest (the routing too: the same
+    experts and slots, since both are deterministic).
     """
     require_ported(cfg)
     tree = params.tree() if isinstance(params, LM) else params
@@ -328,37 +430,56 @@ def forward(params, tokens, cfg: ModelConfig, *, caches=None,
     positions = (torch.arange(s, dtype=torch.int32, device=x.device)[None, :]
                  + (q_offset or 0)).expand(b, s)
 
-    depth = stacks(cfg)
+    length = idx = None
     if caches is not None:
         idx = caches["host_index"]
         # the decode kernel's (B,) lengths, made once for all layers
-        length = (torch.full((b,), idx + 1, dtype=torch.int32, device=x.device)
-                  if s == 1 else None)
+        if s == 1 and cfg.family != "ssm":
+            length = torch.full((b,), idx + 1, dtype=torch.int32, device=x.device)
+
+    def attn_cache(c, i):
+        """Layer i's view of attention cache c (c itself for i None; None
+        without a cache)."""
+        if c is None:
+            return None
+        k, v = (c["k"], c["v"]) if i is None else (c["k"][i], c["v"][i])
+        return {"k": k, "v": v, "index": idx, "length": length}
+
     remat = (cfg.remat == "block" and caches is None and torch.is_grad_enabled()
              and any(t.requires_grad for _, t in leaves(tree)))
     total_aux = 0.0
-    for name, n in depth.items():
-        layer_caches = [None] * n
-        if caches is not None:
-            c = caches[name]
-            layer_caches = [{"k": c["k"][i], "v": c["v"][i], "index": idx,
-                             "length": length} for i in range(n)]
-        for blk, cache in zip(unstack(tree[name], n), layer_caches):
-            if remat:
-                x, aux = checkpoint(_transformer_block, blk, x, cfg, positions,
-                                    use_reentrant=False, preserve_rng_state=False)
-            else:
-                x, aux = _transformer_block(blk, x, cfg, positions, cache=cache)
-            total_aux = total_aux + aux
+    if cfg.family in ("ssm", "hybrid"):
+        x = _ssm_stack(tree, x, cfg, positions, caches, attn_cache, remat)
+    else:
+        for name, n in stacks(cfg).items():
+            c = None if caches is None else caches[name]
+            for i, blk in enumerate(unstack(tree[name], n)):
+                if remat:
+                    x, aux = checkpoint(_transformer_block, blk, x, cfg, positions,
+                                        use_reentrant=False, preserve_rng_state=False)
+                else:
+                    x, aux = _transformer_block(blk, x, cfg, positions,
+                                                cache=attn_cache(c, i))
+                total_aux = total_aux + aux
     if caches is not None:
-        for name in depth:
-            caches[name]["index"].fill_(idx + s)
-        caches["host_index"] = idx + s
+        _advance(caches, idx + s)
 
     x = norm(x, tree["final_ln"], cfg)
     head = tree["embed"] if cfg.tie_embeddings else tree["lm_head"]
     logits = x @ head.to(cdt).T
     return logits, caches, total_aux
+
+
+def _advance(caches: dict, index: int) -> None:
+    """Every attention cache's device ``index`` and the host_index to
+    ``index``."""
+    for k, c in caches.items():
+        if k == "index":
+            c.fill_(index)
+        elif isinstance(c, dict):
+            _advance(c, index)
+    if "host_index" in caches:
+        caches["host_index"] = index
 
 
 def loss_fn(params, batch: dict, cfg: ModelConfig):
@@ -386,20 +507,39 @@ def loss_fn(params, batch: dict, cfg: ModelConfig):
 
 def init_cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
     """(shape, dtype) of every entry of the decode cache: one {k, v, index}
-    a stack of layers."""
+    a stack of transformer layers; for the ssm and hybrid families a pair
+    (conv tail, h) of the Mamba layers and the hybrid's shared attention
+    caches, {"grp": one a group, "tail": one without the L axis}."""
     require_ported(cfg)
     hkv, hd = cfg.n_kv_heads, cfg.hd
 
-    def attn_cache(n):
-        kv = ((n, batch, max_seq, hkv, hd), _dt(cfg))
-        return {"k": kv, "v": kv, "index": ((n,), torch.int32)}
-    return {name: attn_cache(n) for name, n in stacks(cfg).items()}
+    def attn_cache(*n):
+        kv = ((*n, batch, max_seq, hkv, hd), _dt(cfg))
+        return {"k": kv, "v": kv, "index": (n, torch.int32)}
+
+    if cfg.family not in ("ssm", "hybrid"):
+        return {name: attn_cache(n) for name, n in stacks(cfg).items()}
+    conv, h = ssm_mod.ssm_state_shapes(cfg, batch)
+    out: dict[str, Any] = {"layers": (((cfg.n_layers, *conv), _dt(cfg)),
+                                      ((cfg.n_layers, *h), torch.float32))}
+    if cfg.family == "hybrid":
+        _, n_groups, tail = shared_groups(cfg)
+        out["shared"] = {"grp": attn_cache(n_groups)}
+        if tail:
+            out["shared"]["tail"] = attn_cache()
+    return out
+
+
+def _zeros(spec, dev):
+    if isinstance(spec, dict):
+        return {k: _zeros(v, dev) for k, v in spec.items()}
+    if isinstance(spec[1], torch.dtype):             # (shape, dtype)
+        return torch.zeros(spec[0], dtype=spec[1], device=dev)
+    return tuple(_zeros(v, dev) for v in spec)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda") -> dict:
-    dev = device_of(device)
-    caches = tree_map(lambda spec: torch.zeros(spec[0], dtype=spec[1], device=dev),
-                  init_cache_specs(cfg, batch, max_seq))
+    caches = _zeros(init_cache_specs(cfg, batch, max_seq), device_of(device))
     caches["host_index"] = 0
     return caches
 

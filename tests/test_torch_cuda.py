@@ -1227,7 +1227,7 @@ def test_moe_prefill_and_decode_on_card_match_cpu(card):
     from repro_torch.launch import steps
     from repro_torch.models import lm
 
-    # head_dim 32: the decode kernel takes hd 32, 64 or 128
+    # head_dim 32, one of the decode kernel's own row layouts
     cfg = get_reduced("deepseek-moe-16b").replace(
         head_dim=32, param_dtype="float32", compute_dtype="float32")
     toks = np.random.default_rng(1).integers(0, cfg.vocab, (2, 9)).astype(np.int32)
@@ -1308,3 +1308,152 @@ def test_moe_train_step_on_card_matches_cpu(card, remat, capacity_factor):
         err = float((x.cpu() - y).abs().max())
         assert err <= 1e-4 * float(y.abs().max()), (path, err)
     assert float(gc["layers"]["moe"]["router"].abs().max()) > 0
+
+
+# The ssm and hybrid families: decode_attention at the hybrid's head width
+# (zamba2-7b: 3584 / 32 = 112), at 96 and at 40, in the 128-wide row layout
+# with the lanes past hd idle, against its plain version; then
+# each family's train step, and the hybrid's prefill and decode, on the
+# card against the CPU.
+WIDE_SHAPES = ((1, 128, 2, 2), (4, 700, 4, 3), (8, 2112, 32, 1))
+WIDE_LENGTHS = (1, 2, 63, 64, 65, 511, 512, 513, 2047, 2112)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("hd", (112, 96, 40))
+@pytest.mark.parametrize("shape", WIDE_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_decode_attention_wide_heads_match_plain_on_card(card, shape, hd, dtype):
+    """As test_decode_attention_matches_plain_on_card, at hd 112, 96, 40:
+    random and full lengths, and at the hybrid's decode shape every edge of
+    WIDE_LENGTHS."""
+    b, s, hkv, g = shape
+    tdt, rtol = (torch.float32, 0.0) if dtype == "float32" else (torch.bfloat16, 2.0 ** -7)
+    gen = torch.Generator(device=card).manual_seed(b * s + g + hd)
+    q = torch.randn((b, hkv, g, hd), device=card, generator=gen).to(tdt)
+    k, v = (torch.randn((b, s, hkv, hd), device=card, generator=gen).to(tdt)
+            for _ in range(2))
+    length = torch.randint(1, s + 1, (b,), device=card, generator=gen,
+                           dtype=torch.int32)
+    spec = treg.get("decode_attention")
+    cases = [length, torch.full_like(length, s)]
+    if s == 2112:
+        cases += [torch.full_like(length, n) for n in WIDE_LENGTHS]
+    for lens in cases:
+        got, want = spec.kernel(q, k, v, lens), spec.plain(q, k, v, lens)
+        torch.cuda.synchronize()
+        assert got.dtype == tdt and got.shape == q.shape
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_decode_attention_refuses_other_head_widths_on_card(card):
+    """hd must be a multiple of one 16-byte load's values (8 in bfloat16, 4
+    in float32) up to 128: anything else raises, with no fallback."""
+    spec = treg.get("decode_attention")
+    for hd, dt in ((100, torch.bfloat16), (102, torch.float32),
+                   (136, torch.float32), (256, torch.bfloat16)):
+        q = torch.zeros((1, 1, 1, hd), device=card, dtype=dt)
+        k = torch.zeros((1, 4, 1, hd), device=card, dtype=dt)
+        with pytest.raises(ValueError, match="hd"):
+            spec.kernel(q, k, k, torch.ones(1, device=card, dtype=torch.int32))
+    q = torch.zeros((1, 1, 1, 100), device=card, dtype=torch.float32)
+    k = torch.zeros((1, 4, 1, 100), device=card, dtype=torch.float32)
+    got = spec.kernel(q, k, k, torch.ones(1, device=card, dtype=torch.int32))
+    assert got.shape == q.shape
+
+
+def _ssm_hold_cfg(arch):
+    from repro_torch.configs import get_reduced
+    cfg = get_reduced(arch).replace(param_dtype="float32", compute_dtype="float32")
+    # zamba2 at 3 layers, period 2: one group and a tail (2 shared applications)
+    return cfg.replace(n_layers=2) if cfg.family == "ssm" else \
+        cfg.replace(n_layers=3, shared_attn_period=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-7b"])
+def test_ssm_train_step_on_card_matches_cpu(card, arch):
+    """The ssm and hybrid families reduced, in float32 (TF32 off), remat as
+    trained: the gradient and one train step from the same weights and
+    batch on the card and on the CPU; every gradient leaf within 1e-4 x its
+    largest |g|, the losses within 1e-5 relative."""
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.optim import OptConfig, adamw
+
+    cfg = _ssm_hold_cfg(arch)
+    ocfg = OptConfig(lr=3e-4, warmup_steps=2, total_steps=10)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 41)).astype(np.int32)
+    cpu_model = lm.init_params(cfg, seed=0, device="cpu")
+    card_model = lm.LM(cfg, lm.tree_map(lambda t: t.detach().to(card, copy=True),
+                                        cpu_model.tree()))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = []
+        for model, dev in ((cpu_model, torch.device("cpu")), (card_model, card)):
+            batch = {"tokens": torch.from_numpy(toks[:, :-1].copy()).to(dev),
+                     "labels": torch.from_numpy(toks[:, 1:].copy()).to(dev)}
+            _, grads = steps.value_and_grad(steps.make_loss_fn(cfg),
+                                            model.tree(), batch)
+            state = {"params": model.tree(),
+                     "opt": adamw.init_state(model.tree(), ocfg)}
+            state, loss = steps.make_train_step(cfg, ocfg)(state, batch)
+            with torch.no_grad():
+                after = lm.loss_fn(state["params"], batch, cfg)
+            out.append((float(loss), float(after), grads))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (lc, ac, gc), (lg, ag, gg) = out
+    assert abs(lg / lc - 1) <= 1e-5 and abs(ag / ac - 1) <= 1e-5, (lc, lg, ac, ag)
+    for (path, x), (_, y) in zip(lm.leaves(gg), lm.leaves(gc)):
+        assert x.device.type == "cuda"
+        err = float((x.cpu() - y).abs().max())
+        assert err <= 1e-4 * float(y.abs().max()), (path, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-7b"])
+def test_ssm_prefill_and_decode_on_card_match_cpu(card, arch):
+    """Prefill and 3 decode steps on the card and on the CPU from the same
+    float32 weights (TF32 off): logits and every cache entry within 1e-4;
+    the hybrid's steps launch decode_attention once a shared application
+    (its reduced hd 16 in the 128-wide row layout), the ssm's never."""
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+
+    cfg = _ssm_hold_cfg(arch)
+    toks = np.random.default_rng(1).integers(0, cfg.vocab, (2, 21)).astype(np.int32)
+    cpu_model = lm.init_params(cfg, seed=0, device="cpu")
+    card_model = lm.LM(cfg, lm.tree_map(lambda t: t.to(card, copy=True),
+                                        cpu_model.tree()))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = []
+    try:
+        for model, dev in ((cpu_model, torch.device("cpu")), (card_model, card)):
+            tokens = torch.from_numpy(toks).to(dev)
+            before = cuda.launches["decode_attention"]
+            logits, caches = steps.make_prefill_step(cfg, 21)(
+                model, {"tokens": tokens[:, :18]})
+            seq = [logits]
+            for i in range(18, 21):
+                logits, caches = steps.make_decode_step(cfg)(
+                    model, tokens[:, i:i + 1], caches)
+                seq.append(logits)
+            out.append((torch.stack(seq, 1).cpu(), caches,
+                        cuda.launches["decode_attention"] - before))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (lc, cc, _), (lg, cg, launched) = out
+    _, groups, tail = lm.shared_groups(cfg)
+    assert launched == (0 if cfg.family == "ssm" else 3 * (groups + (tail > 0)))
+    assert float((lg - lc).abs().max()) <= 1e-4
+    conv, h = cg["layers"]
+    assert float((conv.cpu() - cc["layers"][0]).abs().max()) <= 1e-4
+    assert float((h.cpu() - cc["layers"][1]).abs().max()) <= 1e-4
+    for name, c in cg.get("shared", {}).items():
+        for k in ("k", "v"):
+            assert float((c[k].cpu() - cc["shared"][name][k]).abs().max()) <= 1e-4

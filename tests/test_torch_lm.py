@@ -332,7 +332,9 @@ def test_cache_raises_past_max_seq():
 
 
 def test_other_families_raise():
-    for arch in ("falcon-mamba-7b", "zamba2-7b", "qwen2-vl-2b", "whisper-base"):
+    # the vlm and encdec families are not ported yet (the ssm and hybrid
+    # families are: tests/test_torch_ssm.py)
+    for arch in ("qwen2-vl-2b", "whisper-base"):
         cfg = get_reduced(arch)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tsteps.make_prefill_step(cfg, 8)
