@@ -15,8 +15,11 @@ Phases, in order; any failure raises and the exit code is not 0:
    with lengths 1 .. the cache's rows, and at head widths 112 (the hybrid
    path's) and 96, in float32 and bfloat16, at the reference's shapes, a
    group of 4 and the hybrid's decode shape (8, 2112, 32, 1, 112) with
-   lengths 1 .. 2112, timed there too beside SDPA), then held again and
-   timed on the main path's inputs with CUDA
+   lengths 1 .. 2112, timed there too beside SDPA, and at the vlm and
+   encdec paths' decode shapes, qwen2-vl-2b's (16, 2176, 2, 6, 128) and
+   whisper-base's self (32, 128, 8, 1, 64) and cross (32, 1500, 8, 1, 64),
+   in float32 and bfloat16 with lengths 1 .. the rows, each timed beside
+   SDPA), then held again and timed on the main path's inputs with CUDA
    events (median of 15 runs, each the mean of back-to-back calls filling
    ~2 ms) beside the plain version, one PyTorch library
    call where there is one, and its bound (the larger of bytes moved /
@@ -44,7 +47,7 @@ Phases, in order; any failure raises and the exit code is not 0:
    are held bitwise (0 ulps) in every mode, also around their 4096-output
    tile, on ragged ends, on views not 16-byte aligned and past the 1024
    taps staged at once.
-3. The fourteen main paths, each with the launch counters zeroed just
+3. The sixteen main paths, each with the launch counters zeroed just
    before it and read just after:
    - relational, through ``hf`` at P = 1: Fig. 8a filter, join and
      aggregate and TPCx-BB Q26 / Q26-multikey against numpy oracles;
@@ -148,8 +151,8 @@ Phases, in order; any failure raises and the exit code is not 0:
      2^24 documents (~17 G tokens) on the card (filter, int32 packing
      cumsum, bucket aggregate), against numpy (rows and seeds exact,
      offsets and sums as wrapping int32, the int64 total beside); then
-     qwen3-0.6b (28 layers, bf16, remat per block, random weights from a
-     seed) trained 10 AdamW steps of 8 x 2048 tokens under the
+     qwen3-0.6b (14 of its 28 layers, bf16, remat per block, random
+     weights from a seed) trained 10 AdamW steps of 8 x 2048 tokens under the
      fault-tolerant driver, checkpoints every 5 steps: every loss finite,
      the first within 0.5 of ln V; a restore into a fresh state, bitwise;
      two more steps from the live and the restored state (the first loss
@@ -191,10 +194,31 @@ Phases, in order; any failure raises and the exit code is not 0:
    port's own no-cache forward (within 0.1); one layer of the prefill timed
    beside its scan alone, with the scan's bound; and the full widths in
    float32 (falcon at 2 layers, zamba2 at 3 of period 2: one group and a
-   tail) held against the CPU: a forward and a prefill of 120 tokens + 8
-   decode steps (logits within 1e-3) and the train step (remat as
-   trained; the loss within 1e-4 relative, each gradient leaf within 1e-4
-   x its largest |g|).
+   tail) held against the CPU: a forward and a prefill of 56 tokens + 8
+   decode steps (logits within 1e-3) and the train step on 2 x 64 tokens
+   (remat as trained; the loss within 1e-4 relative, each gradient leaf
+   within 1e-4 x its largest |g|);
+   - vlm, through ``repro_torch.launch.steps``: qwen2-vl-2b as published
+     (28 layers, d 1536, 12 heads over 2 KV heads of 128, ff 8960, V
+     151936, qkv_bias, M-RoPE (16, 24, 24); bf16, random weights from a
+     seed, 1.54 B parameters) serves 16 requests of 2048 prompt positions,
+     each 64 + 16 r text tokens, one 32 x 32 grid of 1024 visual tokens
+     (stub embeddings from a seed) and text, at Qwen2-VL's rope index,
+     with 128 greedy new tokens at the reference's decode positions;
+     decode_attention must have launched exactly 28 x 128 times;
+   - encdec, the same way: whisper-base as published (6 + 6 layers, d
+     512, 8 heads of 64, ff 2048, V 51865; bf16, seeded) serves 32
+     requests of 1500 seeded frame embeddings behind the 4-token
+     start-of-transcript prompt with 124 greedy new tokens;
+     decode_attention must have launched exactly 2 x 6 x 124 times (the
+     self-attention and the cross-attention over the 1500 frames).
+   After each of the two: the served logits of two requests against the
+   no-cache forward (within 0.1), and the full widths in float32 (qwen2-vl
+   at 2 layers, whisper at full depth) held against the CPU: a forward and
+   a prefill (qwen2-vl: 128 positions with an 8 x 8 image; whisper: 1500
+   frames and 24 tokens) + 8 decode steps (logits within 1e-3), and the
+   train step (remat per block; the loss within 1e-4 relative, each
+   gradient leaf within 1e-4 x its largest |g|).
 4. Report: a JSON line of query wall times, LM serving and training times, peak memory
    and the checks' largest differences (with a digest of the bytes of the
    float32 cumsums, fig8b_cumsum's and the grouped one's, and of
@@ -1285,6 +1309,34 @@ def decode_attention_phases(torch, record: dict):
         kv_bytes + 2.0 * q.numel() * 2 + 4.0 * b, 4.0 * b * hkv * gq * hd * LM_MID)
     del q, k, v, ks, vs, qs, lib, got
 
+    def timed_shape(b, s, hkv, gq, hd) -> dict:
+        """bf16 inputs with every row's length s, held, then the kernel,
+        its plain version and SDPA (the yardstick, laid out as above, a
+        mask of ones) timed, and the bound: K and V read once, q read and
+        the output written once, the lengths read."""
+        q, k, v = inputs(b, s, hkv, gq, hd, bf16)
+        full = torch.full((b,), s, dtype=torch.int32, device=dev)
+        got = held(q, k, v, full, f"timed inputs {(b, s, hkv, gq, hd)}")
+        qs = q.reshape(b, hkv * gq, 1, hd)
+        ks, vs = (t.permute(0, 2, 1, 3).contiguous() for t in (k, v))
+        mask = torch.ones((b, 1, 1, s), dtype=torch.bool, device=dev)
+        lib = sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True)
+        out = {"shape": f"bf16 q ({b}, {hkv}, {gq}, {hd}), k/v ({b}, {s}, "
+                        f"{hkv}, {hd}), all lengths {s}",
+               "blocks": b * hkv,
+               "library_max_abs_diff": float(
+                   (got.float().reshape(b, hkv * gq, 1, hd) - lib.float()).abs().max()),
+               "ms": time_ms(lambda: da.decode_attention_cuda(q, k, v, full), torch),
+               "plain_ms": time_ms(lambda: da.decode_attention_plain(q, k, v, full),
+                                   torch),
+               "library_ms": time_ms(
+                   lambda: sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True), torch)}
+        out["bound_ms"], out["bound_by"] = bound_ms(
+            2.0 * b * s * hkv * hd * 2 + 2.0 * q.numel() * 2 + 4.0 * b,
+            4.0 * b * hkv * gq * hd * s)
+        out["of_bound"] = out["bound_ms"] / out["ms"]
+        return out
+
     # the hybrid's head width (zamba2-7b: 3584 / 32 = 112) and 96, in the
     # row layout of the next width (128) with the lanes past hd idle: the
     # reference's test shapes, a group of 4, and the hybrid's decode shape
@@ -1315,32 +1367,45 @@ def decode_attention_phases(torch, record: dict):
 
     # timed at the hybrid's decode shape in bfloat16, every row at the
     # cache's last step (hs rows)
-    q, k, v = inputs(hb, hs, hkv, gq, hhd, bf16)
-    full = torch.full((hb,), hs, dtype=torch.int32, device=dev)
-    got = held(q, k, v, full, "hybrid timed inputs")
-    qs = q.reshape(hb, hkv * gq, 1, hhd)
-    ks, vs = (t.permute(0, 2, 1, 3).contiguous() for t in (k, v))
-    mask = torch.ones((hb, 1, 1, hs), dtype=torch.bool, device=dev)
-    lib = sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True)
-    wide = {"shape": f"bf16 q ({hb}, {hkv}, {gq}, {hhd}), k/v ({hb}, {hs}, "
-                     f"{hkv}, {hhd}), all lengths {hs}",
-            "max_abs_err_f32": err[f32], "max_abs_err_bf16": err[bf16],
-            "library_max_abs_diff": float(
-                (got.float().reshape(hb, hkv * gq, 1, hhd) - lib.float()).abs().max()),
-            "ms": time_ms(lambda: da.decode_attention_cuda(q, k, v, full), torch),
-            "plain_ms": time_ms(lambda: da.decode_attention_plain(q, k, v, full),
-                                torch),
-            "library_ms": time_ms(
-                lambda: sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True), torch)}
-    wide["bound_ms"], wide["bound_by"] = bound_ms(
-        2.0 * hb * hs * hkv * hhd * 2 + 2.0 * q.numel() * 2 + 4.0 * hb,
-        4.0 * hb * hkv * gq * hhd * hs)
-    rec[f"hd{hhd}"] = wide
+    rec[f"hd{hhd}"] = {**timed_shape(hb, hs, hkv, gq, hhd),
+                       "max_abs_err_f32": err[f32], "max_abs_err_bf16": err[bf16]}
     rec["max_abs_err"] = max(rec["max_abs_err"], *err.values())
+
+    # the vlm and encdec paths' decode shapes: qwen2-vl-2b's self-attention
+    # (2 KV heads of 128, groups of 6: B x Hkv = 32 blocks on 132 SMs) and
+    # whisper-base's self-attention over its 128-row caches and its
+    # cross-attention over F = 1500 frames (8 KV heads of 64, G = 1), with
+    # lengths 1 .. the rows, each timed beside SDPA with every row full (the
+    # cross-attention's length F at every step)
+    vcfg, ecfg = get_config(VLM_ARCH), get_config(ENC_ARCH)
+    family_shapes = {
+        "vlm": (VLM_BATCH, VLM_PROMPT + VLM_NEW, vcfg.n_kv_heads,
+                vcfg.n_heads // vcfg.n_kv_heads, vcfg.hd),
+        "encdec_cross": (ENC_BATCH, ecfg.enc_frames, ecfg.n_kv_heads,
+                         ecfg.n_heads // ecfg.n_kv_heads, ecfg.hd),
+        "encdec_self": (ENC_BATCH, ENC_PROMPT + ENC_NEW, ecfg.n_kv_heads,
+                        ecfg.n_heads // ecfg.n_kv_heads, ecfg.hd)}
+    for name, (b, s, kvh, gg, hd) in family_shapes.items():
+        for dt in err:
+            err[dt] = 0.0
+        edges = [n for n in (1, 2, 511, 512, 513, 2047, 2048, 2049, s - 1, s)
+                 if n <= s]
+        for dt in (f32, bf16):
+            q, k, v = inputs(b, s, kvh, gg, hd, dt)
+            length = torch.randint(1, s + 1, (b,), device=dev, generator=g,
+                                   dtype=torch.int32)
+            length[:len(edges)] = torch.tensor(edges, dtype=torch.int32)
+            for lens in (length, torch.full_like(length, s)):
+                held(q, k, v, lens, f"{name} {(b, s, kvh, gg, hd)} {dt}")
+            del q, k, v
+        rec[name] = {**timed_shape(b, s, kvh, gg, hd),
+                     "max_abs_err_f32": err[f32], "max_abs_err_bf16": err[bf16]}
+        rec["max_abs_err"] = max(rec["max_abs_err"], *err.values())
+        log(f"decode_attention {name} {(b, s, kvh, gg, hd)}: ok in float32 and "
+            f"bfloat16; {rec[name]}")
     rec["max_share_of_tolerance"] = {"f32": of_bound[f32], "bf16": of_bound[bf16]}
     rec["max_ulps_bf16"] = worst_bf16[0]
     record["decode_attention"] = rec
-    del q, k, v, ks, vs, qs, lib, got
     cuda.reset_launches()
 
 
@@ -3340,12 +3405,15 @@ def cache_indexes(caches: dict):
 
 
 def lm_serve(torch, cfg, keep: list, seed: int = 0,
-             shape: tuple = (LM_BATCH, LM_PROMPT, LM_NEW), model=None) -> dict:
+             shape: tuple = (LM_BATCH, LM_PROMPT, LM_NEW), model=None,
+             batch=None) -> dict:
     """Serve ``cfg`` as examples/serve_lm.py does, through the port's entry
     points (launch/steps.py): random weights from ``seed`` on the card (or
-    ``model``), ``shape`` = (requests, prompt tokens, new tokens): the
-    prompts' token ids from numpy, one prefill into a cache of prompt + new
-    rows, then greedy decode steps.  Returns timings, the tokens, and the
+    ``model``), ``shape`` = (requests, prompt positions, new tokens): the
+    prompts' token ids from numpy (or the prefill's ``batch``: the vlm
+    family's stub embeddings and positions, the encdec family's frames and
+    prompt tokens), one prefill into a cache of prompt + new rows, then
+    greedy decode steps.  Returns timings, the prefill's batch, and the
     logits of requests ``keep`` at the prefill's last position and at every
     decode step."""
     from repro_torch.launch import steps
@@ -3355,14 +3423,15 @@ def lm_serve(torch, cfg, keep: list, seed: int = 0,
     b, s, t = shape
     if model is None:
         model = lm.init_params(cfg, seed=seed, device=dev)
-    prompts = np.random.default_rng(seed).integers(0, cfg.vocab, (b, s))
-    tokens = torch.from_numpy(prompts.astype(np.int32)).to(dev)
+    if batch is None:
+        prompts = np.random.default_rng(seed).integers(0, cfg.vocab, (b, s))
+        batch = {"tokens": torch.from_numpy(prompts.astype(np.int32)).to(dev)}
     prefill = steps.make_prefill_step(cfg, s + t)
     step = steps.make_decode_step(cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    logits, caches = prefill(model, {"tokens": tokens})
+    logits, caches = prefill(model, batch)
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
     peak_prefill = torch.cuda.max_memory_allocated()
@@ -3382,7 +3451,8 @@ def lm_serve(torch, cfg, keep: list, seed: int = 0,
     step_ms = [marks[i].elapsed_time(marks[i + 1]) for i in range(t)]
     assert caches["host_index"] == s + t
     assert all(bool((i == s + t).all()) for i in cache_indexes(caches))
-    return {"model": model, "tokens": tokens, "gen": torch.cat(gen, 1),
+    return {"model": model, "batch": batch, "tokens": batch.get("tokens"),
+            "gen": torch.cat(gen, 1),
             "kept": torch.stack(kept, 1), "keep": keep, "shape": shape,
             "stats": {
                 "prefill_ms": round(t_prefill * 1e3, 3),
@@ -3395,21 +3465,43 @@ def lm_serve(torch, cfg, keep: list, seed: int = 0,
                 "peak_gib": round(torch.cuda.max_memory_allocated() / 2**30, 3)}}
 
 
+def full_forward(torch, cfg, model, batch: dict, keep: list, gen):
+    """The no-cache forward's logits over the prompts of requests ``keep``
+    of the prefill's ``batch`` followed by their tokens ``gen`` (k, t): the
+    vlm family's at the reference's decode positions (the cache index on
+    all three streams), the encdec family's teacher-forced over the encoded
+    frames."""
+    from repro_torch.models import lm, whisper
+
+    if cfg.family == "encdec":
+        enc = whisper.encode(model, batch["frames"][keep], cfg)
+        seq = torch.cat([batch["tokens"][keep], gen], 1)
+        return whisper.decode_forward(model, seq, enc, cfg)[0]
+    if "inputs_embeds" not in batch:
+        return lm.forward(model, torch.cat([batch["tokens"][keep], gen], 1), cfg)[0]
+    pos = batch["positions"][:, keep]
+    s, t = pos.shape[2], gen.shape[1]
+    emb = torch.nn.functional.embedding(gen, model.embed)
+    step_pos = (s + torch.arange(t, dtype=torch.int32, device=gen.device)
+                ).expand(3, len(keep), t)
+    return lm.forward(model, None, cfg, positions=torch.cat([pos, step_pos], 2),
+                      inputs_embeds=torch.cat([batch["inputs_embeds"][keep], emb],
+                                              1))[0]
+
+
 def lm_against_full_forward(torch, cfg, run: dict) -> float:
     """The served logits of the kept requests (the prefill's last position
     and every decode step) against the port's own no-cache full forward
     over prompt + generated tokens; the largest absolute difference.  Also
     holds the outputs' shapes, finiteness and token range."""
-    from repro_torch.models import lm
-
     keep, gen, kept = run["keep"], run["gen"], run["kept"]
     b, s, t = run["shape"]
     assert gen.shape == (b, t)
     assert bool(((gen >= 0) & (gen < cfg.vocab)).all())
     assert kept.shape == (len(keep), t + 1, cfg.vocab)
     assert bool(torch.isfinite(kept.float()).all())
-    seq = torch.cat([run["tokens"][keep], gen[keep]], 1)
-    full = lm.forward(run["model"], seq, cfg)[0]
+    with torch.no_grad():
+        full = full_forward(torch, cfg, run["model"], run["batch"], keep, gen[keep])
     want = full[:, s - 1:]
     assert bool(torch.isfinite(want.float()).all())
     return float((kept.float() - want.float()).abs().max())
@@ -3479,7 +3571,8 @@ def lm_checks(torch, run: dict, queries: dict, checks: dict,
     torch.cuda.empty_cache()
 
 
-# The training path: qwen3-0.6b at its published widths and depth (bf16,
+# The training path: qwen3-0.6b at its published widths and TRAIN_LAYERS
+# of its 28 layers (cut to keep the script within its time limit; bf16,
 # remat per block, random weights from a seed) trained through
 # launch/train.py's run(): the HiFrames token pipeline over a pretraining-
 # scale document table (2^24 documents, ~17 G tokens), 10 AdamW steps of
@@ -3489,10 +3582,13 @@ def lm_checks(torch, run: dict, queries: dict, checks: dict,
 # restore into a fresh state, two steps from each state, and the gradient
 # and step at 2 layers in float32 held against the CPU.
 TRAIN_DOCS = 2**24
+TRAIN_LAYERS = 14
 TRAIN_BATCH, TRAIN_SEQ = 8, 2048
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_MORE = 10, 5, 2
 TRAIN_SCHEDULE = 100
-TRAIN_HOLD = (2, 128)            # batch, seq of the float32 hold on the CPU
+# batch, seq of the float32 hold on the CPU (seq cut from 128 to keep the
+# script within its time limit)
+TRAIN_HOLD = (2, 64)
 BF16_OPS_PER_S = 989e12          # H100 SXM data sheet, dense bf16
 
 
@@ -3563,29 +3659,32 @@ def token_batches(torch, vocab: int, b: int, s: int, n: int, seed: int, dev):
 
 def hold_cfg(cfg):
     """``cfg``'s widths in float32 at 2 layers; the hybrid family at 3
-    layers of period 2 (one group and a tail: two shared applications)."""
+    layers of period 2 (one group and a tail: two shared applications);
+    the encdec family at its full depth."""
     c = cfg.replace(param_dtype="float32", compute_dtype="float32")
     if cfg.family == "hybrid":
         return c.replace(n_layers=3, shared_attn_period=2)
-    return c.replace(n_layers=2)
+    return c if cfg.family == "encdec" else c.replace(n_layers=2)
 
 
 def hold_models(torch, cfg) -> tuple:
     """``hold_cfg(cfg)``: random weights from a seed on the CPU, and a copy
     of them on the card."""
-    from repro_torch.models import lm
+    from repro_torch.models import lm, whisper
 
     c = hold_cfg(cfg)
-    cpu_model = lm.init_params(c, seed=3, device="cpu")
-    card_model = lm.LM(c, lm.tree_map(lambda t: t.detach().to("cuda", copy=True),
-                                      cpu_model.tree()))
+    cpu_model = (whisper if c.family == "encdec" else lm).init_params(
+        c, seed=3, device="cpu")
+    card_model = type(cpu_model)(c, lm.tree_map(
+        lambda t: t.detach().to("cuda", copy=True), cpu_model.tree()))
     return cpu_model, card_model
 
 
-def train_hold(torch, cfg, ocfg, models=None) -> dict:
+def train_hold(torch, cfg, ocfg, models=None, batch_of=None) -> dict:
     """The train step at ``hold_cfg(cfg)`` (TF32 off) on the card and on
     the CPU from the same weights (``models`` from ``hold_models``, made
-    here if None; the step updates them) and batch:
+    here if None; the step updates them) and batch (TRAIN_HOLD's tokens,
+    or ``batch_of(model, device)``):
     each gradient leaf's largest difference over its largest |g|, the
     step's loss, and the loss of the same batch after the update."""
     from repro_torch.launch import steps
@@ -3595,9 +3694,12 @@ def train_hold(torch, cfg, ocfg, models=None) -> dict:
     c = hold_cfg(cfg)
     cpu_model, card_model = models or hold_models(torch, cfg)
     b, s = TRAIN_HOLD
+    if batch_of is None:
+        def batch_of(model, dev):
+            return token_batches(torch, c.vocab, b, s, 1, 17, dev)[0]
     out = {}
     for name, model in (("cpu", cpu_model), ("cuda", card_model)):
-        batch = token_batches(torch, c.vocab, b, s, 1, 17, torch.device(name))[0]
+        batch = batch_of(model, torch.device(name))
         params = model.tree()
         opt = adamw.init_state(params, ocfg)
         t0 = time.perf_counter()
@@ -3607,7 +3709,7 @@ def train_hold(torch, cfg, ocfg, models=None) -> dict:
         loss = float(loss)
         dt = time.perf_counter() - t0
         with torch.no_grad():
-            after = float(lm.loss_fn(params, batch, c))
+            after = float(steps.make_loss_fn(c)(params, batch))
         out[name] = {"loss": loss, "after": after, "s": dt, "grads": grads}
     cpu, card = out["cpu"], out["cuda"]
     grad_rel = {"/".join(k): float((x.cpu() - y).abs().max() / y.abs().max())
@@ -3637,7 +3739,7 @@ def train_path(torch, queries: dict, checks: dict, profile_dir: str | None = Non
     from repro_torch.models import lm
     from repro_torch.optim import OptConfig, adamw
 
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(LM_ARCH).replace(n_layers=TRAIN_LAYERS)
     ocfg = OptConfig(lr=3e-4, warmup_steps=2, total_steps=TRAIN_SCHEDULE)
     t0 = time.perf_counter()
     corpus = synth.token_corpus(TRAIN_DOCS, cfg.vocab)
@@ -3774,7 +3876,9 @@ def train_path(torch, queries: dict, checks: dict, profile_dir: str | None = Non
 MOE_ARCH = "deepseek-moe-16b"
 MOE_BATCH, MOE_PROMPT, MOE_NEW = 16, 2048, 128
 MOE_NODROP = (2, 256, 32)        # requests, prompt tokens, new tokens
-SERVE_HOLD = (2, 128, 8)         # requests, tokens, of them decoded last
+# requests, tokens, of them decoded last (tokens cut from 128 for the time
+# limit)
+SERVE_HOLD = (2, 64, 8)
 MOE_TRAIN_LAYERS = 2
 MOE_TRAIN_STEPS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 5, 8, 2048
 MOE_TRAIN_DOCS = 2**16
@@ -4191,6 +4295,218 @@ def ssm_checks(torch, run: dict, queries: dict, checks: dict, family: str):
     torch.cuda.empty_cache()
 
 
+
+# The vlm and encdec serving paths.  vlm: qwen2-vl-2b as published (28
+# layers, d 1536, 12 query heads over 2 KV heads of 128, ff 8960, V 151936,
+# qkv_bias, tied embeddings, M-RoPE sections (16, 24, 24), theta 1e6; bf16,
+# random weights from a seed) serves 16 requests of 2048 prompt positions:
+# 64 + 16 r text tokens (rows of its own embedding), one 32 x 32 grid of
+# 1024 visual tokens (an 896 x 896 image at 14-pixel patches merged 2 x 2;
+# N(0, 0.02) rows from a seed: the vision tower is a stub), then text, at
+# Qwen2-VL's rope index; then 128 greedy new tokens (max_seq 2176).
+# encdec: whisper-base as published (6 + 6 layers, d 512, 8 heads of 64, ff
+# 2048, V 51865, 1500 frames; bf16, random weights from a seed) serves 32
+# requests of 1500 seeded frame embeddings (30 s of audio each; the conv
+# frontend a stub) behind the 4-token start-of-transcript prompt, then 124
+# greedy new tokens (max_seq 128).  After each path: two requests against
+# the no-cache forward; the float32 holds against the CPU.
+VLM_ARCH = "qwen2-vl-2b"
+VLM_BATCH, VLM_PROMPT, VLM_NEW, VLM_GRID = 16, 2048, 128, 32
+VLM_HOLD = (2, 128, 8, 8)        # requests, prompt positions, image grid, new tokens
+ENC_ARCH = "whisper-base"
+ENC_BATCH, ENC_PROMPT, ENC_NEW = 32, 4, 124
+ENC_SOT = (50258, 50259, 50359, 50363)   # start of transcript, en, transcribe,
+#                                          no timestamps
+ENC_HOLD = (2, 24, 8)            # requests, prompt tokens, new tokens
+MM_ARCHS = {"vlm": VLM_ARCH, "encdec": ENC_ARCH}
+
+
+def rope_index(n_before: int, grid: int, n: int) -> np.ndarray:
+    """(3, n) int32 Qwen2-VL positions (arXiv:2409.12191 §2.1) of a prompt
+    of n_before text tokens, a grid x grid image, then text: text counts up
+    on all three streams, an image token at (row, col) is (t, h, w) =
+    (start, start + row, start + col), and the text after it resumes at
+    start + grid."""
+    pos = np.empty((3, n), np.int32)
+    pos[:, :n_before] = np.arange(n_before)
+    row, col = np.divmod(np.arange(grid * grid), grid)
+    img = slice(n_before, n_before + grid * grid)
+    pos[0, img] = n_before
+    pos[1, img] = n_before + row
+    pos[2, img] = n_before + col
+    pos[:, img.stop:] = n_before + grid + np.arange(n - img.stop)
+    return pos
+
+
+def vlm_batch(torch, cfg, model, b: int, s: int, grid: int, dev, seed: int,
+              text0: int, step: int) -> dict:
+    """The vlm prefill's batch on ``dev``: request r's ``text0 + step r``
+    text tokens, a grid x grid image and text after it, as ``inputs_embeds``
+    (text: rows of ``model``'s embedding of numpy token ids; image: N(0,
+    0.02) numpy draws) and ``positions`` (``rope_index``)."""
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s)).astype(np.int32))
+    n_img = grid * grid
+    img = torch.from_numpy(rng.normal(0, 0.02, (b, n_img, cfg.d_model)).astype(
+        np.float32)).to(dev)
+    with torch.no_grad():
+        emb = torch.nn.functional.embedding(toks.to(dev), model.embed)
+    pos = np.empty((3, b, s), np.int32)
+    for r in range(b):
+        n0 = text0 + step * r
+        emb[r, n0:n0 + n_img] = img[r]
+        pos[:, r] = rope_index(n0, grid, s)
+    return {"inputs_embeds": emb, "positions": torch.from_numpy(pos).to(dev)}
+
+
+def encdec_batch(torch, cfg, b: int, s: int, dev, seed: int) -> dict:
+    """The encdec prefill's batch on ``dev``: N(0, 1) numpy frame embeddings
+    (b, F, d) in the compute dtype and prompts of s tokens, ENC_SOT then
+    numpy draws."""
+    rng = np.random.default_rng(seed)
+    frames = rng.standard_normal((b, cfg.enc_frames, cfg.d_model), dtype=np.float32)
+    toks = np.concatenate([np.tile(ENC_SOT, (b, 1)),
+                           rng.integers(0, cfg.vocab, (b, max(s - len(ENC_SOT), 0)))],
+                          1)[:, :s]
+    return {"frames": torch.from_numpy(frames).to(dev).to(
+                getattr(torch, cfg.compute_dtype)),
+            "tokens": torch.from_numpy(toks.astype(np.int32)).to(dev)}
+
+
+def mm_path(torch, queries: dict, runs: dict, family: str):
+    """The vlm or encdec serving path (see VLM_* and ENC_*); the first and
+    last requests kept for the checks after the path."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm, whisper
+
+    dev = torch.device("cuda")
+    cfg = get_config(MM_ARCHS[family])
+    torch.cuda.empty_cache()
+    if family == "vlm":
+        shape = (VLM_BATCH, VLM_PROMPT, VLM_NEW)
+        model = lm.init_params(cfg, seed=0, device=dev)
+        batch = vlm_batch(torch, cfg, model, VLM_BATCH, VLM_PROMPT, VLM_GRID,
+                          dev, seed=0, text0=64, step=16)
+        shapes = lm.param_shapes(cfg)
+    else:
+        shape = (ENC_BATCH, ENC_PROMPT, ENC_NEW)
+        model = whisper.init_params(cfg, seed=0, device=dev)
+        batch = encdec_batch(torch, cfg, ENC_BATCH, ENC_PROMPT, dev, seed=0)
+        shapes = whisper.param_shapes(cfg)
+    run = lm_serve(torch, cfg, keep=[0, shape[0] - 1], shape=shape, model=model,
+                   batch=batch)
+    queries[f"{family}_serve"] = {
+        "model": cfg.name, "layers": cfg.n_layers, "enc_layers": cfg.n_enc_layers,
+        "params": sum(int(np.prod(v)) for _, v in lm.leaves(shapes)),
+        "requests": shape[0], "prompt_positions": shape[1],
+        "enc_frames": cfg.enc_frames if family == "encdec" else 0,
+        "new_tokens": shape[2], **run["stats"]}
+    log(f"{family}_serve: {queries[f'{family}_serve']}")
+    runs[family] = run
+
+
+def hold_inputs(torch, c, model, dev) -> tuple:
+    """The float32 holds' prompt batch on ``dev`` (the vlm family: VLM_HOLD's
+    requests of 16 + 8 r text tokens, an 8 x 8 image, then text; the
+    encdec family: ENC_HOLD's frames and prompt tokens) and the tokens
+    decoded after it, (requests, new tokens) from numpy."""
+    if c.family == "vlm":
+        b, s, grid, t = VLM_HOLD
+        batch = vlm_batch(torch, c, model, b, s, grid, dev, seed=5, text0=16, step=8)
+    else:
+        b, s, t = ENC_HOLD
+        batch = encdec_batch(torch, c, b, s, dev, seed=5)
+    feed = np.random.default_rng(6).integers(0, c.vocab, (b, t)).astype(np.int32)
+    return batch, torch.from_numpy(feed).to(dev)
+
+
+def mm_hold(torch, cfg, models) -> dict:
+    """``hold_cfg(cfg)`` in float32 (TF32 off) on the card and on the CPU
+    from the same weights and inputs (``hold_inputs``): the largest logit
+    difference of a no-cache forward over the prompt and the fed tokens
+    (``full_forward``), and of a prefill of the prompt followed by the fed
+    tokens one by one."""
+    from repro_torch.launch import steps
+
+    c = hold_cfg(cfg)
+    out = {}
+    for name, model in zip(("cpu", "cuda"), models):
+        batch, feed = hold_inputs(torch, c, model, torch.device(name))
+        b, t = feed.shape
+        s = batch["tokens" if c.family == "encdec" else "positions"].shape[-1]
+        with torch.no_grad():
+            full = full_forward(torch, c, model, batch, list(range(b)), feed)
+            logits, caches = steps.make_prefill_step(c, s + t)(model, batch)
+            served = [logits]
+            for i in range(t):
+                logits, caches = steps.make_decode_step(c)(model, feed[:, i:i + 1],
+                                                           caches)
+                served.append(logits)
+        out[name] = (full.cpu(), torch.stack(served, 1).cpu())
+    (fc, sc), (fg, sg) = out["cpu"], out["cuda"]
+    return {"forward_max_abs": float((fg - fc).abs().max()),
+            "served_max_abs": float((sg - sc).abs().max()),
+            "served_vs_forward_cpu": float((sc - fc[:, -t - 1:]).abs().max()),
+            "logit_scale": float(fc.abs().max())}
+
+
+def mm_checks(torch, run: dict, queries: dict, checks: dict, family: str):
+    """After the counted vlm or encdec path: (a) its bf16 logits against the
+    no-cache forward within 0.1; (b) ``mm_hold`` within 1e-3 (the vlm family
+    at 2 layers, the encdec family at full depth, both at full width); (c)
+    ``train_hold`` on the same weights (remat per block as trained; the vlm
+    family on TRAIN_HOLD's positions): the loss within 1e-4 relative, each
+    gradient leaf within 1e-4 x its largest |g|."""
+    from repro_torch.configs import get_config
+    from repro_torch.optim import OptConfig
+
+    cfg = get_config(MM_ARCHS[family])
+    d = lm_against_full_forward(torch, cfg, run)
+    checks[f"{family}_bf16_vs_full_forward"] = d
+    assert d <= 0.1, f"{family} bf16: decode logits differ from the full forward by {d}"
+    log(f"{family} bf16, {cfg.n_layers} layers: max |decode - full forward| = {d}")
+    run.clear()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    models = hold_models(torch, cfg)
+    hold = mm_hold(torch, cfg, models)
+    hold["s"] = round(time.perf_counter() - t0, 3)
+    queries[f"{family}_hold_f32"] = hold
+    checks[f"{family}_f32_forward_vs_cpu"] = hold["forward_max_abs"]
+    checks[f"{family}_f32_served_vs_cpu"] = hold["served_max_abs"]
+    assert max(hold["forward_max_abs"], hold["served_max_abs"],
+               hold["served_vs_forward_cpu"]) <= 1e-3, hold
+    log(f"{family} hold (float32, card against CPU): {hold}")
+
+    def batch_of(model, dev):
+        """The train hold's batch: TRAIN_HOLD's positions with a 4 x 4 image
+        (vlm), ENC_HOLD's frames and prompt (encdec); numpy labels."""
+        c = hold_cfg(cfg)
+        if family == "vlm":
+            n, s = TRAIN_HOLD
+            batch = vlm_batch(torch, c, model, n, s, 4, dev, seed=7, text0=16, step=8)
+        else:
+            n, s = ENC_HOLD[:2]
+            batch = encdec_batch(torch, c, n, s, dev, seed=7)
+        labels = np.random.default_rng(17).integers(0, cfg.vocab, (n, s))
+        return dict(batch, labels=torch.from_numpy(labels.astype(np.int32)).to(dev))
+
+    t0 = time.perf_counter()
+    ocfg = OptConfig(lr=3e-4, warmup_steps=2, total_steps=TRAIN_SCHEDULE)
+    grad = train_hold(torch, cfg, ocfg, models, batch_of=batch_of)
+    grad["s"] = round(time.perf_counter() - t0, 3)
+    del models
+    queries[f"{family}_train_hold_f32"] = grad
+    checks[f"{family}_f32_grad_rel_vs_cpu"] = grad["grad_max_rel"]
+    checks[f"{family}_f32_loss_rel_vs_cpu"] = grad["loss_rel"]
+    checks[f"{family}_f32_after_rel_vs_cpu"] = grad["after_rel"]
+    assert grad["grad_max_rel"] <= 1e-4, grad
+    assert grad["loss_rel"] <= 1e-4 and grad["after_rel"] <= 1e-4, grad
+    log(f"{family} train hold (float32, card against CPU): {grad}")
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true")
@@ -4308,7 +4624,14 @@ def main(argv=None) -> int:
             # one decode_attention a shared application and decode step
             "hybrid": (lambda: ssm_path(torch, queries, lm_runs, "hybrid"),
                        {"decode_attention": shared_applications(hybrid_cfg)
-                        * SSM_NEW})}
+                        * SSM_NEW}),
+            # one decode_attention a layer and decode step
+            "vlm": (lambda: mm_path(torch, queries, lm_runs, "vlm"),
+                    {"decode_attention": get_config(VLM_ARCH).n_layers * VLM_NEW}),
+            # two a decoder layer and decode step: self and cross-attention
+            "encdec": (lambda: mm_path(torch, queries, lm_runs, "encdec"),
+                       {"decode_attention": 2 * get_config(ENC_ARCH).n_layers
+                        * ENC_NEW})}
         launched = {}
         for path, (drive, must) in paths.items():
             t0 = time.perf_counter()
@@ -4335,6 +4658,10 @@ def main(argv=None) -> int:
             elif path in SSM_ARCHS:
                 t0 = time.perf_counter()
                 ssm_checks(torch, lm_runs[path], queries, checks, path)
+                log(f"{path} checks: {time.perf_counter() - t0:.1f} s")
+            elif path in MM_ARCHS:
+                t0 = time.perf_counter()
+                mm_checks(torch, lm_runs[path], queries, checks, path)
                 log(f"{path} checks: {time.perf_counter() - t0:.1f} s")
         for path in ("train", "moe_train"):
             assert launched[path]["decode_attention"] == 0, launched[path]

@@ -1,13 +1,14 @@
-"""Step builders: train, prefill and decode (the dense, moe, ssm and hybrid
-families).
+"""Step builders: train, prefill and decode, for every family.
 
 The port of the reference package's ``launch/steps.py``: the train step its
 ``launch/train.py`` drives (``make_train_step``, with the loss wrapper,
-``DEFAULT_MICRO``, ``micro_batches`` and ``input_specs``) and the serving
-steps its ``examples/serve_lm.py`` drives.  The encdec (whisper) and M-RoPE
-(vlm) branches, meshes and the sharding bundles (``cell_shardings``,
-``cache_specs`` over whisper) are not ported yet (ROADMAP.md §1 item 11):
-other families raise ``NotImplementedError``, and so does a mesh.
+``DEFAULT_MICRO``, ``micro_batches`` and ``input_specs``), the serving
+steps its ``examples/serve_lm.py`` drives, ``cache_specs`` and
+``model_param_specs``.  The encdec family goes through
+``models/whisper.py``; the vlm family's batches carry ``inputs_embeds`` and
+(3, B, S) ``positions``.  Meshes and the sharding bundles
+(``cell_shardings``) are not ported yet (ROADMAP.md §1 item 11): a mesh
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import functools
 import torch
 
 from ..configs import ShapeSpec
-from ..models import lm
+from ..models import lm, whisper
 from ..models.config import ModelConfig
 from ..optim import OptConfig, adamw
 
@@ -42,19 +43,44 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
     cell, allocating nothing."""
     lm.require_ported(cfg)
     b, s = shape.batch, shape.seq
-    i32 = torch.int32
-    if shape.kind == "train":
-        return {"tokens": ((b, s), i32), "labels": ((b, s), i32)}
-    if shape.kind == "prefill":
-        return {"tokens": ((b, s), i32)}
+    i32, cdt = torch.int32, lm._dt(cfg)
     if shape.kind == "decode":
         return {"token": ((b, 1), i32)}
-    raise ValueError(shape.kind)
+    if shape.kind not in ("train", "prefill"):
+        raise ValueError(shape.kind)
+    if cfg.family == "vlm":
+        out = {"inputs_embeds": ((b, s, cfg.d_model), cdt),
+               "positions": ((3, b, s), i32)}
+    elif cfg.family == "encdec":
+        out = {"frames": ((b, cfg.enc_frames, cfg.d_model), cdt),
+               "tokens": ((b, s), i32)}
+    else:
+        out = {"tokens": ((b, s), i32)}
+    if shape.kind == "train":
+        out["labels"] = ((b, s), i32)
+    return out
+
+
+def cache_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
+    """(shape, dtype) of every entry of the decode cache of a cell."""
+    if cfg.family == "encdec":
+        return whisper.init_cache_specs(cfg, shape.batch, shape.seq)
+    return lm.init_cache_specs(cfg, shape.batch, shape.seq)
+
+
+def model_param_specs(cfg: ModelConfig) -> dict:
+    """(shape, dtype) of every parameter, in the reference's tree."""
+    lm.require_ported(cfg)
+    shapes = (whisper.param_shapes(cfg) if cfg.family == "encdec"
+              else lm.param_shapes(cfg))
+    return lm.tree_map(lambda s: (s, lm._pdt(cfg)), shapes)
 
 
 def make_loss_fn(cfg: ModelConfig):
     """(params, batch) -> scalar loss."""
     lm.require_ported(cfg)
+    if cfg.family == "encdec":
+        return functools.partial(whisper.loss_fn, cfg=cfg)
     return functools.partial(lm.loss_fn, cfg=cfg)
 
 
@@ -73,12 +99,14 @@ def make_train_step(cfg: ModelConfig, ocfg: OptConfig, n_micro: int = 1):
     """(state, batch) -> (state, loss) with gradient accumulation.
 
     state: {"params": the parameter tree (``LM.tree()``: the model's own
-    tensors), "opt": ``adamw.init_state``}; batch: {"tokens", "labels"}
-    (B, S) int32 on the parameters' device.  The gradient is taken with
-    respect to detached aliases of the parameters; with ``n_micro`` > 1 the
-    batch splits into ``n_micro`` equal micro-batches whose gradients are
-    summed in float32 and divided by ``n_micro``, and whose losses are
-    averaged, as the reference's ``lax.scan`` does.  AdamW then updates the
+    tensors), "opt": ``adamw.init_state``}; batch: ``input_specs``' train
+    entries on the parameters' device, None entries ignored (the vlm
+    family's "tokens").  The gradient is taken with respect to detached
+    aliases of the parameters; with ``n_micro`` > 1 the batch splits into
+    ``n_micro`` equal micro-batches along its batch axis (axis 1 of the
+    (3, B, S) "positions") whose gradients are summed in float32 and
+    divided by ``n_micro``, and whose losses are averaged, as the
+    reference's ``lax.scan`` does.  AdamW then updates the
     parameters and the state in place; the same dict comes back with the
     loss, a float32 scalar tensor (no host synchronisation).
     """
@@ -91,8 +119,8 @@ def make_train_step(cfg: ModelConfig, ocfg: OptConfig, n_micro: int = 1):
                                                      device=p.device), params)
             lsum = 0.0
             for i in range(n_micro):
-                mb = {k: v.reshape(n_micro, v.shape[0] // n_micro, *v.shape[1:])[i]
-                      for k, v in batch.items()}
+                mb = {k: _micro(k, v, n_micro, i) for k, v in batch.items()
+                      if v is not None}
                 loss, g = value_and_grad(loss_fn, params, mb)
                 lm.tree_map(torch.Tensor.add_, gsum, g)
                 lsum = lsum + loss
@@ -107,25 +135,51 @@ def make_train_step(cfg: ModelConfig, ocfg: OptConfig, n_micro: int = 1):
     return train_step
 
 
+def _micro(key: str, v, n: int, i: int):
+    """Micro-batch i of n of batch entry ``key``: along axis 0, or axis 1
+    of the (3, B, S) "positions"."""
+    if key == "positions":
+        return v.reshape(v.shape[0], n, v.shape[1] // n, *v.shape[2:])[:, i]
+    return v.reshape(n, v.shape[0] // n, *v.shape[1:])[i]
+
+
 def make_prefill_step(cfg: ModelConfig, max_seq: int):
     """(params, batch) -> (last_logits, caches): a fresh ``max_seq`` cache on
-    the tokens' device, filled with the prompts ``batch["tokens"]`` (B, S)."""
+    the inputs' device, filled with the prompts: ``batch["tokens"]`` (B, S);
+    the vlm family's "inputs_embeds" (B, S, d) and "positions" (3, B, S);
+    the encdec family's "frames" (B, F, d) and prompt "tokens"."""
     lm.require_ported(cfg)
+    if cfg.family == "encdec":
+        def prefill(params, batch):
+            return whisper.prefill(params, batch["frames"], batch["tokens"],
+                                   cfg, max_seq)
+        return prefill
 
     def prefill(params, batch):
-        tokens = batch["tokens"]
-        caches = lm.init_cache(cfg, tokens.shape[0], max_seq,
-                               device=tokens.device)
+        tokens, embeds = batch.get("tokens"), batch.get("inputs_embeds")
+        first = tokens if tokens is not None else embeds
+        caches = lm.init_cache(cfg, first.shape[0], max_seq, device=first.device)
         logits, caches, _ = lm.forward(params, tokens, cfg, caches=caches,
-                                       q_offset=0)
+                                       positions=batch.get("positions"),
+                                       inputs_embeds=embeds, q_offset=0)
         return logits[:, -1], caches
     return prefill
 
 
 def make_decode_step(cfg: ModelConfig):
-    """(params, token (B, 1), caches) -> (logits (B, V), caches)."""
+    """(params, token (B, 1), caches) -> (logits (B, V), caches).  With
+    M-RoPE the step's position is the reference's: the cache index on all
+    three streams (ROADMAP.md §3)."""
     lm.require_ported(cfg)
+    if cfg.family == "encdec":
+        def step(params, token, caches):
+            return whisper.decode_step(params, token, caches, cfg)
+        return step
 
     def step(params, token, caches):
-        return lm.decode_step(params, token, caches, cfg)
+        positions = None
+        if cfg.mrope:
+            positions = torch.full((3, token.shape[0], 1), caches["host_index"],
+                                   dtype=torch.int32, device=token.device)
+        return lm.decode_step(params, token, caches, cfg, positions=positions)
     return step

@@ -1,7 +1,7 @@
 """Training launcher: --arch <id> on one device.
 
 The port of the reference package's ``launch/train.py``, the dense, moe,
-ssm and hybrid families: the arch config -> parameters and AdamW state ->
+ssm, hybrid and vlm families: the arch config -> parameters and AdamW state ->
 the HiFrames token pipeline -> the fault-tolerant driver (asynchronous
 checkpoints, preemption, straggler statistics).  On the card by default; on the CPU:
 
@@ -10,10 +10,12 @@ checkpoints, preemption, straggler statistics).  On the card by default; on the 
 
 ``--resume`` continues from the latest checkpoint in ``--ckpt-dir``.
 ``--moe-impl gspmd`` sets the config's ``moe_impl`` as the reference does;
-``--moe-impl ep``, ``--model-axis`` other than 1, ``--production-mesh`` and
-the vlm and encdec families raise ``NotImplementedError``
-(ROADMAP.md §1 item 11).  ``run`` is the body, for callers with their own
-corpus.
+``--moe-impl ep``, ``--model-axis`` other than 1 and ``--production-mesh``
+raise ``NotImplementedError`` (ROADMAP.md §1 item 11).  The vlm family
+trains on the reference's stand-in batches: zero bf16 ``inputs_embeds``
+and positions counting up on all three M-RoPE streams, no tokens.  The
+encdec family exits as the reference's does (a whisper-specific driver).
+``run`` is the body, for callers with their own corpus.
 """
 from __future__ import annotations
 
@@ -39,6 +41,12 @@ def _not_ported(what: str):
     return NotImplementedError(f"{what} is not ported yet: ROADMAP.md §1 item 11")
 
 
+def _require_trainable(cfg: ModelConfig) -> None:
+    lm.require_ported(cfg)
+    if cfg.family == "encdec":
+        raise SystemExit("use whisper-specific driver for encdec training demo")
+
+
 def run(cfg: ModelConfig, ocfg: OptConfig, corpus: dict, *, steps: int,
         batch: int, seq: int, micro: int = 1, ckpt_dir: str,
         resume: bool = False, device="cuda", ckpt_every: int = 50,
@@ -54,7 +62,7 @@ def run(cfg: ModelConfig, ocfg: OptConfig, corpus: dict, *, steps: int,
     outputs), "pipeline_s" (its construction's wall: ingest, the relational
     stages and their host copies) and "resumed_at" (the step resumed from,
     or None)."""
-    lm.require_ported(cfg)
+    _require_trainable(cfg)
     dev = lm.device_of(device)
     exec_cfg = ExecConfig(device=dev.type)
     model = lm.init_params(cfg, seed=0, device=dev)
@@ -75,7 +83,15 @@ def run(cfg: ModelConfig, ocfg: OptConfig, corpus: dict, *, steps: int,
 
         def batches():
             for b in pipe:
-                yield {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+                out = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+                if cfg.family == "vlm":
+                    n, sq = out["tokens"].shape
+                    out["inputs_embeds"] = torch.zeros(
+                        (n, sq, cfg.d_model), dtype=torch.bfloat16, device=dev)
+                    out["positions"] = torch.arange(
+                        sq, dtype=torch.int32, device=dev).expand(3, n, sq)
+                    out["tokens"] = None
+                yield out
 
         res = driver.run(batches(), num_steps=steps, log_every=log_every)
     finally:
@@ -111,7 +127,7 @@ def main(argv=None) -> dict:
         cfg = cfg.replace(moe_impl=args.moe_impl)
     if args.model_axis != 1 or args.production_mesh:
         raise _not_ported("a mesh (--model-axis, --production-mesh)")
-    lm.require_ported(cfg)
+    _require_trainable(cfg)
     print(f"device {args.device}; model {cfg.name} "
           f"{cfg.param_count()/1e6:.1f}M params")
     ocfg = OptConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 1),

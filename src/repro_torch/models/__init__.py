@@ -1,4 +1,5 @@
-"""The LM substrate of the port: the dense, moe, ssm and hybrid families'
-serving and training paths."""
-from . import config, convert, layers, lm, moe, ssm
+"""The LM substrate of the port: the dense, moe, ssm, hybrid and vlm
+families (models/lm.py) and the encdec family (models/whisper.py), serving
+and training."""
+from . import config, convert, layers, lm, moe, ssm, whisper
 from .config import ModelConfig

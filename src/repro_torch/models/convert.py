@@ -1,12 +1,12 @@
-"""Carry the reference package's LM weights and optimizer state into the
-port bit for bit, and the port's back out as numpy in the reference's
-layout."""
+"""Carry the reference package's LM and whisper weights and optimizer
+state into the port bit for bit, and the port's back out as numpy in the
+reference's layout."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from . import lm
+from . import lm, whisper
 from .config import ModelConfig
 
 
@@ -17,26 +17,35 @@ def _tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return from_host(*host_array(a), device)
 
 
+def _check(shapes: dict, tree: dict, path: str = "") -> None:
+    """``tree``'s keys and leaf shapes are ``shapes``'."""
+    if sorted(shapes) != sorted(tree):
+        raise ValueError(f"params{path}: keys {sorted(tree)}, expected "
+                         f"{sorted(shapes)}")
+    for k, s in shapes.items():
+        if isinstance(s, dict):
+            _check(s, tree[k], f"{path}[{k!r}]")
+        elif tuple(np.shape(tree[k])) != s:
+            raise ValueError(f"params{path}[{k!r}]: shape "
+                             f"{np.shape(tree[k])}, expected {s}")
+
+
 def params_from_jax(cfg: ModelConfig, params: dict, device="cuda") -> lm.LM:
     """The port's model holding the same values as ``params``: the reference
     package's parameter pytree as nested dicts of numpy arrays (per-layer
-    entries stacked over L), e.g. ``jax.tree.map(np.asarray, params)``."""
+    entries stacked over L), e.g. ``jax.tree.map(np.asarray, params)``; a
+    decoder-only family's (the vlm family's too)."""
     dev = lm.device_of(device)
-    want = lm.param_shapes(cfg)
-
-    def check(shapes, tree, path):
-        if sorted(shapes) != sorted(tree):
-            raise ValueError(f"params{path}: keys {sorted(tree)}, expected "
-                             f"{sorted(shapes)}")
-        for k, s in shapes.items():
-            if isinstance(s, dict):
-                check(s, tree[k], f"{path}[{k!r}]")
-            elif tuple(np.shape(tree[k])) != s:
-                raise ValueError(f"params{path}[{k!r}]: shape "
-                                 f"{np.shape(tree[k])}, expected {s}")
-
-    check(want, params, "")
+    _check(lm.param_shapes(cfg), params)
     return lm.LM(cfg, lm.tree_map(lambda a: _tensor(a, dev), params))
+
+
+def whisper_from_jax(cfg: ModelConfig, params: dict, device="cuda") -> whisper.Whisper:
+    """As ``params_from_jax``, for the encdec family: the reference's
+    ``whisper.init_params`` tree, checked against ``whisper.param_shapes``."""
+    dev = lm.device_of(device)
+    _check(whisper.param_shapes(cfg), params)
+    return whisper.Whisper(cfg, lm.tree_map(lambda a: _tensor(a, dev), params))
 
 
 def opt_state_from_jax(state: dict, device="cuda") -> dict:
@@ -52,8 +61,8 @@ def opt_state_from_jax(state: dict, device="cuda") -> dict:
 
 
 def to_numpy(tree) -> dict:
-    """A nested dict of tensors (``LM.tree()``, an optimizer state, a train
-    state) as numpy arrays on the host, copied, encoded as a checkpoint
+    """A nested dict of tensors (``LM.tree()``, ``Whisper.tree()``, an
+    optimizer state, a train state) as numpy arrays on the host, copied, encoded as a checkpoint
     stores them (``ckpt.host_array``): bfloat16 leaves come as their
     ``uint16`` bits (numpy has no bfloat16); view them as
     ``ml_dtypes.bfloat16`` to read the values."""

@@ -1,18 +1,18 @@
-"""Transformer building blocks: norms, RoPE, GQA attention, SwiGLU.
+"""Transformer building blocks: norms, RoPE and M-RoPE, GQA attention,
+SwiGLU and the GELU MLP.
 
 The port of the reference package's ``models/layers.py``, same names and
 layouts: q (B, S, Hkv, G, hd) with query head h = kv * G + g, k and v
 (B, S, Hkv, hd), weights (d_in, d_out) used as ``x @ w``.  Compute in the
 activations' dtype with float32 normalisation and softmax.  Attention is a
 plain grouped einsum up to 8192 keys and a chunked online softmax above.  A
-single-token step with a cache goes through the registry's
-``decode_attention``: the hand-written kernel on the card, its plain version
-on the CPU.
+single-token step with a cache, or over precomputed cross-attention K/V,
+goes through the registry's ``decode_attention``: the hand-written kernel on
+the card, its plain version on the CPU.
 
 Not ported yet: the reference's GSPMD constraints (``set_tp_mesh``,
 ``_pin_cache_sharding``, ``_seq_shard_qkv``; they wait for
-``models/sharding.py`` and do nothing on one card), ``apply_mrope`` and
-``gelu_mlp`` (the vlm and whisper families).
+``models/sharding.py``, ROADMAP.md §1 item 11, and do nothing on one card).
 """
 from __future__ import annotations
 
@@ -56,7 +56,7 @@ def norm(x, scale, cfg: ModelConfig):
 
 
 # ---------------------------------------------------------------------------
-# rotary embeddings
+# rotary embeddings (standard + M-RoPE)
 # ---------------------------------------------------------------------------
 
 def rope_freqs(hd: int, theta: float, device=None):
@@ -69,6 +69,25 @@ def apply_rope(x, positions, theta: float):
     hd = x.shape[-1]
     inv = rope_freqs(hd, theta, x.device)                 # (hd/2,)
     ang = positions.float()[..., None] * inv              # (B, S, hd/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x, positions3, theta: float, sections: tuple[int, int, int]):
+    """Qwen2-VL M-RoPE: the hd/2 frequency slots split into (t, h, w)
+    sections, each rotated by its own position stream.  x: (B, S, H, hd);
+    positions3: (3, B, S) int32."""
+    hd = x.shape[-1]
+    if sum(sections) != hd // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} must sum to "
+                         f"hd // 2 = {hd // 2}")
+    inv = rope_freqs(hd, theta, x.device)                 # (hd/2,)
+    pos = positions3.float()
+    ang = torch.cat([pos[i][..., None] * f                # (B, S, hd/2)
+                     for i, f in enumerate(inv.split(list(sections)))], dim=-1)
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
@@ -132,45 +151,66 @@ def attention_chunked(q, k, v, causal: bool, q_offset=0, kv_chunk: int = KV_CHUN
     return o.permute(0, 3, 1, 2, 4).to(q.dtype)       # (B, Sq, Hkv, G, hd)
 
 
-def attention_block(p, x, cfg: ModelConfig, positions, cache=None):
+def attention_block(p, x, cfg: ModelConfig, positions, cache=None,
+                    layer_cross_kv=None, cross_length=None):
     """Full attention: projections + rope + (cached) attention + out proj.
 
     p: the layer's attention weights by name (wq (d, H*hd), wk/wv
     (d, Hkv*hd), wo (H*hd, d); bq/bk/bv with ``qkv_bias``; q_norm/k_norm
-    with ``qk_norm``).  cache: None (train / full forward) or one layer's
-    {k, v, index, length}: k/v (B, max_seq, Hkv, hd) views into the stacked
-    cache, index the host's int position of the next write, length a (B,)
-    int32 device tensor index + 1 for a single-token step.  The new K/V are
-    written into k/v in place, which saves the reference's copy of every
-    layer's cache per step (``lax.dynamic_update_slice`` returns a new
-    buffer), so only the output is returned.  The reference clamps a write
-    that would run past max_seq onto the last rows; the port raises.
+    with ``qk_norm``).  positions: (B, S) int32, (3, B, S) with
+    ``cfg.mrope``, or None for no rotation (whisper adds sinusoids to its
+    input instead).
+
+    cache: None (train / full forward) or one layer's {k, v, index,
+    length}: k/v (B, max_seq, Hkv, hd) views into the stacked cache, index
+    the host's int position of the next write, length a (B,) int32 device
+    tensor index + 1 for a single-token step.  The new K/V are written into
+    k/v in place, which saves the reference's copy of every layer's cache
+    per step (``lax.dynamic_update_slice`` returns a new buffer), so only
+    the output is returned.  The reference clamps a write that would run
+    past max_seq onto the last rows; the port raises.
+
+    layer_cross_kv: None, or precomputed (k, v) (B, F, Hkv, hd): the queries
+    attend over all F keys, non-causal and unrotated, with no K/V
+    projection and no k_norm (whisper's encoder and cross-attention; no
+    cache is read).  With ``cross_length``, (B,) int32 holding F in every
+    row (made once a step by the caller), a single-token query goes
+    through ``decode_attention`` as a cached step does: the same softmax
+    over all F keys.
     """
     b, s, d = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     dt = x.dtype
     q = x @ p["wq"].to(dt)
-    k = x @ p["wk"].to(dt)
-    v = x @ p["wv"].to(dt)
     if cfg.qkv_bias:
         q = q + p["bq"].to(dt)
-        k = k + p["bk"].to(dt)
-        v = v + p["bv"].to(dt)
     q = q.reshape(b, s, h, hd)
-    k = k.reshape(b, s, hkv, hd)
-    v = v.reshape(b, s, hkv, hd)
+    cross = layer_cross_kv is not None
+    if cross:
+        k, v = layer_cross_kv
+    else:
+        k = x @ p["wk"].to(dt)
+        v = x @ p["wv"].to(dt)
+        if cfg.qkv_bias:
+            k = k + p["bk"].to(dt)
+            v = v + p["bv"].to(dt)
+        k = k.reshape(b, s, hkv, hd)
+        v = v.reshape(b, s, hkv, hd)
 
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
-        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
-    if cfg.mrope:
-        raise NotImplementedError(
-            "M-RoPE (the vlm family) is not ported yet: ROADMAP.md §1 item 11")
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+        if not cross:
+            k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    if not cross and positions is not None:
+        if cfg.mrope:
+            q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+            k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+        else:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
 
-    q_offset = 0
-    if cache is not None:
+    q_offset, length = 0, cross_length
+    if cache is not None and not cross:
         # write the new K/V at cache["index"], attend over the written prefix
         idx = cache["index"]
         ck, cv = cache["k"], cache["v"]
@@ -179,25 +219,22 @@ def attention_block(p, x, cfg: ModelConfig, positions, cache=None):
                              f"{idx} of a {ck.shape[1]}-row cache")
         ck[:, idx:idx + s] = k
         cv[:, idx:idx + s] = v
-        q_offset = idx
+        q_offset, length = idx, cache["length"]
+        # the reference attends over the whole buffer with keys past
+        # idx + s masked; they add exactly 0, so only the prefix is read
+        k, v = (ck, cv) if s == 1 else (ck[:, :idx + s], cv[:, :idx + s])
 
     qg = q.reshape(b, s, hkv, h // hkv, hd)
-    if s == 1 and cache is not None:
-        # one streaming pass over the cache in the decode_attention kernel
+    if s == 1 and length is not None:
+        # one streaming pass over the keys in the decode_attention kernel
         # (cfg.attn_decode_kernel is not read: the device decides)
         kernels = registry.resolve(x.device.type)
-        o = kernels.decode_attention(qg[:, 0], ck, cv, cache["length"])
-        out = o[:, None]                              # (B, 1, Hkv, G, hd)
+        out = kernels.decode_attention(qg[:, 0], k, v, length)[:, None]
+    elif k.shape[1] <= ATTN_CHUNK_THRESHOLD and s <= ATTN_CHUNK_THRESHOLD:
+        out = attention_scores(qg, k, v, causal=not cross, q_offset=q_offset)
     else:
-        if cache is not None:
-            # the reference attends over the whole buffer with keys past
-            # idx + s masked; they add exactly 0, so only the prefix is read
-            k, v = ck[:, :idx + s], cv[:, :idx + s]
-        if k.shape[1] <= ATTN_CHUNK_THRESHOLD and s <= ATTN_CHUNK_THRESHOLD:
-            out = attention_scores(qg, k, v, causal=True, q_offset=q_offset)
-        else:
-            out = attention_chunked(qg, k, v, causal=True, q_offset=q_offset,
-                                    kv_chunk=cfg.kv_chunk)
+        out = attention_chunked(qg, k, v, causal=not cross, q_offset=q_offset,
+                                kv_chunk=cfg.kv_chunk)
     return out.reshape(b, s, h * hd) @ p["wo"].to(dt)
 
 
@@ -210,3 +247,11 @@ def swiglu(p, x, dt=None):
     g = F.silu(x @ p["w_gate"].to(dt))
     u = x @ p["w_up"].to(dt)
     return (g * u) @ p["w_down"].to(dt)
+
+
+def gelu_mlp(p, x, dt=None):
+    """2-matrix GELU MLP (whisper-style).  The GELU is the tanh form, the
+    reference's ``jax.nn.gelu`` default (``approximate=True``); torch's
+    default erf form differs by up to ~1e-3."""
+    dt = dt or x.dtype
+    return F.gelu(x @ p["w_up"].to(dt), approximate="tanh") @ p["w_down"].to(dt)

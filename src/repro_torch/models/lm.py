@@ -1,5 +1,5 @@
-"""Decoder-only LM: the dense, moe, ssm and hybrid families, for serving
-(prefill, then decode through a cache) and training (``loss_fn``).
+"""Decoder-only LM: the dense, moe, ssm, hybrid and vlm families, for
+serving (prefill, then decode through a cache) and training (``loss_fn``).
 
 The port of the reference package's ``models/lm.py``.  The model is an
 ``nn.Module`` (embedding, the per-layer parameters stacked over L, final
@@ -25,6 +25,13 @@ applied after every group of ``shared_attn_period`` Mamba2 layers, and once
 more after the tail of L % period layers: zamba2-7b's 81 layers at period
 6 apply it 13 + 1 times, each application with its own KV cache.
 
+The vlm family (qwen2-vl) is the dense layout with M-RoPE: its vision
+frontend is a stub, so a forward takes ``inputs_embeds`` (B, S, d) in place
+of the token lookup and ``positions`` (3, B, S), one (t, h, w) stream each
+(``layers.apply_mrope``); without them the positions count up on all three
+streams from ``q_offset``.  The encdec family (whisper) is
+``models/whisper.py``'s; this module's functions refuse it.
+
 The cache is the reference's pytree, one ``{"k", "v", "index"}`` a stack
 (``{"layers": ...}``, and ``"dense_layers"`` for the moe family) with k/v
 (L, B, max_seq, Hkv, hd) and index (L,) int32 on the device, plus
@@ -48,9 +55,6 @@ their ``.grad`` as in any module.  ``cfg.remat == "block"`` recomputes each
 block in the backward pass (``torch.utils.checkpoint``, the reference's
 ``jax.checkpoint`` per layer; per group of Mamba2 layers and its shared
 block for the hybrid family, as the reference's ``group_body``).
-
-Not ported yet (ROADMAP.md §1 item 11): the vlm and encdec families (they
-raise ``NotImplementedError``).
 """
 from __future__ import annotations
 
@@ -67,8 +71,10 @@ from . import ssm as ssm_mod
 from .config import ModelConfig
 from .layers import attention_block, norm, swiglu
 
-#: the families the port runs
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+#: the decoder-only families of this module
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
+#: every family the port runs (encdec through models/whisper.py)
+PORTED = FAMILIES + ("encdec",)
 
 
 def _dt(cfg: ModelConfig) -> torch.dtype:
@@ -80,10 +86,19 @@ def _pdt(cfg: ModelConfig) -> torch.dtype:
 
 
 def require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in FAMILIES:
+    if cfg.family not in PORTED:
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet (the "
-            f"{' and '.join(FAMILIES)} families are): ROADMAP.md §1 item 11")
+            f"{cfg.name}: the {cfg.family!r} family is not ported (the "
+            f"{', '.join(PORTED)} families are): ROADMAP.md §1 item 11")
+
+
+def _require_lm(cfg: ModelConfig) -> None:
+    """A decoder-only family of this module, as the reference's
+    ``param_shapes`` (a ValueError for encdec, models/whisper.py's)."""
+    require_ported(cfg)
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"{cfg.name}: the {cfg.family!r} family is not a "
+                         f"decoder-only LM (models/whisper.py)")
 
 
 def stacks(cfg: ModelConfig) -> dict[str, int]:
@@ -160,7 +175,7 @@ def tree_map(fn, tree, *rest, path=None):
 def param_shapes(cfg: ModelConfig) -> dict:
     """Nested dict of parameter shapes, per-layer entries stacked over a
     leading L dim (the reference's layout)."""
-    require_ported(cfg)
+    _require_lm(cfg)
     d, V = cfg.d_model, cfg.vocab
     out: dict[str, Any] = {"embed": (V, d)}
     if not cfg.tie_embeddings:
@@ -204,18 +219,22 @@ def _param(t: torch.Tensor) -> nn.Parameter:
 
 class Block:
     """One layer's weights, views of the stacked tensors: a transformer
-    layer's ``attn`` by name and ``mlp`` (a SwiGLU's) or ``moe`` (the
-    router, the experts and the shared experts, nested as the reference's),
-    or a Mamba layer's ``mamba``; the parts a layer lacks None; the norm
-    scales ``ln1``/``ln2`` (None for a non-parametric LayerNorm)."""
+    layer's ``attn`` by name and ``mlp`` (a SwiGLU's, or whisper's GELU
+    MLP) or ``moe`` (the router, the experts and the shared experts, nested
+    as the reference's), or a Mamba layer's ``mamba``; a whisper decoder
+    layer's cross-attention ``xattn``; the parts a layer lacks None; the
+    norm scales ``ln1``/``ln2``/``ln3`` (None for a non-parametric
+    LayerNorm)."""
 
     def __init__(self, tensors: dict):
         self.attn = tensors.get("attn")
+        self.xattn = tensors.get("xattn")
         self.mlp = tensors.get("mlp")
         self.moe = tensors.get("moe")
         self.mamba = tensors.get("mamba")
         self.ln1 = tensors.get("ln1")
         self.ln2 = tensors.get("ln2")
+        self.ln3 = tensors.get("ln3")
 
 
 def unstack(layers: dict, n_layers: int) -> list[Block]:
@@ -252,7 +271,7 @@ class LM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, tree: dict):
         super().__init__()
-        require_ported(cfg)
+        _require_lm(cfg)
         self.cfg = cfg
         self.embed = _param(tree["embed"])
         self.register_parameter(
@@ -408,10 +427,14 @@ def _transformer_block(lp: Block, x, cfg: ModelConfig, positions, cache=None):
     return x + y, aux
 
 
-def forward(params, tokens, cfg: ModelConfig, *, caches=None,
-            q_offset=None):
+def forward(params, tokens, cfg: ModelConfig, *, positions=None,
+            inputs_embeds=None, caches=None, q_offset=None):
     """Shared forward.  params: an ``LM`` or its ``tree()`` (nested dicts of
-    tensors in ``param_shapes(cfg)``'s layout); tokens: (B, S) int32.
+    tensors in ``param_shapes(cfg)``'s layout); tokens: (B, S) int32, or
+    None with ``inputs_embeds`` (B, S, d), which replace the embedding
+    lookup (the vlm family).  positions: (B, S) int32, or (3, B, S) with
+    ``cfg.mrope``; None counts up from ``q_offset`` (on all three streams
+    with ``cfg.mrope``).
 
     caches: None for a full forward (logits at every position); a cache
     from ``init_cache`` for prefill and decode, written at its host_index.
@@ -422,13 +445,19 @@ def forward(params, tokens, cfg: ModelConfig, *, caches=None,
     the backward pass and recomputes the rest (the routing too: the same
     experts and slots, since both are deterministic).
     """
-    require_ported(cfg)
+    _require_lm(cfg)
     tree = params.tree() if isinstance(params, LM) else params
     cdt = _dt(cfg)
-    b, s = tokens.shape
-    x = F.embedding(tokens, tree["embed"]).to(cdt)
-    positions = (torch.arange(s, dtype=torch.int32, device=x.device)[None, :]
-                 + (q_offset or 0)).expand(b, s)
+    if inputs_embeds is not None:
+        x = inputs_embeds.to(cdt)
+    else:
+        x = F.embedding(tokens, tree["embed"]).to(cdt)
+    b, s = x.shape[:2]
+    if positions is None:
+        positions = (torch.arange(s, dtype=torch.int32, device=x.device)[None, :]
+                     + (q_offset or 0)).expand(b, s)
+        if cfg.mrope:
+            positions = positions.expand(3, b, s)
 
     length = idx = None
     if caches is not None:
@@ -445,8 +474,7 @@ def forward(params, tokens, cfg: ModelConfig, *, caches=None,
         k, v = (c["k"], c["v"]) if i is None else (c["k"][i], c["v"][i])
         return {"k": k, "v": v, "index": idx, "length": length}
 
-    remat = (cfg.remat == "block" and caches is None and torch.is_grad_enabled()
-             and any(t.requires_grad for _, t in leaves(tree)))
+    remat = caches is None and remat_wanted(tree, cfg)
     total_aux = 0.0
     if cfg.family in ("ssm", "hybrid"):
         x = _ssm_stack(tree, x, cfg, positions, caches, attn_cache, remat)
@@ -470,6 +498,13 @@ def forward(params, tokens, cfg: ModelConfig, *, caches=None,
     return logits, caches, total_aux
 
 
+def remat_wanted(tree: dict, cfg: ModelConfig) -> bool:
+    """Recompute each block in the backward pass: ``cfg.remat == "block"``
+    with a gradient tracked through ``tree``'s parameters."""
+    return (cfg.remat == "block" and torch.is_grad_enabled()
+            and any(t.requires_grad for _, t in leaves(tree)))
+
+
 def _advance(caches: dict, index: int) -> None:
     """Every attention cache's device ``index`` and the host_index to
     ``index``."""
@@ -483,12 +518,19 @@ def _advance(caches: dict, index: int) -> None:
 
 
 def loss_fn(params, batch: dict, cfg: ModelConfig):
-    """Causal LM loss, as the reference computes it: float32 logits,
-    ``logsumexp - gold`` at every position whose label is >= 0, the mean
-    over those positions (at least 1), plus 0.01 x the aux loss.
-    batch: {"tokens" (B, S) int32, "labels" (B, S) int32}."""
-    logits, _, aux = forward(params, batch["tokens"], cfg)
-    labels = batch["labels"]
+    """Causal LM loss, as the reference computes it: ``token_loss`` plus
+    0.01 x the aux loss.  batch: {"tokens" (B, S) int32, "labels" (B, S)
+    int32}; the vlm family's "inputs_embeds" and "positions" in place of
+    "tokens" (``forward``)."""
+    logits, _, aux = forward(params, batch.get("tokens"), cfg,
+                             positions=batch.get("positions"),
+                             inputs_embeds=batch.get("inputs_embeds"))
+    return token_loss(logits, batch["labels"]) + 0.01 * aux
+
+
+def token_loss(logits, labels):
+    """float32 logits, ``logsumexp - gold`` at every position whose label
+    is >= 0, the mean over those positions (at least 1)."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     # a masked label gathers row 0 (the reference wraps -1 to V - 1); either
@@ -496,8 +538,7 @@ def loss_fn(params, batch: dict, cfg: ModelConfig):
     gold = torch.gather(logits, -1, labels.clamp(min=0).long()[..., None])[..., 0]
     mask = (labels >= 0).float()
     ll = (logz - gold) * mask
-    loss = ll.sum() / torch.clamp(mask.sum(), min=1.0)
-    return loss + 0.01 * aux
+    return ll.sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -510,7 +551,7 @@ def init_cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
     a stack of transformer layers; for the ssm and hybrid families a pair
     (conv tail, h) of the Mamba layers and the hybrid's shared attention
     caches, {"grp": one a group, "tail": one without the L axis}."""
-    require_ported(cfg)
+    _require_lm(cfg)
     hkv, hd = cfg.n_kv_heads, cfg.hd
 
     def attn_cache(*n):
@@ -544,9 +585,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda") -> dic
     return caches
 
 
-def decode_step(params: LM, token, caches: dict, cfg: ModelConfig):
-    """One-token decode.  token: (B, 1) int32.  Returns (logits, caches):
-    logits (B, V) of the step, caches the same dict, written in place."""
-    logits, caches, _ = forward(params, token, cfg, caches=caches,
-                                q_offset=caches["host_index"])
+def decode_step(params: LM, token, caches: dict, cfg: ModelConfig,
+                positions=None):
+    """One-token decode.  token: (B, 1) int32; positions: None (the cache
+    index) or as ``forward``'s.  Returns (logits, caches): logits (B, V) of
+    the step, caches the same dict, written in place."""
+    logits, caches, _ = forward(params, token, cfg, positions=positions,
+                                caches=caches, q_offset=caches["host_index"])
     return logits[:, -1], caches

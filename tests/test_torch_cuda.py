@@ -1457,3 +1457,88 @@ def test_ssm_prefill_and_decode_on_card_match_cpu(card, arch):
     for name, c in cg.get("shared", {}).items():
         for k in ("k", "v"):
             assert float((c[k].cpu() - cc["shared"][name][k]).abs().max()) <= 1e-4
+
+
+# The vlm and encdec families: decode_attention at their decode shapes (B,
+# S, Hkv, G, hd): qwen2-vl-2b's self-attention over 16 requests' 2176-row
+# caches (2 KV heads: 32 blocks on 132 SMs), whisper-base's self-attention
+# over 32 requests' 128 rows and its cross-attention over 1500 frames at
+# length F; then each family's prefill and decode on the card against the
+# CPU.
+FAMILY_SHAPES = ((16, 2176, 2, 6, 128), (32, 1500, 8, 1, 64), (32, 128, 8, 1, 64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("shape", FAMILY_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_decode_attention_family_shapes_match_plain_on_card(card, shape, dtype):
+    """As test_decode_attention_matches_plain_on_card: random lengths, every
+    row full (the cross-attention's F), and one row, either side of 512 and
+    of the cache's end where the cache holds them."""
+    b, s, hkv, g, hd = shape
+    tdt, rtol = (torch.float32, 0.0) if dtype == "float32" else (torch.bfloat16, 2.0 ** -7)
+    gen = torch.Generator(device=card).manual_seed(b * s + g + hd)
+    q = torch.randn((b, hkv, g, hd), device=card, generator=gen).to(tdt)
+    k, v = (torch.randn((b, s, hkv, hd), device=card, generator=gen).to(tdt)
+            for _ in range(2))
+    length = torch.randint(1, s + 1, (b,), device=card, generator=gen,
+                           dtype=torch.int32)
+    edges = [n for n in (1, 2, 511, 512, 513, s - 1, s) if 1 <= n <= s]
+    cases = [length, torch.full_like(length, s)] + [torch.full_like(length, n)
+                                                    for n in edges]
+    spec = treg.get("decode_attention")
+    for lens in cases:
+        got, want = spec.kernel(q, k, v, lens), spec.plain(q, k, v, lens)
+        torch.cuda.synchronize()
+        assert got.dtype == tdt and got.shape == q.shape
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "whisper-base"])
+def test_family_prefill_and_decode_on_card_match_cpu(card, arch):
+    """The reduced config in float32 (TF32 off): a prefill (qwen2-vl: stub
+    embeddings with distinct M-RoPE streams; whisper: frames and a 4-token
+    prompt) and 3 decode steps on the card and on the CPU from the same
+    weights; logits within 1e-4, and decode_attention launched once a layer
+    and step (twice for whisper: self and cross)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import steps
+    from repro_torch.models import lm, whisper
+
+    cfg = get_reduced(arch).replace(param_dtype="float32", compute_dtype="float32")
+    rng = np.random.default_rng(2)
+    encdec = cfg.family == "encdec"
+    cpu_model = (whisper if encdec else lm).init_params(cfg, seed=0, device="cpu")
+    card_model = type(cpu_model)(cfg, lm.tree_map(lambda t: t.to(card, copy=True),
+                                                  cpu_model.tree()))
+    if encdec:
+        batch = {"frames": rng.normal(size=(2, cfg.enc_frames, cfg.d_model)),
+                 "tokens": rng.integers(0, cfg.vocab, (2, 4))}
+    else:
+        pos = np.stack([np.arange(12), np.arange(12) % 5, np.arange(12)[::-1]])
+        batch = {"inputs_embeds": rng.normal(size=(2, 12, cfg.d_model)),
+                 "positions": np.broadcast_to(pos[:, None], (3, 2, 12))}
+    batch = {k: torch.from_numpy(np.ascontiguousarray(
+        v, np.float32 if v.dtype.kind == "f" else np.int32)) for k, v in batch.items()}
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (3, 2, 1)).astype(np.int32))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = []
+    try:
+        for model, dev in ((cpu_model, torch.device("cpu")), (card_model, card)):
+            before = cuda.launches["decode_attention"]
+            logits, caches = steps.make_prefill_step(cfg, 16)(
+                model, {k: v.to(dev) for k, v in batch.items()})
+            seq = [logits]
+            for t in toks:
+                logits, caches = steps.make_decode_step(cfg)(model, t.to(dev), caches)
+                seq.append(logits)
+            out.append((torch.stack(seq, 1).cpu(),
+                        cuda.launches["decode_attention"] - before))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (lc, _), (lg, launched) = out
+    assert launched == 3 * cfg.n_layers * (2 if encdec else 1)
+    assert float((lg - lc).abs().max()) <= 1e-4

@@ -332,11 +332,16 @@ def test_cache_raises_past_max_seq():
 
 
 def test_other_families_raise():
-    # the vlm and encdec families are not ported yet (the ssm and hybrid
-    # families are: tests/test_torch_ssm.py)
+    # every family of the configs is ported (vlm and encdec:
+    # tests/test_torch_vlm.py, tests/test_torch_whisper.py); a family the
+    # port does not know raises, naming ROADMAP
     for arch in ("qwen2-vl-2b", "whisper-base"):
         cfg = get_reduced(arch)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tsteps.make_prefill_step(cfg, 8)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tsteps.make_decode_step(cfg)
+        tlm.require_ported(cfg)
+        assert callable(tsteps.make_prefill_step(cfg, 8))
+        assert callable(tsteps.make_decode_step(cfg))
+    cfg = get_reduced("qwen3-0.6b").replace(family="retnet")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tsteps.make_prefill_step(cfg, 8)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tsteps.make_decode_step(cfg)
