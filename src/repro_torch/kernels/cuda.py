@@ -5,7 +5,9 @@ library with a plain C interface, loaded through ``ctypes``: no PyTorch
 headers, so a build takes seconds.  Libraries are built at first use into
 ``build/kernels`` at the root of the checkout (``$REPRO_TORCH_BUILD``
 overrides it) and rebuilt when their source is newer.  :func:`build_all`
-starts one ``nvcc`` per source, all at once.
+starts one ``nvcc`` per source, all at once, and waits for them;
+:func:`start_builds` only starts them, and :func:`load` waits for the one
+it needs.
 
 Every C entry point returns ``cudaGetLastError()`` after its launches;
 :func:`check` raises on anything but 0, so a refused launch never passes
@@ -65,8 +67,9 @@ _SIGNATURES = {
                                       _VP),
                   "segment_stencil": (_VP, _VP, _VP, _VP, _LL, _INT, _INT, _INT,
                                       _F32, _INT, _VP)},
-    "decode_attention": {"decode_attention": (_VP, _VP, _VP, _VP, _VP, _INT, _INT,
-                                              _INT, _INT, _INT, _INT, _F32, _VP)},
+    "decode_attention": {"decode_attention": (_VP, _VP, _VP, _VP, _VP, _VP, _INT,
+                                              _INT, _INT, _INT, _INT, _INT, _F32,
+                                              _INT, _INT, _VP)},
 }
 _LONG = ("prefix_sum_scratch_bytes", "segment_scan_scratch_bytes",
          "segment_rank_scratch_bytes", "bucket_scatter_scratch_bytes",
@@ -128,24 +131,49 @@ def _finish_build(name: str, proc: subprocess.Popen, tmp: Path) -> str:
     return log
 
 
+# builds started by start_builds and not yet waited for: name -> (process,
+# temporary library); the compilers' output of those finished
+_pending: dict[str, tuple[subprocess.Popen, Path]] = {}
+_build_logs: list[str] = []
+
+
+def start_builds(force: bool = False, verbose: bool = False) -> None:
+    """Start one ``nvcc`` per stale source, all at once, without waiting:
+    :func:`load` waits for a library's own build when it is first needed,
+    so the other kernels can run while the longest source compiles.  With
+    ``verbose``, ptxas reports registers and shared memory per kernel."""
+    extra = ("-Xptxas", "-v") if verbose else ()
+    for name in SOURCES:
+        if name not in _pending and (force or _stale(name)):
+            _pending[name] = _start_build(name, extra)
+
+
+def finish_builds() -> str:
+    """Wait for every started build; the compilers' output so far."""
+    for name in list(_pending):
+        _build_logs.append(_finish_build(name, *_pending.pop(name)))
+    return "".join(_build_logs)
+
+
 def build_all(force: bool = False, verbose: bool = False) -> tuple[float, str]:
     """Build every stale kernel library, one ``nvcc`` per source in
     parallel.  Returns the wall seconds spent and the compiler's output
     (with ``verbose``, ptxas's registers and shared memory per kernel)."""
     t0 = time.perf_counter()
-    extra = ("-Xptxas", "-v") if verbose else ()
-    todo = [n for n in SOURCES if force or _stale(n)]
-    started = [(n, *_start_build(n, extra)) for n in todo]
-    logs = [_finish_build(name, proc, tmp) for name, proc, tmp in started]
-    return time.perf_counter() - t0, "".join(logs)
+    start_builds(force, verbose)
+    logs = finish_builds()
+    return time.perf_counter() - t0, logs
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
+    """The loaded library of kernel ``name``, built first if needed (or its
+    started build waited for)."""
     lib = _libs.get(name)
     if lib is not None:
         return lib
-    if _stale(name):
+    if name in _pending:
+        _build_logs.append(_finish_build(name, *_pending.pop(name)))
+    elif _stale(name):
         _finish_build(name, *_start_build(name))
     lib = bind(_lib_path(name), name)
     _libs[name] = lib

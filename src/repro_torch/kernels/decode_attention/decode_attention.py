@@ -7,14 +7,31 @@
       1 / sqrt(hd); the result (B, Hkv, G, hd) in q's dtype.
 
 Replaces the TPU kernel ``decode_attention_pallas`` of the reference
-package's ``kernels/decode_attention/decode_attention.py``.  The CUDA kernel
-is ``csrc/decode_attention.cu`` (float32 and bfloat16; hd any multiple of
-16 bytes' values up to 128: of 8 in bfloat16, of 4 in float32, so zamba2's
-112 too; G from 1 to 8; see its header).  The plain version is the math of the
-reference's oracle ``ref.py::decode_attention_ref``.  The contract is
-1 <= length <= S, which the decode path always meets (length = index + 1).
-The registry hands CPU callers the plain version and CUDA callers the
-kernel, which raises on anything but CUDA tensors.
+package's ``kernels/decode_attention/decode_attention.py``, which carries
+the online softmax from S block to S block in VMEM.  The CUDA kernel is
+``csrc/decode_attention.cu`` (float32 and bfloat16; hd any multiple of 16
+bytes' values up to 128: of 8 in bfloat16, of 4 in float32, so zamba2's 112
+too; G from 1 to 8).  It is bound by the bytes of K and V, and streams them
+at the card's rate only with many blocks in flight, so it splits S:
+:func:`split_plan` gives B * Hkv * splits about two blocks an SM where the
+pairs alone leave SMs idle and S allows, from the shapes and the card's SM
+count alone (never from ``length``); each block stages its rows through a
+ring of TMA tensor copies, takes q . K^T and P . V in bfloat16 on tensor
+cores, and writes its partial softmax; a second launch folds the splits in
+split order, so the same inputs give the same bits on every call.  The
+tolerances hold: bf16 products are exact in the float32 accumulator, and P
+enters P . V as three bf16 terms whose sum is within 2^-24 p of p, as close
+as float32 holds it (one bf16 rounding of P would miss the 2e-5 absolute
+tolerance where an output is near 0).  See the source's header.
+
+The plain version is the math of the reference's oracle
+``ref.py::decode_attention_ref``.  The contract is 1 <= length <= S, which
+the decode path always meets (length = index + 1).  The registry hands CPU
+callers the plain version and CUDA callers the kernel, which raises on
+anything but CUDA tensors.  A call reads no device value on the host and
+does not synchronise: the plan and the checks that depend on shapes alone
+are made once per shape, so the decode step can be captured in a CUDA
+graph.
 """
 from __future__ import annotations
 
@@ -26,6 +43,54 @@ from .. import cuda
 
 MAX_HEAD_DIM = 128
 MAX_GROUP = 8
+# rows a warp stages at once, warps a block and the most splits
+# (csrc/decode_attention.cu)
+TILE = 16
+WARPS = 4
+MAX_SPLITS = 512
+# the plan's targets: blocks an SM, and the largest share of a split's K/V
+# bytes its partial (max, sum, numerator in float32) may add, written once
+# and read once (tools/decode_attention_study.py chose them)
+BLOCKS_PER_SM = 2
+PARTIAL_SHARE = 1 / 16
+
+
+def min_split_rows(g: int, hd: int, itemsize: int) -> int:
+    """The fewest rows a split may have: one tile for each warp, and enough
+    that its partial, 8 * G * (hd + 2) bytes written and read, stays within
+    PARTIAL_SHARE of its 2 * hd * itemsize bytes of K and V a row."""
+    return max(WARPS * TILE, math.ceil(
+        8 * g * (hd + 2) / (PARTIAL_SHARE * 2 * hd * itemsize)))
+
+
+def split_plan(b: int, hkv: int, s: int, g: int, hd: int, itemsize: int,
+               sms: int) -> tuple[int, int]:
+    """(splits, rows per split) for B * Hkv (b, kv head) pairs over S rows.
+    One split where the pairs cover the SMs; else the fewest rows, a
+    multiple of TILE and at least :func:`min_split_rows`, that give B * Hkv
+    * splits >= BLOCKS_PER_SM * sms, with at most MAX_SPLITS splits.  Every
+    split's first row lies below S.  Shapes only: the plan never reads
+    length."""
+    if min(b, hkv, s, g, hd, itemsize, sms) < 1:
+        raise ValueError(f"decode_attention: no split plan for B {b}, Hkv "
+                         f"{hkv}, S {s}, G {g}, hd {hd}, {itemsize}-byte "
+                         f"values, {sms} SMs")
+    want = 1 if b * hkv >= sms else -(-BLOCKS_PER_SM * sms // (b * hkv))
+    rows = max(min_split_rows(g, hd, itemsize), -(-s // want),
+               -(-s // MAX_SPLITS))
+    rows = -(-rows // TILE) * TILE
+    return -(-s // rows), rows
+
+
+_SMS: dict[int, int] = {}
+
+
+def sm_count(device: int) -> int:
+    """The SM count of card ``device``, read once."""
+    n = _SMS.get(device)
+    if n is None:
+        n = _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return n
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -41,10 +106,15 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhgs,bshd->bhgd", p, v.float()).to(q.dtype)
 
 
-def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          length: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel: float32 or bfloat16 q, k, v of one dtype,
-    int32 lengths, all contiguous on the card."""
+# (shapes, dtypes, card) -> (the C function, its shape and plan arguments,
+# float32 workspace values or 0 without a split, whether B * Hkv == 0)
+_PLANS: dict = {}
+
+
+def _checked_plan(q, k, v, length, key) -> tuple:
+    """Every check, in the order the refusals are pinned (a call whose
+    shapes have a plan comes here only to raise); then the plan, kept under
+    ``key``."""
     dtypes = (torch.float32, torch.bfloat16)
     cuda.require("decode_attention", q, dtypes, "q", ndim=4)
     cuda.require("decode_attention", k, (q.dtype,), "k", ndim=4)
@@ -65,17 +135,43 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"decode_attention: hd {hd} not a multiple of {vec} "
                          f"up to {MAX_HEAD_DIM}, or G {g} outside [1, "
                          f"{MAX_GROUP}], or S {s} < 1")
-    for t in (q, k, v):
-        if t.data_ptr() % 16:
-            raise ValueError("decode_attention: q, k and v must be 16-byte "
-                             "aligned")
+    empty = b * hkv == 0
+    splits, rows = (1, -(-s // TILE) * TILE) if empty else split_plan(
+        b, hkv, s, g, hd, q.element_size(), sm_count(q.get_device()))
+    args = (b, s, hkv, g, hd, int(q.dtype == torch.bfloat16),
+            1.0 / math.sqrt(hd), splits, rows)
+    ws = b * hkv * splits * g * (hd + 2) if splits > 1 else 0
+    fn = None if empty else cuda.load("decode_attention").decode_attention
+    plan = _PLANS[key] = (fn, args, ws, empty)
+    return plan
+
+
+def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          length: torch.Tensor) -> torch.Tensor:
+    """Launch the CUDA kernel: float32 or bfloat16 q, k, v of one dtype,
+    int32 lengths, all contiguous on the card."""
+    key = (q.shape, k.shape, v.shape, length.shape, q.dtype, k.dtype, v.dtype,
+           length.dtype, q.get_device())
+    plan = _PLANS.get(key)
+    if plan is None or not (
+            k.is_cuda and v.is_cuda and length.is_cuda and q.is_contiguous()
+            and k.is_contiguous() and v.is_contiguous()
+            and length.is_contiguous()):
+        plan = _checked_plan(q, k, v, length, key)
+    fn, args, ws_values, empty = plan
+    qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()
+    if (qp | kp | vp) & 15:
+        raise ValueError("decode_attention: q, k and v must be 16-byte "
+                         "aligned")
     out = torch.empty_like(q)
-    if b * hkv == 0:
+    if empty:
         return out
-    lib = cuda.load("decode_attention")
-    cuda.check(lib.decode_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(),
-        out.data_ptr(), b, s, hkv, g, hd, int(q.dtype == torch.bfloat16),
-        1.0 / math.sqrt(hd), cuda.stream_of(q)), "decode_attention")
+    ws = q.new_empty(ws_values, dtype=torch.float32) if ws_values else None
+    # the current stream's handle, without building a Stream object
+    stream = torch._C._cuda_getCurrentRawStream(q.get_device())
+    cuda.check(fn(
+        qp, kp, vp, length.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), *args, stream),
+        "decode_attention")
     cuda.launches["decode_attention"] += 1
     return out

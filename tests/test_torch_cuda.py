@@ -1363,6 +1363,109 @@ def test_decode_attention_refuses_other_head_widths_on_card(card):
     assert got.shape == q.shape
 
 
+# decode_attention's split over S (csrc/decode_attention.cu): shapes its
+# split_plan splits, in both dtypes, at lengths 1, 2, either side of every
+# split's first row (the rows a split's last row and the next split's first
+# row ± 1) and S, every row at one length and at lengths that differ by row;
+# then 20 calls on the same inputs, which must give the same bits (the
+# splits are folded in a fixed order, with no atomics).
+SPLIT_SHAPES = ((1, 8192, 1, 8, 128), (16, 2176, 2, 6, 128), (2, 4097, 2, 4, 64),
+                (3, 700, 1, 3, 112))
+
+
+def _split_lengths(s, splits, rows):
+    edges = {1, 2, s - 1, s}
+    for i in range(1, splits):
+        edges |= {i * rows + d for d in (-2, -1, 0, 1)}
+    return sorted(n for n in edges if 1 <= n <= s)
+
+
+def _decode_inputs(card, shape, tdt, seed):
+    b, s, hkv, g, hd = shape
+    gen = torch.Generator(device=card).manual_seed(seed)
+    q = torch.randn((b, hkv, g, hd), device=card, generator=gen).to(tdt)
+    k, v = (torch.randn((b, s, hkv, hd), device=card, generator=gen).to(tdt)
+            for _ in range(2))
+    return q, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("shape", SPLIT_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_decode_attention_split_edges_match_plain_on_card(card, shape, dtype):
+    from repro_torch.kernels.decode_attention import decode_attention as da
+    b, s, hkv, g, hd = shape
+    tdt, rtol = (torch.float32, 0.0) if dtype == "float32" else (torch.bfloat16, 2.0 ** -7)
+    q, k, v = _decode_inputs(card, shape, tdt, b * s + g + hd)
+    splits, rows = da.split_plan(b, hkv, s, g, hd, q.element_size(),
+                                 da.sm_count(torch.cuda.current_device()))
+    assert splits > 1, (shape, dtype)
+    lengths = _split_lengths(s, splits, rows)
+    spec = treg.get("decode_attention")
+    cases = [torch.full((b,), n, device=card, dtype=torch.int32) for n in lengths]
+    cases += [torch.tensor([lengths[(i * 7 + j) % len(lengths)] for j in range(b)],
+                           device=card, dtype=torch.int32) for i in range(4)]
+    for lens in cases:
+        got, want = spec.kernel(q, k, v, lens), spec.plain(q, k, v, lens)
+        torch.cuda.synchronize()
+        assert got.dtype == tdt and got.shape == q.shape
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=2e-5,
+                                   msg=lambda m: f"lengths {lens.tolist()}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("shape", SPLIT_SHAPES[:2] + ((32, 1500, 8, 1, 64),),
+                         ids=lambda s: "x".join(map(str, s)))
+def test_decode_attention_repeats_bitwise_on_card(card, shape, dtype):
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    bits = torch.int32 if dtype == "float32" else torch.int16
+    q, k, v = _decode_inputs(card, shape, tdt, 5)
+    b, s = shape[:2]
+    gen = torch.Generator(device=card).manual_seed(6)
+    length = torch.randint(1, s + 1, (b,), device=card, generator=gen,
+                           dtype=torch.int32)
+    length[0] = s
+    spec = treg.get("decode_attention")
+    first = spec.kernel(q, k, v, length).view(bits)
+    for _ in range(19):
+        assert torch.equal(spec.kernel(q, k, v, length).view(bits), first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ((16, 2176, 2, 6, 128), (32, 1500, 8, 1, 64)),
+                         ids=lambda s: "x".join(map(str, s)))
+def test_decode_attention_in_a_cuda_graph_on_card(card, shape):
+    """A call reads no device value on the host and does not synchronise
+    (eager calls under the sync debug mode "error"), and replays inside a
+    CUDA graph: new inputs copied into the captured tensors give the plain
+    version's result (a split shape, with its workspace and combine, and
+    one with a single split)."""
+    b, s = shape[:2]
+    spec = treg.get("decode_attention")
+    q, k, v = _decode_inputs(card, shape, torch.bfloat16, 8)
+    length = torch.full((b,), s, device=card, dtype=torch.int32)
+    spec.kernel(q, k, v, length)                  # the plan, the library
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            spec.kernel(q, k, v, length)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = spec.kernel(q, k, v, length)
+    q2, k2, v2 = _decode_inputs(card, shape, torch.bfloat16, 9)
+    for t, new in ((q, q2), (k, k2), (v, v2)):
+        t.copy_(new)
+    length.copy_(torch.randint(1, s + 1, (b,), device=card, dtype=torch.int32))
+    graph.replay()
+    torch.cuda.synchronize()
+    want = spec.plain(q, k, v, length)
+    torch.testing.assert_close(out.float(), want.float(), rtol=2.0 ** -7, atol=2e-5)
+
+
 def _ssm_hold_cfg(arch):
     from repro_torch.configs import get_reduced
     cfg = get_reduced(arch).replace(param_dtype="float32", compute_dtype="float32")
