@@ -47,7 +47,7 @@ Phases, in order; any failure raises and the exit code is not 0:
    are held bitwise (0 ulps) in every mode, also around their 4096-output
    tile, on ragged ends, on views not 16-byte aligned and past the 1024
    taps staged at once.
-3. The sixteen main paths, each with the launch counters zeroed just
+3. The seventeen main paths, each with the launch counters zeroed just
    before it and read just after:
    - relational, through ``hf`` at P = 1: Fig. 8a filter, join and
      aggregate and TPCx-BB Q26 / Q26-multikey against numpy oracles;
@@ -94,7 +94,7 @@ Phases, in order; any failure raises and the exit code is not 0:
      rows, 35 % on key 3, as tests/test_skew.py's, against a 2^22-row
      dimension) under adaptive statistics, planned with 2 SaltOps and a
      salted MergeJoin, beside the same join unsalted (rows exact, on the
-     card; the salting's build side launches prefix_sum); 2^27 Zipf(1.5)
+     card; the salting's build side launches prefix_sum); 2^26 Zipf(1.5)
      keys summed and counted under adaptive capacities (no overflow on the
      first run, the second sized from the realized group count) beside
      safe capacities, with their peak memory; Fig. 8a's aggregate and Q26
@@ -119,18 +119,19 @@ Phases, in order; any failure raises and the exit code is not 0:
      prefix_sum and segment_sums must have launched;
    - exchange_p2, two ranks on the one card joined by gloo (NCCL refuses
      two ranks on one card; gloo stages CUDA tensors through the host):
-     Fig. 8a join at 2^24 x 2^20 rows, Q26, a sort of Fig. 8a's table and
-     a global rank of the series at 2^24 rows, the SMA after a filter,
+     Fig. 8a join at 2^23 x 2^19 rows, Q26 at scale 32, a sort of Fig.
+     8a's table and a global rank of the series at 2^23 rows (each cut by
+     half for the time limit when dp_train came), the SMA after a filter,
      Fig. 12's two Q26 legs, and the frame path's Q05 over category names
      and merge on category keys (each rank encoding the host tables
      itself, the dictionaries equal on both), ``transform("sum")`` and
-     ``head(2)`` over 2^24 rows in 9 groups (a third in one), and the
+     ``head(2)`` over 2^23 rows in 9 groups (a third in one), and the
      segmentation program's ``collect_matrix`` (each rank's count its
      1D_BLOCK block, bucket_scatter launched in each), the guardrails' skew
      join at 2^22 x 2^20 salted and unsalted (the salted per-rank max/mean
-     lower, as many all_to_all), and Fig. 8a's aggregate at 2^24 rows
+     lower, as many all_to_all), and Fig. 8a's aggregate at 2^23 rows
      healed after a forced overflow and a corruption, and the serving
-     session over a 2^24-row store_sales (six concurrent submits with the
+     session over a 2^23-row store_sales (six concurrent submits with the
      same cache outcomes on both ranks; a 1-shard state registered, split
      1 -> 2 and its hash claim re-established by one exchange, then grouped
      on its key with no exchange), through ``hf`` at P = 2,
@@ -139,6 +140,26 @@ Phases, in order; any failure raises and the exit code is not 0:
      persisted leg's fewer than the cold leg's), each rank of the sort
      holding a quarter of the rows or more; bucket_scatter must have
      launched in each rank, prefix_sum in the sum over the ranks;
+   - dp_train, two ranks on the one card joined by gloo (launch/mesh.py's
+     backend where ranks share a card), through ``launch.train.run`` on
+     ``make_local_mesh(model_axis=1)``: first at qwen3-0.6b's full width
+     and 2 layers in float32 (TF32 off) on a global batch of 8 x 512
+     tokens, (a) the data-parallel loss and summed gradients against one
+     rank's on the whole batch (within 1e-4 relative; 1e-4 x each leaf's
+     largest |g|), (b) a ZeRO-1 step's moments (each rank's blocks of
+     ``zero1_spec``'s layout) against a replicated-moment step's (within
+     1e-6 of each leaf's largest), and the optimizer bytes a rank of each,
+     (c) ``tree_compressed_psum`` of the gradients within half a
+     quantisation step of their plain mean, its error buffers exact and
+     its means the same on both ranks; then qwen3-0.6b at 14 layers (bf16,
+     remat per block, ZeRO-1) trained 4 steps of a global 8 x 2048 tokens
+     (4 x 2048 a rank) from the token pipeline at P = 2 over 2^16
+     documents, every loss finite and the first within 0.5 of ln V; (d)
+     the one checkpoint restored at P = 1 (bitwise against the gathered
+     live state) and at P = 2 (bitwise blocks, and the first step's loss
+     from it equal to the live state's); (e) that step's collectives by
+     kind, calls and bytes, against the ZeRO-1 layout.  prefix_sum and
+     bucket_scatter must have launched in each rank;
    - lm, through ``repro_torch.launch.steps`` as examples/serve_lm.py
      drives the reference: qwen3-0.6b (28 layers, bf16, random weights from
      a seed) serves 32 prompts of 2048 tokens with 128 greedy new tokens;
@@ -2678,7 +2699,7 @@ def segmentation_path(torch, hf, synth, queries: dict,
 # skew: SKEW_HOT of the probe rows on key 3
 SKEW_JOIN = (2**26, 2**22)
 SKEW_HOT = 0.35
-ZIPF_ROWS = 2**27
+ZIPF_ROWS = 2**26                # cut from 2^27 for the time limit
 FIG8A_ROWS = 2**27
 
 
@@ -3130,11 +3151,15 @@ def serve_path(torch, hf, synth, queries: dict, checks: dict):
 # two ranks on one card; gloo stages CUDA tensors through the host, so the
 # walls are gloo's, not NCCL's).  Fig. 8a join at a quarter of the
 # relational path's rows, cut for that staging, and Q26 at its scale.
-P2_JOIN = (2**24, 2**20)
+# cut from 2^24 x 2^20 (and the sort's 2^24 rows, the Q26 and frame tables'
+# scale 64, the serving session's 2^24 sales rows) to pay for the dp_train
+# path within the time limit
+P2_JOIN = (2**23, 2**19)
 P2_WORLD = 2
+P2_SCALE = 32
 
 
-P2_SORT = 2**24
+P2_SORT = 2**23
 # the skew join at P = 2: a quarter of the guardrails path's rows each side
 # cut for gloo's host staging, as P2_JOIN is
 P2_SKEW_JOIN = (2**22, 2**20)
@@ -3167,10 +3192,10 @@ def exchange_rank(rank: int, world: int, port: int, out_dir: str) -> None:
     dist.all_to_all_single = counted
     cfg = hf.ExecConfig()          # the card
     left, right = join_tables(*P2_JOIN)
-    ss, it, n_cust = q26_tables(synth)
+    ss, it, n_cust = q26_tables(synth, P2_SCALE)
     t8a = synth.relational_tables(P2_SORT, 1000, seed=0)
     x = synth.series(P2_SORT, seed=3)
-    wcs, itx, _ = frame_tables(synth)
+    wcs, itx, _ = frame_tables(synth, P2_SCALE)
     cdim = category_dim()
     z = seg_queries()
     grp, _ = z["group_table"](P2_SORT)
@@ -3403,12 +3428,12 @@ def p2_guardrails(torch, dist, hf, synth, calls: list) -> dict:
     return out
 
 
-# the serving session at P = 2: launch/serve.py's tables at 2^24 sales rows
-P2_SERVE_SCALE = 2**24 / 200_000
+# the serving session at P = 2: launch/serve.py's tables at 2^23 sales rows
+P2_SERVE_SCALE = 2**23 / 200_000
 
 
 def p2_serve(torch, dist, hf, calls: list) -> dict:
-    """The serving session at P = world: store_sales (2^24 rows) and item
+    """The serving session at P = world: store_sales (2^23 rows) and item
     registered, the mix submitted six times at once (admission 4, workers
     4; rows against numpy on rank 0, at least one hit, the same cache
     outcomes on every rank, the all_to_all calls the records' count), then
@@ -3516,6 +3541,361 @@ def exchange_path(torch, queries: dict) -> dict:
         log(f"{tag}: {queries[tag]}")
     queries["exchange_p2_launches_by_rank"] = [r["launches"] for r in ranks]
     return {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+
+
+# The dp_train path: launch/train.py's ``run`` data-parallel
+# over DP_WORLD ranks on the one card, joined by gloo (launch/mesh.py's
+# choice where ranks share a card; NCCL refuses two ranks on one card, and
+# gloo stages CUDA tensors through the host): qwen3-0.6b at full width and
+# DP_LAYERS layers (as the train path), bf16, remat per block, ZeRO-1 AdamW,
+# DP_STEPS steps of a global batch of DP_BATCH x DP_SEQ tokens (DP_BATCH /
+# DP_WORLD rows a rank) from the token pipeline at P = DP_WORLD over a
+# DP_DOCS-document corpus; the one checkpoint at the end.  Before it, at
+# full width and 2 layers in float32 (TF32 off) on a global batch of
+# DP_HOLD tokens: (a) the data-parallel step against one rank's step on the
+# whole batch, (b) ZeRO-1's moments against a replicated-moment step's,
+# (c) tree_compressed_psum of the step's gradients against their plain
+# mean.  After it: (d) the checkpoint restored at P = 1 (bitwise) and at
+# P = 2 (bitwise, and the first step's loss from it equal to the live
+# state's), (e) that step's collectives against the ZeRO-1 layout.
+DP_WORLD = 2
+# the train path's 14 layers: with tied embeddings and random weights a
+# shallower stack keeps each position's residual near its own token's
+# embedding, and the first loss far above ln V (19.55 at 4 layers)
+DP_LAYERS = 14
+DP_BATCH, DP_SEQ = 8, 2048
+DP_STEPS = 4
+DP_DOCS = 2**16
+DP_HOLD = (8, 512)
+
+
+def dp_probe(torch, mesh, dev) -> dict:
+    """The four collectives the data-parallel step relies on, on tensors of
+    the card, before the path relies on them: reduce-scatter, all-gather,
+    broadcast and all-reduce MAX over the data group."""
+    g, P, r = mesh.dp, mesh.dp.size, mesh.dp.index
+    full = torch.arange(4 * P, dtype=torch.float32, device=dev) + r
+    want = sum(torch.arange(4 * P, dtype=torch.float32) + i for i in range(P))
+    assert torch.equal(g.reduce_scatter(full).cpu(), want[4 * r:4 * r + 4])
+    whole = g.all_gather(torch.full((4,), float(r), device=dev))
+    assert torch.equal(whole.cpu(), torch.arange(P).repeat_interleave(4).float())
+    b = g.broadcast(torch.full((3,), float(r + 7), device=dev))
+    assert bool((b == 7).all())
+    m = g.all_reduce(torch.tensor([float(r)], device=dev), "max")
+    assert float(m) == P - 1
+    mesh.reset_counts()
+    return {"reduce_scatter": True, "all_gather": True, "broadcast": True,
+            "all_reduce_max": True, "device": str(full.device)}
+
+
+def opt_bytes(state: dict) -> int:
+    from repro_torch.models import lm
+    return sum(t.numel() * t.element_size() for k in ("m", "v", "master")
+               if k in state for _, t in lm.leaves(state[k]))
+
+
+def dp_hold(torch, mesh, dev) -> dict:
+    """(a)-(c) at full width and 2 layers in float32 (``hold_cfg``), rank 0's
+    weights on both ranks, one global batch of DP_HOLD tokens."""
+    import hashlib
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import lm, sharding
+    from repro_torch.optim import OptConfig, adamw, compression
+
+    cfg = hold_cfg(get_config(LM_ARCH))
+    model = lm.init_params(cfg, seed=3, device=dev)
+    for _, t in lm.leaves(model.tree()):
+        mesh.world.broadcast(t.data)
+    weights = model.tree()
+    b, s = DP_HOLD
+    batch = token_batches(torch, cfg.vocab, b, s, 1, 17, dev)[0]
+    local = {k: sharding.shard(v, sharding.batch_spec(mesh, k, tuple(v.shape)), mesh)
+             for k, v in batch.items()}
+    dp = mesh.dp
+    out = {"model": cfg.name, "layers": cfg.n_layers, "dtype": cfg.param_dtype,
+           "batch": b, "seq": s, "rows_per_rank": int(local["tokens"].shape[0])}
+
+    # (a) this rank's share of the loss and its gradient, summed over the
+    # ranks, against rank 0's step on the whole batch
+    share, g = steps.value_and_grad(steps.make_loss_fn(cfg, group=dp), weights, local)
+    g_sum = lm.tree_map(lambda x: dp.all_reduce(x.clone()), g)
+    loss_dp = float(dp.all_reduce(share.clone()))
+    if mesh.rank == 0:
+        loss_one, g_one = steps.value_and_grad(steps.make_loss_fn(cfg), weights, batch)
+        rel = {"/".join(k): float((x - y).abs().max() / y.abs().max())
+               for (k, x), (_, y) in zip(lm.leaves(g_sum), lm.leaves(g_one))}
+        out |= {"loss_one_rank": float(loss_one), "loss_dp": loss_dp,
+                "loss_rel": abs(loss_dp / float(loss_one) - 1),
+                "grad_max_rel": max(rel.values()), "grad_rel": rel}
+        # float32 on both sides, TF32 off: only the order of sums differs
+        assert out["loss_rel"] <= 1e-4 and out["grad_max_rel"] <= 1e-4, out
+        del g_one
+
+    # (c) the compressed sum of these gradients against their plain mean
+    mean_c, new_err = compression.tree_compressed_psum(
+        g, compression.init_error_buffers(g), dp)
+    worst, digest = 0.0, hashlib.sha256()
+    for (k, x), (_, e), (_, gs), (_, gl) in zip(lm.leaves(mean_c), lm.leaves(new_err),
+                                              lm.leaves(g_sum), lm.leaves(g)):
+        scale = torch.clamp(dp.all_reduce(gl.abs().max(), "max") / 127.0, min=1e-12)
+        step_err = float((x - gs / dp.size).abs().max() / scale)
+        # half a quantisation step, plus float32 rounding of the two sums
+        assert step_err <= 0.5 * (1 + 1e-4), ("/".join(k), step_err)
+        q = torch.clamp(torch.round(gl / scale), -127, 127)
+        assert torch.equal(e, gl - q * scale), "/".join(k)
+        worst = max(worst, step_err)
+        digest.update(x.cpu().numpy().tobytes())
+    out |= {"compressed_max_err_steps": worst,
+            "compressed_digest": digest.hexdigest()[:16]}
+    del mean_c, new_err, g, g_sum
+
+    # (b) one step with ZeRO-1 moments and one with replicated moments
+    runs = {}
+    for zero1 in (True, False):
+        ocfg = OptConfig(lr=3e-4, warmup_steps=2, total_steps=TRAIN_SCHEDULE,
+                         zero1=zero1)
+        params = lm.tree_map(lambda t: t.detach().clone(), weights)
+        state = {"params": params, "opt": adamw.init_state(params, ocfg, mesh=mesh)}
+        step = steps.make_train_step(cfg, ocfg, mesh=mesh)
+        mesh.reset_counts()
+        state, loss = step(state, batch)
+        runs[zero1] = {"state": state, "loss": float(loss), "ocfg": ocfg,
+                       "counts": {k: dict(v) for k, v in mesh.counts.items()},
+                       "opt_bytes": opt_bytes(state["opt"])}
+    z, r = runs[True], runs[False]
+    opt_sh = adamw.state_shardings(mesh, sharding.param_shardings(cfg, mesh, weights),
+                                   weights, z["ocfg"])
+    whole = sharding.gather_tree(z["state"]["opt"], opt_sh, mesh)
+    moment_rel, sharded = 0.0, 0
+    for name in ("m", "v"):
+        for (k, blk), (_, w), (_, rep), (_, p) in zip(
+                lm.leaves(z["state"]["opt"][name]), lm.leaves(whole[name]),
+                lm.leaves(r["state"]["opt"][name]), lm.leaves(weights)):
+            sp = sharding.spec_at(opt_sh[name], k)
+            assert tuple(blk.shape) == sharding.local_shape(tuple(p.shape), sp, mesh)
+            assert torch.equal(blk, sharding.shard(w, sp, mesh)), k
+            sharded += int(tuple(blk.shape) != tuple(p.shape))
+            moment_rel = max(moment_rel, float((w - rep).abs().max()
+                                               / rep.abs().max().clamp(min=1e-30)))
+    param_diff = max(float((x.float() - y.float()).abs().max()) for (_, x), (_, y)
+                     in zip(lm.leaves(z["state"]["params"]),
+                            lm.leaves(r["state"]["params"])))
+    # one arithmetic on the same summed gradients; only the clipping norm's
+    # order of sums differs (blocks, then one all-reduce)
+    assert moment_rel <= 1e-6, moment_rel
+    out |= {"loss_zero1": z["loss"], "loss_replicated": r["loss"],
+            "moment_max_rel_zero1_vs_replicated": moment_rel,
+            "param_max_abs_zero1_vs_replicated": param_diff,
+            "sharded_moment_leaves": sharded,
+            "opt_bytes_zero1": z["opt_bytes"], "opt_bytes_replicated": r["opt_bytes"],
+            "counts_zero1": z["counts"], "counts_replicated": r["counts"]}
+    if mesh.rank == 0:
+        out["step_loss_rel_vs_one_rank"] = abs(z["loss"] / out["loss_one_rank"] - 1)
+        assert out["step_loss_rel_vs_one_rank"] <= 1e-4, out
+    return out
+
+
+def dp_expected_counts(state: dict, opt_sh: dict, n_micro: int) -> dict:
+    """The collectives of one data-parallel step the ZeRO-1 layout implies:
+    a reduce-scatter (float32 gradient) and an all-gather (parameter) per
+    sharded leaf; an all-reduce per whole leaf and one for the norm; one
+    for the global loss and one a micro-batch for the label count."""
+    from repro_torch.models import lm, sharding
+    from repro_torch.optim import adamw
+
+    sharded, whole = [], []
+    for path, p in lm.leaves(state["params"]):
+        sp = sharding.spec_at(opt_sh["m"], path)
+        (sharded if adamw.dp_dim(sp) is not None else whole).append(p)
+    out = {"all_reduce_sum": {
+        "calls": len(whole) + bool(sharded) + 1 + n_micro,
+        "bytes": 4 * (sum(p.numel() for p in whole) + bool(sharded) + 1 + n_micro)}}
+    if sharded:
+        out["reduce_scatter"] = {"calls": len(sharded),
+                                 "bytes": 4 * sum(p.numel() for p in sharded)}
+        out["all_gather"] = {"calls": len(sharded),
+                             "bytes": sum(p.numel() * p.element_size() for p in sharded)}
+    return out
+
+
+def dp_rank(rank: int, world: int, port: int, out_dir: str, ckpt_dir: str) -> None:
+    """One rank of the dp_train path (started by torch.multiprocessing):
+    the collectives probed, the float32 holds, then the bf16 run through
+    ``train.run`` on the data mesh, the restores and the counted step.
+    Writes its records and launches to out_dir."""
+    import math
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import restore
+    from repro_torch.configs import get_config
+    from repro_torch.data import synth
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import steps, train
+    from repro_torch.models import lm, sharding
+    from repro_torch.optim import OptConfig, adamw
+    from repro_torch.runtime import FTConfig, TrainDriver
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    backend = M.backend_for(world, dev)
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank)
+    mesh = M.make_local_mesh(model_axis=1)
+    res = {"rank": rank, "backend": backend, "mesh": dict(mesh.shape),
+           "probe": dp_probe(torch, mesh, dev)}
+    t0 = time.perf_counter()
+    res["hold_f32_2l"] = dp_hold(torch, mesh, dev)
+    res["hold_s"] = round(time.perf_counter() - t0, 3)
+    torch.cuda.empty_cache()
+
+    cfg = get_config(LM_ARCH).replace(n_layers=DP_LAYERS)
+    ocfg = OptConfig(lr=3e-4, warmup_steps=2, total_steps=TRAIN_SCHEDULE)
+    corpus = synth.token_corpus(DP_DOCS, cfg.vocab)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda.reset_launches()
+    mesh.reset_counts()
+    dist.barrier()
+    t0 = time.perf_counter()
+    # ckpt_every past the last step: the driver's one save at the end
+    run = train.run(cfg, ocfg, corpus, steps=DP_STEPS, batch=DP_BATCH, seq=DP_SEQ,
+                    ckpt_dir=ckpt_dir, ckpt_every=DP_STEPS + 1, device=dev,
+                    log_every=1, mesh=mesh)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    res["launches"] = dict(cuda.launches)
+    run_counts = {k: dict(v) for k, v in mesh.counts.items()}
+    peak = torch.cuda.max_memory_allocated()
+    drv = run["driver"]
+    losses = run["losses"]
+    assert len(losses) == DP_STEPS and all(map(math.isfinite, losses)), losses
+    ln_v = math.log(cfg.vocab)
+    assert abs(losses[0] - ln_v) <= 0.5, (losses[0], ln_v)
+    state, opt_sh = drv.state, run["cell"]["opt_sh"]
+    rec = {"model": cfg.name, "layers": cfg.n_layers, "dtype": cfg.param_dtype,
+           "remat": cfg.remat, "world": world, "backend": backend,
+           "global_batch": DP_BATCH, "rows_per_rank": DP_BATCH // world,
+           "seq": DP_SEQ, "steps": run["steps"], "docs": DP_DOCS,
+           "pipeline_s": round(run["pipeline_s"], 3), "run_s": round(run_s, 3),
+           "losses": losses,
+           "step_ms": [round(x * 1e3, 3) for x in drv.stats.times],
+           "step_median_ms": round(float(np.median(drv.stats.times)) * 1e3, 3),
+           "peak_gib": round(peak / 2**30, 3),
+           "opt_bytes_zero1": opt_bytes(state["opt"]),
+           "opt_bytes_replicated": sum(2 * p.numel() * 4 for _, p
+                                       in lm.leaves(state["params"])),
+           "run_collectives": run_counts,
+           "saves": [{k: (round(v, 3) if isinstance(v, float) else v)
+                      for k, v in r.items()} for r in drv.saver.records]}
+
+    # (d) P = 1: the whole checkpoint against the live state gathered
+    t0 = time.perf_counter()
+    whole = sharding.gather_tree(state, {"opt": opt_sh}, mesh)
+    if rank == 0:
+        tree, step, meta = restore(ckpt_dir, whole, device=dev)
+        assert step == DP_STEPS and meta == {"arch": cfg.name}, (step, meta)
+        differ = differing_bits(torch, tree, whole)
+        assert not differ, f"dp restore at P = 1: entries differ {differ}"
+        del tree
+    del whole
+    rec["restore_p1_s"] = round(time.perf_counter() - t0, 3)
+    # P = 2: each rank's blocks into a fresh state, bitwise
+    t0 = time.perf_counter()
+    fresh_model = lm.init_params(cfg, seed=1, device=dev)
+    fresh = {"params": fresh_model.tree(),
+             "opt": adamw.init_state(fresh_model.tree(), ocfg, mesh=mesh)}
+    again = TrainDriver(FTConfig(ckpt_dir=ckpt_dir), fresh, None, mesh=mesh,
+                        shardings={"opt": opt_sh})
+    assert again.maybe_resume() and again.step == DP_STEPS, again.step
+    differ = differing_bits(torch, fresh, state)
+    assert not differ, f"dp restore at P = 2: entries differ {differ}"
+    rec["restore_p2_s"] = round(time.perf_counter() - t0, 3)
+    # the first step from each state on one batch: the same loss; (e) the
+    # live step's collectives against the layout
+    step_fn = steps.make_train_step(cfg, ocfg, mesh=mesh)
+    batch = token_batches(torch, cfg.vocab, DP_BATCH, DP_SEQ, 1, 23, dev)[0]
+    mesh.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, live_loss = step_fn(state, batch)
+    live_loss = float(live_loss)
+    rec["counted_step_ms"] = round((time.perf_counter() - t0) * 1e3, 3)
+    counts = {k: dict(v) for k, v in mesh.counts.items()}
+    _, restored_loss = step_fn(fresh, batch)
+    restored_loss = float(restored_loss)
+    assert live_loss == restored_loss, (live_loss, restored_loss)
+    want = dp_expected_counts(state, opt_sh, 1)
+    assert counts == want, (counts, want)
+    rec |= {"resume_loss_live": live_loss, "resume_loss_restored": restored_loss,
+            "step_collectives": counts}
+    res["train"] = rec
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def dp_train_path(torch, queries: dict, checks: dict) -> dict:
+    """The dp_train path: DP_WORLD processes on the one card, each running
+    ``dp_rank``; prefix_sum and bucket_scatter (the token pipeline at P =
+    DP_WORLD) must have launched in every rank, and the ranks must agree.
+    Returns the launch counts of the bf16 run summed over the ranks."""
+    import shutil
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as mp
+    torch.cuda.empty_cache()       # leave the card's memory to the ranks
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_dp_train_")
+    try:
+        with tempfile.TemporaryDirectory() as out_dir:
+            mp.spawn(dp_rank, args=(DP_WORLD, port, out_dir, ckpt_dir),
+                     nprocs=DP_WORLD, join=True)
+            ranks = []
+            for r in range(DP_WORLD):
+                with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                    ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    for r in ranks:
+        for name in ("prefix_sum", "bucket_scatter"):
+            assert r["launches"][name] > 0, \
+                f"{name} never launched in dp_train rank {r['rank']}"
+    r0, r1 = ranks[0], ranks[1]
+    for key in ("losses", "resume_loss_live", "step_collectives"):
+        assert r0["train"][key] == r1["train"][key], (key, r0["train"][key],
+                                                      r1["train"][key])
+    h0, h1 = r0["hold_f32_2l"], r1["hold_f32_2l"]
+    assert h0["compressed_digest"] == h1["compressed_digest"], (h0, h1)
+    assert h0["loss_zero1"] == h1["loss_zero1"]
+    rec = {**r0["train"], "hold_f32_2l": h0, "backend": r0["backend"],
+           "probe": r0["probe"], "hold_s": r0["hold_s"],
+           "step_ms_by_rank": [r["train"]["step_ms"] for r in ranks],
+           "peak_gib_by_rank": [r["train"]["peak_gib"] for r in ranks],
+           "opt_bytes_zero1_by_rank": [r["train"]["opt_bytes_zero1"] for r in ranks],
+           "transport": f"gloo over tcp://localhost, {DP_WORLD} ranks on one "
+                        f"card (host staging): walls are gloo's, not NCCL's"}
+    checks["dp_train_f32_2l_loss_rel_vs_one_rank"] = h0["loss_rel"]
+    checks["dp_train_f32_2l_grad_rel_vs_one_rank"] = h0["grad_max_rel"]
+    checks["dp_train_zero1_moment_rel_vs_replicated"] = h0[
+        "moment_max_rel_zero1_vs_replicated"]
+    checks["dp_train_compressed_max_err_steps"] = h0["compressed_max_err_steps"]
+    checks["dp_train_restore_bitwise"] = True
+    checks["dp_train_resume_loss_diff"] = abs(r0["train"]["resume_loss_live"]
+                                              - r0["train"]["resume_loss_restored"])
+    queries["dp_train"] = rec
+    log(f"dp_train: {rec}")
+    queries["dp_train_launches_by_rank"] = [r["launches"] for r in ranks]
+    return {k: sum(r["launches"][k] for r in ranks) for k in r0["launches"]}
 
 
 def cache_indexes(caches: dict):
@@ -4021,8 +4401,8 @@ class RouteRecorder:
         from repro_torch.models import moe
         self._orig = orig = moe.route
 
-        def route(p, xt, cfg):
-            r = orig(p, xt, cfg)
+        def route(p, xt, cfg, group=None):
+            r = orig(p, xt, cfg, group)
             self.calls += 1
             if self.first_n is not None:
                 self.first.append((r.counts, r.C, r.slot.numel()))
@@ -4738,6 +5118,10 @@ def main(argv=None) -> int:
             # summed over them; Q26's sums are integer (no segment_sums)
             "exchange_p2": (lambda: exchange_path(torch, queries),
                             dict.fromkeys(("bucket_scatter", "prefix_sum"))),
+            # counted in its ranks (each must launch both in its token
+            # pipeline at P = 2) and summed over them
+            "dp_train": (lambda: dp_train_path(torch, queries, checks),
+                         dict.fromkeys(("prefix_sum", "bucket_scatter"))),
             "lm": (lambda: lm_path(torch, queries, lm_runs),
                    {"decode_attention": get_config(LM_ARCH).n_layers * LM_NEW}),
             # the pipeline's filter, cumsum and aggregate; the train steps
@@ -4800,7 +5184,7 @@ def main(argv=None) -> int:
                 t0 = time.perf_counter()
                 mm_checks(torch, lm_runs[path], queries, checks, path)
                 log(f"{path} checks: {time.perf_counter() - t0:.1f} s")
-        for path in ("train", "moe_train"):
+        for path in ("train", "moe_train", "dp_train"):
             assert launched[path]["decode_attention"] == 0, launched[path]
         log(f"checks (max abs diff; bitwise): {checks}")
         for r in record.values():

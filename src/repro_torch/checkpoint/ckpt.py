@@ -20,10 +20,15 @@ returns (the optimizer updates the live tensors in place, where the
 reference relies on JAX arrays being immutable) and writes from a
 background thread.
 
-``restore(..., device=)`` takes the place of the reference's
-``shardings=``: leaves are stored whole, so a checkpoint restores onto any
-device.  ``copy_into`` then writes a restored tree into live tensors in
-place (the model's parameters are views the blocks share).
+Leaves are stored whole, so a checkpoint restores onto any device and any
+number of ranks: ``restore(..., device=)`` gives whole leaves, and
+``restore(..., shardings=, mesh=)`` (the reference's elastic path) gives
+each rank its block of every leaf under a tree of specs
+(``models/sharding.py``; ``adamw.state_shardings`` for ZeRO-1 moments), so
+a checkpoint saved at P ranks restores at Q.  Saving from P ranks is the
+driver's (``runtime/ft.py``): the blocks are gathered, then rank 0 writes.
+``copy_into`` then writes a restored tree into live tensors in place (the
+model's parameters are views the blocks share).
 
 Departure (ROADMAP.md §3): ``save(keep=)`` and ``AsyncSaver(keep=)`` keep
 that many checkpoints; the reference's ``save`` always keeps 3.
@@ -40,6 +45,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..models import sharding
 from ..models.lm import copy_into, leaves, tree_map
 
 _SEP = "__"
@@ -163,14 +169,16 @@ def from_host(arr: np.ndarray, logical: str, device) -> torch.Tensor:
 
 
 def restore(ckpt_dir: str, template, step: int | None = None,
-            device=None) -> tuple[Any, int, dict]:
+            device=None, shardings=None, mesh=None) -> tuple[Any, int, dict]:
     """Restore into the ``template`` tree's structure: (tree, step,
     metadata).
 
     Every leaf the manifest holds becomes a new tensor on ``device`` (by
     default the template leaf's device, or the CPU); a leaf it lacks keeps
-    the template's value (partial restore).  The latest step unless ``step``
-    is given."""
+    the template's value (partial restore).  With ``shardings`` (a tree of
+    specs, leaves it does not reach whole) and ``mesh``, a leaf read from
+    the manifest becomes this rank's block of it.  The latest step unless
+    ``step`` is given."""
     step = latest_step(ckpt_dir) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
@@ -185,8 +193,16 @@ def restore(ckpt_dir: str, template, step: int | None = None,
             like.device if isinstance(like, torch.Tensor) else "cpu")
         flat[key] = from_host(np.load(os.path.join(d, key + ".npy")),
                               info["dtype"], dev)
-    tree = tree_map(lambda path, t: flat.get(_SEP.join(map(str, path)), t), template, path=())
-    return tree, step, manifest["metadata"]
+
+    def leaf(path, t):
+        got = flat.get(_SEP.join(map(str, path)))
+        if got is None:
+            return t
+        if shardings is None:
+            return got
+        return sharding.shard(got, sharding.spec_at(shardings, path), mesh).clone()
+
+    return tree_map(leaf, template, path=()), step, manifest["metadata"]
 
 
 def _gc(ckpt_dir: str, keep: int = 3):

@@ -3,21 +3,27 @@
 The port of the reference package's ``launch/steps.py``: the train step its
 ``launch/train.py`` drives (``make_train_step``, with the loss wrapper,
 ``DEFAULT_MICRO``, ``micro_batches`` and ``input_specs``), the serving
-steps its ``examples/serve_lm.py`` drives, ``cache_specs`` and
-``model_param_specs``.  The encdec family goes through
-``models/whisper.py``; the vlm family's batches carry ``inputs_embeds`` and
-(3, B, S) ``positions``.  Meshes and the sharding bundles
-(``cell_shardings``) are not ported yet (ROADMAP.md §1 item 11): a mesh
-raises ``NotImplementedError``.
+steps its ``examples/serve_lm.py`` drives, ``cache_specs``,
+``model_param_specs`` and a cell's sharding bundle (``cell_shardings``).
+The encdec family goes through ``models/whisper.py``; the vlm family's
+batches carry ``inputs_embeds`` and (3, B, S) ``positions``.
+
+On a mesh (``launch/mesh.py``) the train step is data-parallel over its
+data axes: each rank takes its rows of the global batch, computes its
+share of the global loss (``lm.loss_fn(group=)``), and the gradients are
+summed over the ranks by ``adamw.update(mesh=)``, by ZeRO-1 or plainly as
+the state is laid out.  A model axis over 1 raises (ROADMAP.md §1 item
+11.7).
 """
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 
 from ..configs import ShapeSpec
-from ..models import lm, whisper
+from ..models import lm, sharding, whisper
 from ..models.config import ModelConfig
 from ..optim import OptConfig, adamw
 
@@ -30,12 +36,14 @@ DEFAULT_MICRO = {
 
 
 def micro_batches(cfg: ModelConfig, shape: ShapeSpec, mesh=None) -> int:
-    """The number of micro-batches of a train step (one process: no data
-    axis to cover)."""
+    """The number of micro-batches of a train step: ``DEFAULT_MICRO``'s,
+    halved until each micro-batch still covers the mesh's data axes."""
+    m = DEFAULT_MICRO.get(cfg.name, 1)
     if mesh is not None:
-        raise NotImplementedError(
-            "meshes are not ported yet: ROADMAP.md §1 item 11")
-    return max(DEFAULT_MICRO.get(cfg.name, 1), 1)
+        dpn = math.prod(mesh.shape[a] for a in sharding.dp_axes(mesh))
+        while m > 1 and (shape.batch // m) % dpn != 0:
+            m //= 2
+    return max(m, 1)
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
@@ -76,12 +84,13 @@ def model_param_specs(cfg: ModelConfig) -> dict:
     return lm.tree_map(lambda s: (s, lm._pdt(cfg)), shapes)
 
 
-def make_loss_fn(cfg: ModelConfig):
-    """(params, batch) -> scalar loss."""
+def make_loss_fn(cfg: ModelConfig, group=None):
+    """(params, batch) -> scalar loss (this rank's share over a data
+    ``group``)."""
     lm.require_ported(cfg)
     if cfg.family == "encdec":
-        return functools.partial(whisper.loss_fn, cfg=cfg)
-    return functools.partial(lm.loss_fn, cfg=cfg)
+        return functools.partial(whisper.loss_fn, cfg=cfg, group=group)
+    return functools.partial(lm.loss_fn, cfg=cfg, group=group)
 
 
 def value_and_grad(loss_fn, params: dict, batch: dict):
@@ -95,7 +104,8 @@ def value_and_grad(loss_fn, params: dict, batch: dict):
     return loss.detach(), lm.tree_map(lambda t: grads[id(t)], live)
 
 
-def make_train_step(cfg: ModelConfig, ocfg: OptConfig, n_micro: int = 1):
+def make_train_step(cfg: ModelConfig, ocfg: OptConfig, n_micro: int = 1,
+                    mesh=None):
     """(state, batch) -> (state, loss) with gradient accumulation.
 
     state: {"params": the parameter tree (``LM.tree()``: the model's own
@@ -109,18 +119,42 @@ def make_train_step(cfg: ModelConfig, ocfg: OptConfig, n_micro: int = 1):
     reference's ``lax.scan`` does.  AdamW then updates the
     parameters and the state in place; the same dict comes back with the
     loss, a float32 scalar tensor (no host synchronisation).
-    """
-    loss_fn = make_loss_fn(cfg)
+
+    On a ``mesh`` with more than one data rank, ``batch`` is the GLOBAL
+    batch on every rank and "opt" is ``adamw.init_state(..., mesh=mesh)``:
+    each micro-batch is split over the data ranks by ``batch_spec`` (rank r
+    of P takes rows i·B/n + r·B/(n·P) onward of micro-batch i, as GSPMD
+    shards each of the reference's micro-batches), the loss returned is
+    the global one (one all-reduce of the ranks' shares), and the step
+    equals the reference's one-device step on the global batch up to the
+    order of float32 sums."""
+    if mesh is not None and mesh.shape.get("model", 1) > 1:
+        raise NotImplementedError(
+            "a model axis over 1 (tensor parallelism) is not ported yet: "
+            "ROADMAP.md §1 item 11.7")
+    dp = mesh.dp if mesh is not None and mesh.dp.size > 1 else None
+    loss_fn = make_loss_fn(cfg, group=dp)
+
+    def rows(key, v, i):
+        mb = _micro(key, v, n_micro, i)
+        if dp is None:
+            return mb
+        if mb.shape[1 if key == "positions" else 0] % dp.size:
+            raise ValueError(
+                f"{key}: a micro-batch of {tuple(mb.shape)} does not split "
+                f"over {dp.size} data ranks")
+        return sharding.shard(mb, sharding.batch_spec(mesh, key, tuple(mb.shape)),
+                              mesh)
 
     def train_step(state, batch):
         params = state["params"]
+        batch = {k: v for k, v in batch.items() if v is not None}
         if n_micro > 1:
             gsum = lm.tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                                      device=p.device), params)
             lsum = 0.0
             for i in range(n_micro):
-                mb = {k: _micro(k, v, n_micro, i) for k, v in batch.items()
-                      if v is not None}
+                mb = {k: rows(k, v, i) for k, v in batch.items()}
                 loss, g = value_and_grad(loss_fn, params, mb)
                 lm.tree_map(torch.Tensor.add_, gsum, g)
                 lsum = lsum + loss
@@ -128,8 +162,11 @@ def make_train_step(cfg: ModelConfig, ocfg: OptConfig, n_micro: int = 1):
             grads = lm.tree_map(lambda g: g.div_(n_micro), gsum)
             loss = lsum / n_micro
         else:
-            loss, grads = value_and_grad(loss_fn, params, batch)
-        adamw.update(params, grads, state["opt"], ocfg)
+            loss, grads = value_and_grad(
+                loss_fn, params, {k: rows(k, v, 0) for k, v in batch.items()})
+        if dp is not None:
+            loss = dp.all_reduce(loss.clone())
+        adamw.update(params, grads, state["opt"], ocfg, mesh=mesh)
         return state, loss
 
     return train_step
@@ -138,6 +175,8 @@ def make_train_step(cfg: ModelConfig, ocfg: OptConfig, n_micro: int = 1):
 def _micro(key: str, v, n: int, i: int):
     """Micro-batch i of n of batch entry ``key``: along axis 0, or axis 1
     of the (3, B, S) "positions"."""
+    if n == 1:
+        return v
     if key == "positions":
         return v.reshape(v.shape[0], n, v.shape[1] // n, *v.shape[2:])[:, i]
     return v.reshape(n, v.shape[0] // n, *v.shape[1:])[i]
@@ -183,3 +222,32 @@ def make_decode_step(cfg: ModelConfig):
                                    dtype=torch.int32, device=token.device)
         return lm.decode_step(params, token, caches, cfg, positions=positions)
     return step
+
+
+def cell_shardings(cfg: ModelConfig, shape: ShapeSpec, mesh,
+                   ocfg: OptConfig | None = None, fsdp: bool = False) -> dict:
+    """Every spec a cell needs, under the reference's keys: "params" and
+    "param_specs", "inputs" and "input_sh", for a decode cell
+    "cache_specs" and "cache_sh", for a train cell with ``ocfg``
+    "opt_specs" and "opt_sh".
+
+    fsdp=True also shards the PARAMETERS over the data axes (``zero1_spec``
+    of each parameter's spec), as the reference's; the port runs no FSDP
+    step, so those specs are specs only."""
+    pspecs = model_param_specs(cfg)
+    psh = sharding.param_shardings(cfg, mesh, pspecs)
+    if fsdp:
+        psh = lm.tree_map(lambda sh, sp: adamw.zero1_spec(mesh, sh, sp[0]),
+                          psh, pspecs)
+    out = {"params": psh, "param_specs": pspecs}
+    ins = input_specs(cfg, shape)
+    out["inputs"] = ins
+    out["input_sh"] = {k: sharding.batch_spec(mesh, k, v[0]) for k, v in ins.items()}
+    if shape.kind == "decode":
+        cs = cache_specs(cfg, shape)
+        out["cache_specs"] = cs
+        out["cache_sh"] = sharding.cache_shardings(mesh, cs)
+    if shape.kind == "train" and ocfg is not None:
+        out["opt_specs"] = adamw.state_specs(pspecs, ocfg)
+        out["opt_sh"] = adamw.state_shardings(mesh, psh, pspecs, ocfg)
+    return out

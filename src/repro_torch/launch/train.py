@@ -1,17 +1,31 @@
-"""Training launcher: --arch <id> on one device.
+"""Training launcher: --arch <id> on one device, or data-parallel over
+the ranks ``torchrun`` starts.
 
 The port of the reference package's ``launch/train.py``, the dense, moe,
-ssm, hybrid and vlm families: the arch config -> parameters and AdamW state ->
-the HiFrames token pipeline -> the fault-tolerant driver (asynchronous
-checkpoints, preemption, straggler statistics).  On the card by default; on the CPU:
+ssm, hybrid and vlm families: the arch config -> the local mesh ->
+parameters and AdamW state laid out by ``cell_shardings`` -> the HiFrames
+token pipeline -> the fault-tolerant driver (asynchronous checkpoints,
+preemption, straggler statistics).  On the card by default; on the CPU:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
         --reduced --device cpu --steps 4 --batch 2 --seq 32
 
-``--resume`` continues from the latest checkpoint in ``--ckpt-dir``.
-``--moe-impl gspmd`` sets the config's ``moe_impl`` as the reference does;
-``--moe-impl ep``, ``--model-axis`` other than 1 and ``--production-mesh``
-raise ``NotImplementedError`` (ROADMAP.md §1 item 11).  The vlm family
+and data-parallel over two ranks (gloo on the CPU; on cards NCCL when each
+rank has its own, gloo when they share one, ``launch/mesh.py``):
+
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \\
+        -m repro_torch.launch.train --arch qwen3-0.6b --reduced --device cpu
+
+There every rank starts from rank 0's weights (broadcast), builds the same
+global batches and trains on its rows of each (``steps.make_train_step``);
+the AdamW moments are ZeRO-1 blocks (``OptConfig.zero1``); rank 0 writes
+the checkpoints.  Without ``torchrun`` the world is one process.
+
+``--resume`` continues from the latest checkpoint in ``--ckpt-dir`` (saved
+at any number of ranks).  ``--moe-impl gspmd`` sets the config's
+``moe_impl`` as the reference does; ``--moe-impl ep``, ``--model-axis``
+other than 1 and ``--production-mesh`` (a model axis of 16) raise
+``NotImplementedError`` (ROADMAP.md §1 item 11.7, the model axis).  The vlm family
 trains on the reference's stand-in batches: zero bf16 ``inputs_embeds``
 and positions counting up on all three M-RoPE streams, no tokens.  The
 encdec family exits as the reference's does (a whisper-specific driver).
@@ -30,15 +44,18 @@ from .. import configs
 from ..core.lower import ExecConfig
 from ..data.pipeline import PipelineConfig, TokenPipeline
 from ..data.synth import token_corpus
+from ..configs import ShapeSpec
 from ..models import lm
 from ..models.config import ModelConfig
 from ..optim import OptConfig, adamw
 from ..runtime import FTConfig, TrainDriver
+from . import mesh as M
 from . import steps as S
 
 
 def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP.md §1 item 11")
+    return NotImplementedError(
+        f"{what} is not ported yet: ROADMAP.md §1 item 11.7 (the model axis)")
 
 
 def _require_trainable(cfg: ModelConfig) -> None:
@@ -50,32 +67,44 @@ def _require_trainable(cfg: ModelConfig) -> None:
 def run(cfg: ModelConfig, ocfg: OptConfig, corpus: dict, *, steps: int,
         batch: int, seq: int, micro: int = 1, ckpt_dir: str,
         resume: bool = False, device="cuda", ckpt_every: int = 50,
-        log_every: int = 5) -> dict:
+        log_every: int = 5, mesh=None) -> dict:
     """Train ``cfg`` for ``steps`` steps on batches of ``batch`` x ``seq``
     tokens from ``corpus`` (``synth.token_corpus``'s table) on ``device``,
     from random weights (seed 0), checkpointing every ``ckpt_every`` steps
-    with the arch's name as metadata.
+    with the arch's name as metadata.  On a ``mesh`` (``make_local_mesh``
+    over the initialised group) the steps are data-parallel over its data
+    ranks: ``batch`` is the global batch.
 
     Returns the driver's result ({"steps", "losses", "stragglers",
     "mean_step_s"}) with "driver" (the TrainDriver: its state, step times
     and saver records), "pipeline" (the closed TokenPipeline: its plan's
     outputs), "pipeline_s" (its construction's wall: ingest, the relational
-    stages and their host copies) and "resumed_at" (the step resumed from,
-    or None)."""
+    stages and their host copies), "resumed_at" (the step resumed from,
+    or None) and "cell" (on a mesh, ``cell_shardings``' specs: "params",
+    "opt_sh"; else None)."""
     _require_trainable(cfg)
     dev = lm.device_of(device)
     exec_cfg = ExecConfig(device=dev.type)
+    if mesh is not None and M.mesh_chip_count(mesh) == 1:
+        mesh = None
+    cell = None if mesh is None else S.cell_shardings(
+        cfg, ShapeSpec("cli", "train", seq, batch), mesh, ocfg)
     model = lm.init_params(cfg, seed=0, device=dev)
     params = model.tree()
-    state = {"params": params, "opt": adamw.init_state(params, ocfg)}
-    step_fn = S.make_train_step(cfg, ocfg, n_micro=micro)
+    if mesh is not None:
+        # every rank starts from rank 0's draw, as DDP does
+        for _, t in lm.leaves(params):
+            mesh.world.broadcast(t.data)
+    state = {"params": params, "opt": adamw.init_state(params, ocfg, mesh=mesh)}
+    step_fn = S.make_train_step(cfg, ocfg, n_micro=micro, mesh=mesh)
     t0 = time.perf_counter()
     pipe = TokenPipeline(corpus, PipelineConfig(
         vocab=cfg.vocab, seq_len=seq, global_batch=batch), exec_cfg)
     pipeline_s = time.perf_counter() - t0
     try:
         driver = TrainDriver(FTConfig(ckpt_dir=ckpt_dir, ckpt_every=ckpt_every),
-                             state, step_fn, metadata={"arch": cfg.name})
+                             state, step_fn, metadata={"arch": cfg.name},
+                             mesh=mesh, shardings=cell and {"opt": cell["opt_sh"]})
         resumed = None
         if resume and driver.maybe_resume():
             resumed = driver.step
@@ -97,7 +126,7 @@ def run(cfg: ModelConfig, ocfg: OptConfig, corpus: dict, *, steps: int,
     finally:
         pipe.close()
     return {**res, "driver": driver, "pipeline": pipe, "pipeline_s": pipeline_s,
-            "resumed_at": resumed}
+            "resumed_at": resumed, "cell": cell}
 
 
 def main(argv=None) -> dict:
@@ -126,15 +155,24 @@ def main(argv=None) -> dict:
     if args.moe_impl:
         cfg = cfg.replace(moe_impl=args.moe_impl)
     if args.model_axis != 1 or args.production_mesh:
-        raise _not_ported("a mesh (--model-axis, --production-mesh)")
+        raise _not_ported("a model axis (--model-axis over 1, --production-mesh)")
     _require_trainable(cfg)
-    print(f"device {args.device}; model {cfg.name} "
+    started = not torch.distributed.is_initialized()
+    M.init_distributed(args.device)
+    mesh = M.make_local_mesh(model_axis=args.model_axis)
+    print(f"device {args.device}; mesh {dict(mesh.shape)} "
+          f"({mesh.backend or 'one process'}); model {cfg.name} "
           f"{cfg.param_count()/1e6:.1f}M params")
     ocfg = OptConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 1),
                      total_steps=args.steps)
-    res = run(cfg, ocfg, token_corpus(2_000, cfg.vocab), steps=args.steps,
-              batch=args.batch, seq=args.seq, micro=args.micro,
-              ckpt_dir=args.ckpt_dir, resume=args.resume, device=args.device)
+    try:
+        res = run(cfg, ocfg, token_corpus(2_000, cfg.vocab), steps=args.steps,
+                  batch=args.batch, seq=args.seq, micro=args.micro,
+                  ckpt_dir=args.ckpt_dir, resume=args.resume, device=args.device,
+                  mesh=mesh)
+    finally:
+        if started and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
     if res["losses"]:
         print(f"done: {res['steps']} steps, loss {res['losses'][0]:.3f} -> "
               f"{res['losses'][-1]:.3f}, {res['mean_step_s']*1e3:.0f} ms/step")

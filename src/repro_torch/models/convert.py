@@ -6,7 +6,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import lm, whisper
+from . import lm, sharding, whisper
 from .config import ModelConfig
 
 
@@ -48,15 +48,21 @@ def whisper_from_jax(cfg: ModelConfig, params: dict, device="cuda") -> whisper.W
     return whisper.Whisper(cfg, lm.tree_map(lambda a: _tensor(a, dev), params))
 
 
-def opt_state_from_jax(state: dict, device="cuda") -> dict:
+def opt_state_from_jax(state: dict, device="cuda", shardings=None,
+                       mesh=None) -> dict:
     """The port's AdamW state holding the same values as the reference's
     ``adamw.init_state``/``update`` state given as numpy arrays: ``m``,
     ``v`` (and ``master``) as nested dicts in the parameters' layout,
-    ``step`` an int32 scalar."""
+    ``step`` an int32 scalar.  With ``shardings`` (``adamw.state_shardings``'
+    tree of specs, ``cell_shardings``' "opt_sh") and ``mesh``, each leaf is
+    this rank's block of the reference's, the ZeRO-1 layout
+    ``adamw.init_state(..., mesh=)`` makes."""
     dev = lm.device_of(device)
     out = {k: lm.tree_map(lambda a: _tensor(a, dev), state[k])
            for k in ("m", "v", "master") if k in state}
     out["step"] = _tensor(np.asarray(state["step"], np.int32), dev)
+    if shardings is not None:
+        out = sharding.shard_tree(out, shardings, mesh)
     return out
 
 

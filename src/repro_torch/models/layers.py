@@ -11,8 +11,8 @@ goes through the registry's ``decode_attention``: the hand-written kernel on
 the card, its plain version on the CPU.
 
 Not ported yet: the reference's GSPMD constraints (``set_tp_mesh``,
-``_pin_cache_sharding``, ``_seq_shard_qkv``; they wait for
-``models/sharding.py``, ROADMAP.md §1 item 11, and do nothing on one card).
+``_pin_cache_sharding``, ``_seq_shard_qkv``; they wait for the model axis,
+ROADMAP.md §1 item 11.7, and do nothing on the data axes or on one card).
 """
 from __future__ import annotations
 

@@ -416,19 +416,20 @@ def _ssm_stack(tree, x, cfg: ModelConfig, positions, caches, attn_cache,
     return x
 
 
-def _transformer_block(lp: Block, x, cfg: ModelConfig, positions, cache=None):
+def _transformer_block(lp: Block, x, cfg: ModelConfig, positions, cache=None,
+                       group=None):
     """One block: (x, aux), aux the MoE's load-balancing loss (0.0 for a
-    SwiGLU block)."""
+    SwiGLU block; this rank's share of it over a data ``group``)."""
     x = x + attention_block(lp.attn, norm(x, lp.ln1, cfg), cfg, positions,
                             cache=cache)
     if lp.moe is None:
         return x + swiglu(lp.mlp, norm(x, lp.ln2, cfg)), 0.0
-    y, aux = moe_mod.moe_block(lp.moe, norm(x, lp.ln2, cfg), cfg)
+    y, aux = moe_mod.moe_block(lp.moe, norm(x, lp.ln2, cfg), cfg, group=group)
     return x + y, aux
 
 
 def forward(params, tokens, cfg: ModelConfig, *, positions=None,
-            inputs_embeds=None, caches=None, q_offset=None):
+            inputs_embeds=None, caches=None, q_offset=None, group=None):
     """Shared forward.  params: an ``LM`` or its ``tree()`` (nested dicts of
     tensors in ``param_shapes(cfg)``'s layout); tokens: (B, S) int32, or
     None with ``inputs_embeds`` (B, S, d), which replace the embedding
@@ -444,6 +445,11 @@ def forward(params, tokens, cfg: ModelConfig, *, positions=None,
     each block's input (each group's, in the hybrid family's groups) for
     the backward pass and recomputes the rest (the routing too: the same
     experts and slots, since both are deterministic).
+
+    group: a data-parallel ``launch/mesh.py`` ``Group`` whose ranks each
+    hold their rows of one global batch (training); the MoE blocks then
+    route as the global computation does (``moe.route``) and aux_loss is
+    this rank's share of the global one.
     """
     _require_lm(cfg)
     tree = params.tree() if isinstance(params, LM) else params
@@ -484,10 +490,11 @@ def forward(params, tokens, cfg: ModelConfig, *, positions=None,
             for i, blk in enumerate(unstack(tree[name], n)):
                 if remat:
                     x, aux = checkpoint(_transformer_block, blk, x, cfg, positions,
-                                        use_reentrant=False, preserve_rng_state=False)
+                                        group=group, use_reentrant=False,
+                                        preserve_rng_state=False)
                 else:
                     x, aux = _transformer_block(blk, x, cfg, positions,
-                                                cache=attn_cache(c, i))
+                                                cache=attn_cache(c, i), group=group)
                 total_aux = total_aux + aux
     if caches is not None:
         _advance(caches, idx + s)
@@ -517,20 +524,26 @@ def _advance(caches: dict, index: int) -> None:
         caches["host_index"] = index
 
 
-def loss_fn(params, batch: dict, cfg: ModelConfig):
+def loss_fn(params, batch: dict, cfg: ModelConfig, group=None):
     """Causal LM loss, as the reference computes it: ``token_loss`` plus
     0.01 x the aux loss.  batch: {"tokens" (B, S) int32, "labels" (B, S)
     int32}; the vlm family's "inputs_embeds" and "positions" in place of
-    "tokens" (``forward``)."""
+    "tokens" (``forward``).  Over a data ``group`` (each rank its rows of
+    one global batch) it is this rank's share of the global loss: the
+    shares, and their gradients, sum over the ranks to the global batch's."""
     logits, _, aux = forward(params, batch.get("tokens"), cfg,
                              positions=batch.get("positions"),
-                             inputs_embeds=batch.get("inputs_embeds"))
-    return token_loss(logits, batch["labels"]) + 0.01 * aux
+                             inputs_embeds=batch.get("inputs_embeds"),
+                             group=group)
+    return token_loss(logits, batch["labels"], group) + 0.01 * aux
 
 
-def token_loss(logits, labels):
+def token_loss(logits, labels, group=None):
     """float32 logits, ``logsumexp - gold`` at every position whose label
-    is >= 0, the mean over those positions (at least 1)."""
+    is >= 0, the mean over those positions (at least 1); over a data
+    ``group``, this rank's sum over the count of the whole group's
+    positions (one all-reduce, no gradient), so that a mask that differs
+    between ranks weighs each position as the global mean does."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     # a masked label gathers row 0 (the reference wraps -1 to V - 1); either
@@ -538,7 +551,10 @@ def token_loss(logits, labels):
     gold = torch.gather(logits, -1, labels.clamp(min=0).long()[..., None])[..., 0]
     mask = (labels >= 0).float()
     ll = (logz - gold) * mask
-    return ll.sum() / torch.clamp(mask.sum(), min=1.0)
+    count = mask.sum()
+    if group is not None:
+        count = group.all_reduce(count)
+    return ll.sum() / torch.clamp(count, min=1.0)
 
 
 # ---------------------------------------------------------------------------

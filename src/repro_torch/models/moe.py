@@ -12,9 +12,20 @@ hand-written kernel on the card (``csrc/bucket_scatter.cu``), its plain
 version on the CPU.  The reference computes the same integers with a
 (T·k, E) one-hot ``cumsum``.
 
+Over a data-parallel group (``launch/mesh.py::Group``; each rank holding
+its rows of one global batch) a block computes what the reference's
+``_moe_block_gspmd`` computes on the global batch under GSPMD: the
+capacity is the global token count's, each row's slot is its rank within
+its expert over the global flat order (the local slot plus the exclusive
+scan over ranks of the experts' counts: one all-gather of 2E int32 a
+block, the paper's MPI_Exscan pattern), and the aux loss is this rank's
+share of the global one (global first-choice shares, local probability
+sums over the global token count), so the shares and their gradients sum
+over the ranks to the reference's.
+
 Not ported yet: the expert-parallel dispatch (``_moe_block_ep``, a
 ``shard_map`` over the "model" axis) and its mesh registry; ``moe_impl ==
-"ep"`` raises (ROADMAP.md §1 item 11 step 5).
+"ep"`` raises (ROADMAP.md §1 item 11.7, the model axis).
 """
 from __future__ import annotations
 
@@ -60,12 +71,15 @@ class Routing(NamedTuple):
     aux: torch.Tensor
 
 
-def route(p: dict, xt, cfg: ModelConfig) -> Routing:
+def route(p: dict, xt, cfg: ModelConfig, group=None) -> Routing:
     """Route tokens ``xt`` (T, d) through the router ``p["router"]`` (d, E):
     float32 softmax over logits computed in ``xt``'s dtype, top k, weights
     divided by their sum, the Switch-style aux loss E · Σ mean(probs) ·
     (share of tokens whose first choice is each expert), and every row's
-    slot in its expert from the registry's ``bucket_scatter``."""
+    slot in its expert from the registry's ``bucket_scatter``.  Over a data
+    ``group`` of P ranks, each with T tokens: slots, counts, capacity and
+    the aux loss's shares are the global computation's (module
+    docstring)."""
     E, k = cfg.n_experts, cfg.top_k
     if E > MAX_P:
         raise ValueError(f"{cfg.name}: {E} experts; bucket_scatter takes at "
@@ -77,30 +91,42 @@ def route(p: dict, xt, cfg: ModelConfig) -> Routing:
     topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
     # the first choices' shares: no gradient, and no wait on the card (a
     # bincount would read its input's max on the host)
-    ce = F.one_hot(topi[:, 0], E).float().mean(0)
-    aux = E * torch.sum(probs.mean(0) * ce)
+    first = F.one_hot(topi[:, 0], E)
     flat_e = topi.reshape(T * k).to(torch.int32).contiguous()
     slot, counts = registry.resolve(xt.device.type).bucket_scatter(flat_e, E)
-    return Routing(topw, topi, slot, counts, expert_capacity(cfg, T), aux)
+    if group is None or group.size == 1:
+        ce = first.float().mean(0)
+        aux = E * torch.sum(probs.mean(0) * ce)
+        return Routing(topw, topi, slot, counts, expert_capacity(cfg, T), aux)
+    # every rank's expert counts and first-choice counts, in rank order
+    both = group.all_gather(torch.stack([counts, first.sum(0).to(torch.int32)])[None])
+    before = both[:group.index, 0].sum(0)                   # exclusive scan
+    slot = slot + before.to(slot.dtype)[flat_e.long()]
+    n = T * group.size
+    ce = both[:, 1].sum(0).float() / n
+    aux = E * torch.sum(probs.sum(0) / n * ce)
+    return Routing(topw, topi, slot, both[:, 0].sum(0).to(counts.dtype),
+                   expert_capacity(cfg, n), aux)
 
 
-def moe_block(p: dict, x, cfg: ModelConfig):
+def moe_block(p: dict, x, cfg: ModelConfig, group=None):
     """x: (B, S, d) -> (out, aux_loss), the reference's ``_moe_block_gspmd``.
 
     p: ``router`` (d, E); ``experts`` {w_gate, w_up: (E, d, ff), w_down:
     (E, ff, d)}; optional ``shared`` {w_gate, w_up, w_down}, an always-on
-    SwiGLU.  The capacity is the one of this call's B·S tokens.
+    SwiGLU.  The capacity is the one of this call's B·S tokens, or of the
+    whole data ``group``'s (``route``).
     """
     if cfg.moe_impl == "ep":
         raise NotImplementedError(
             "moe_impl='ep' (expert-parallel dispatch over a mesh) is not "
-            "ported yet: ROADMAP.md §1 item 11 step 5")
+            "ported yet: ROADMAP.md §1 item 11.7 (the model axis)")
     b, s, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     T = b * s
     dt = x.dtype
     xt = x.reshape(T, d)
-    r = route(p, xt, cfg)
+    r = route(p, xt, cfg, group)
     C = r.C
     flat_e = r.topi.reshape(T * k)
     keep = r.slot < C

@@ -205,12 +205,13 @@ def decode_forward(params, tokens, enc_states, cfg: ModelConfig, *,
     return x @ tree["embed"].to(cdt).T, caches
 
 
-def loss_fn(params, batch: dict, cfg: ModelConfig):
+def loss_fn(params, batch: dict, cfg: ModelConfig, group=None):
     """batch: {"frames" (B, F, d), "tokens" (B, S), "labels" (B, S)}: the
-    reference's loss, ``lm.token_loss`` of the teacher-forced logits."""
+    reference's loss, ``lm.token_loss`` of the teacher-forced logits (this
+    rank's share of the global one over a data ``group``)."""
     enc = encode(params, batch["frames"], cfg)
     logits, _ = decode_forward(params, batch["tokens"], enc, cfg)
-    return lm.token_loss(logits, batch["labels"])
+    return lm.token_loss(logits, batch["labels"], group)
 
 
 def init_cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:

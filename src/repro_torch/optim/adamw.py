@@ -11,9 +11,21 @@ float32 copies of the parameters, with ``use_master``), the reference's
 layout.  ``update`` writes the new parameters and state into their tensors
 in place and issues no host synchronisation.
 
-``zero1_spec`` and ``state_shardings`` (ZeRO-1 over GSPMD meshes) are not
-ported yet: they wait for ``models/sharding.py`` (ROADMAP.md §1 item 11).
-``OptConfig.zero1`` is accepted and does nothing on one process.
+ZeRO-1 (``OptConfig.zero1``, on by default as in the reference): on a
+mesh whose data axes hold more than one rank, each moment (and master
+copy) is this rank's block of ``zero1_spec``'s layout, the reference's
+rule: the parameter's spec extended with the data axes on its largest
+free dim that they divide (``state_shardings``; ``init_state(...,
+mesh=)``).  ``update(..., mesh=)`` then takes this rank's share of the
+gradients (``launch/steps.py`` divides the loss so that the shares sum to
+the whole batch's gradient) and, for each sharded leaf, reduce-scatters
+the gradient along that dim, applies the arithmetic to this rank's block
+and all-gathers the new parameter; a leaf no dim of which the data axes
+divide keeps whole moments and all-reduces its gradient.  The clipping
+norm is the global one: the blocks' squares summed, then one all-reduce.
+With ``zero1=False`` every gradient is all-reduced and the moments are
+whole on every rank.  Without a mesh, or with one data rank, nothing is
+communicated and the arithmetic is the one-process step's.
 """
 from __future__ import annotations
 
@@ -22,6 +34,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..models import sharding
 from ..models.lm import leaves, tree_map
 
 
@@ -58,16 +71,27 @@ def lr_at(step, cfg: OptConfig) -> torch.Tensor:
     return cfg.lr * warm * decay
 
 
-def init_state(params: dict, cfg: OptConfig) -> dict:
+def init_state(params: dict, cfg: OptConfig, mesh=None) -> dict:
     """Zero moments in ``cfg.state_dtype`` beside each parameter, step 0 on
-    the parameters' device (+ float32 master copies with ``use_master``)."""
+    the parameters' device (+ float32 master copies with ``use_master``);
+    on a ``mesh``, each this rank's block of ``state_shardings``' layout."""
     sdt = getattr(torch, cfg.state_dtype)
     dev = next(leaves(params))[1].device
-    state = {"m": tree_map(lambda p: torch.zeros(p.shape, dtype=sdt, device=p.device), params),
-             "v": tree_map(lambda p: torch.zeros(p.shape, dtype=sdt, device=p.device), params),
+    specs = _moment_specs(params, cfg, mesh)
+
+    def zeros(path, p):
+        shape = p.shape if mesh is None else sharding.local_shape(
+            tuple(p.shape), _at(specs, path), mesh)
+        return torch.zeros(shape, dtype=sdt, device=p.device)
+
+    state = {"m": tree_map(zeros, params, path=()),
+             "v": tree_map(zeros, params, path=()),
              "step": torch.zeros((), dtype=torch.int32, device=dev)}
     if cfg.use_master:
-        state["master"] = tree_map(lambda p: p.detach().float().clone(), params)
+        state["master"] = tree_map(
+            lambda path, p: (p.detach() if mesh is None else sharding.shard(
+                p.detach(), _at(specs, path), mesh)).float().clone(),
+            params, path=())
     return state
 
 
@@ -94,16 +118,35 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def update(params: dict, grads: dict, state: dict, cfg: OptConfig):
+def update(params: dict, grads: dict, state: dict, cfg: OptConfig, mesh=None):
     """One AdamW step: writes the new parameters and state in place and
     returns (params, state, stats), stats = {"lr", "grad_norm"} (the norm
-    before clipping), both float32 scalar tensors."""
+    before clipping), both float32 scalar tensors.  On a ``mesh`` with more
+    than one data rank, ``grads`` is this rank's share and ``state`` is laid
+    out by ``init_state(..., mesh=)`` (module docstring)."""
+    if mesh is not None and mesh.dp.size > 1:
+        return _update_dp(params, grads, state, cfg, mesh)
     step = state["step"]
     step.add_(1)
     lr = lr_at(step, cfg)
     gnorm = global_norm(grads)
-    scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0) \
+    upd = _upd_fn(cfg, step, lr, _clip_scale(cfg, gnorm))
+    if cfg.use_master:
+        tree_map(upd, params, grads, state["m"], state["v"], state["master"])
+    else:
+        tree_map(upd, params, grads, state["m"], state["v"])
+    return params, state, {"lr": lr, "grad_norm": gnorm}
+
+
+def _clip_scale(cfg: OptConfig, gnorm):
+    return torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0) \
         if cfg.grad_clip > 0 else 1.0
+
+
+def _upd_fn(cfg: OptConfig, step, lr, scale):
+    """The reference's arithmetic on one leaf (or block): the new parameter
+    values written into ``p`` (which may be a view), the moments into ``m``
+    and ``v``, the master copy into ``master``."""
     b1, b2 = cfg.beta1, cfg.beta2
     c1 = 1 - torch.pow(b1, step.float())
     c2 = 1 - torch.pow(b2, step.float())
@@ -123,9 +166,113 @@ def update(params: dict, grads: dict, state: dict, cfg: OptConfig):
         if master is not None:
             master.copy_(new)
         p.copy_(new.to(p.dtype))
+    return upd
 
-    if cfg.use_master:
-        tree_map(upd, params, grads, state["m"], state["v"], state["master"])
-    else:
-        tree_map(upd, params, grads, state["m"], state["v"])
+
+def _update_dp(params: dict, grads: dict, state: dict, cfg: OptConfig, mesh):
+    """``update`` over the data ranks of ``mesh``: each gradient summed over
+    the ranks (reduce-scattered to this rank's block along its ZeRO-1 dim,
+    or all-reduced), the global norm from one all-reduce of the blocks'
+    squares, the arithmetic on this rank's block, the parameter
+    all-gathered."""
+    dp = mesh.dp
+    specs = _moment_specs(params, cfg, mesh)
+    step = state["step"]
+    step.add_(1)
+    lr = lr_at(step, cfg)
+    summed, sharded_sq, whole_sq = {}, [], []
+    for path, g in leaves(grads):
+        dim = dp_dim(_at(specs, path))
+        if dim is None:
+            gs = dp.all_reduce(g.to(torch.float32, copy=True))
+            whole_sq.append(torch.sum(torch.square(gs)))
+        else:
+            gs = dp.reduce_scatter(g.float(), dim)
+            sharded_sq.append(torch.sum(torch.square(gs)))
+        summed[path] = gs
+    sq = dp.all_reduce(torch.stack(sharded_sq).sum()) if sharded_sq else 0.0
+    if whole_sq:
+        sq = sq + torch.stack(whole_sq).sum()
+    gnorm = torch.sqrt(torch.as_tensor(sq, dtype=torch.float32))
+    upd = _upd_fn(cfg, step, lr, _clip_scale(cfg, gnorm))
+    for path, p in leaves(params):
+        dim = dp_dim(_at(specs, path))
+        rest = [_at(state["m"], path), _at(state["v"], path)]
+        if cfg.use_master:
+            rest.append(_at(state["master"], path))
+        g = summed.pop(path)
+        if dim is None:
+            upd(p, g, *rest)
+        else:
+            block = sharding.shard(p, _at(specs, path), mesh)
+            upd(block, g, *rest)
+            p.copy_(dp.all_gather(block, dim))
     return params, state, {"lr": lr, "grad_norm": gnorm}
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def dp_dim(sp: tuple):
+    """The dim a moment spec shards over the data axes, or None."""
+    for i, e in enumerate(sp):
+        names = (e,) if isinstance(e, str) else (e or ())
+        if any(a in ("pod", "data") for a in names):
+            return i
+    return None
+
+
+def _moment_specs(params: dict, cfg: OptConfig, mesh):
+    """Each moment's spec on ``mesh`` (``state_shardings``' "m"), or None
+    without a mesh."""
+    if mesh is None:
+        return None
+    return state_shardings(mesh, sharding.param_shardings(None, mesh, params),
+                           params, cfg)["m"]
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1 sharding of optimizer states
+# ---------------------------------------------------------------------------
+
+
+def zero1_spec(mesh, param_spec: tuple, shape: tuple) -> tuple:
+    """Extend a param spec with data-axis sharding on the largest free dim."""
+    dp = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    if not dp:
+        return param_spec
+    # idempotent: already data-sharded specs pass through (FSDP params)
+    flat = set()
+    for e in param_spec:
+        if isinstance(e, (tuple, list)):
+            flat.update(e)
+        elif e is not None:
+            flat.add(e)
+    if flat & set(dp):
+        return param_spec
+    dpn = math.prod(mesh.shape[a] for a in dp)
+    entries = list(param_spec) + [None] * (len(shape) - len(param_spec))
+    # choose the largest unsharded dim divisible by the dp product
+    best, best_dim = -1, None
+    for i, (dim, e) in enumerate(zip(shape, entries)):
+        if e is None and dim % dpn == 0 and dim > best:
+            best, best_dim = dim, i
+    if best_dim is None:
+        return param_spec
+    entries[best_dim] = dp if len(dp) > 1 else dp[0]
+    return sharding.spec(*entries)
+
+
+def state_shardings(mesh, param_shardings, params, cfg: OptConfig) -> dict:
+    """The state's specs: each moment (and master copy) ``zero1_spec`` of
+    its parameter's spec with ``cfg.zero1``, else the parameter's spec;
+    ``params`` tensors or (shape, dtype) pairs."""
+    m = tree_map(lambda sh, p: zero1_spec(mesh, sh, sharding.shape_of(p))
+                 if cfg.zero1 else sh, param_shardings, params)
+    out = {"m": m, "v": m, "step": sharding.spec()}
+    if cfg.use_master:
+        out["master"] = m
+    return out

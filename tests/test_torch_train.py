@@ -430,8 +430,16 @@ def test_step_helpers():
         want = rsteps.input_specs(rget_reduced("qwen3-0.6b"), RShapeSpec("t", kind, 16, 8))
         assert {k: (s, str(d)) for k, (s, d) in got.items()} == \
             {k: (v.shape, f"torch.{v.dtype.name}") for k, v in want.items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsteps.micro_batches(cfg, shape, mesh=object())
+    # on a mesh, halved until a micro-batch covers the data axes, as the
+    # reference's (every arch and mesh: tests/test_torch_sharding.py)
+    from jax.sharding import AbstractMesh
+    from repro_torch.launch.mesh import Mesh
+    for arch in ("qwen3-0.6b", "yi-34b", "kimi-k2-1t-a32b"):
+        for sizes in ((16, 16), (8, 1), (2, 1)):
+            assert tsteps.micro_batches(
+                get_config(arch), shape, Mesh(dict(zip(("data", "model"), sizes)))) \
+                == rsteps.micro_batches(get_config(arch), RShapeSpec("t", "train", 16, 8),
+                                        AbstractMesh(sizes, ("data", "model")))
     # every family of the configs is ported (tests/test_torch_vlm.py,
     # tests/test_torch_whisper.py); a family the port does not know raises
     for arch in ("qwen2-vl-2b", "whisper-base"):

@@ -5,10 +5,14 @@
 NCCL refuses two ranks on one card, so a P = 2 run of the port on one card
 needs gloo to take CUDA tensors (which it stages through the host).  This
 spawns two processes on cuda:0, joins them in a gloo group over
-tcp://localhost, and runs the three collectives the relational path issues
-on CUDA tensors: ``all_to_all_single`` (the exchange), ``all_gather`` (the
-results, the exclusive scans) and ``all_reduce``; each result is checked
-against what the ranks sent.  Then it times an ``all_to_all_single`` of M
+tcp://localhost, and runs on CUDA tensors the three collectives the relational path issues,
+``all_to_all_single`` (the exchange), ``all_gather`` (the results, the
+exclusive scans) and ``all_reduce``, and the four the data-parallel train
+step issues (``launch/mesh.py::Group``): ``reduce_scatter_tensor`` and
+``all_gather_into_tensor`` (ZeRO-1's gradient blocks and parameters, in
+float32, bfloat16 and int32), ``broadcast`` (rank 0's weights) and an
+``all_reduce`` with MAX (the agreed preemption flag, the compressed sum's
+scale); each result is checked against what the ranks sent.  Then it times an ``all_to_all_single`` of M
 MiB a rank (CUDA events around the call), gloo's host staging included.
 Prints the card's name and power limit, one JSON line per rank, and exits
 with the first rank's error when a collective is refused or wrong.
@@ -57,6 +61,30 @@ def rank_main(rank: int, world: int, port: int, mib: int) -> None:
         dist.all_reduce(s)
         assert float(s) == world * (world + 1) / 2, s
         out["all_reduce"] = float(s)
+        # the data-parallel step's collectives
+        for dt in (torch.float32, torch.bfloat16, torch.int32):
+            name = str(dt).split(".")[1]
+            full = (torch.arange(4 * world, device=dev) + rank).to(dt)
+            blk = torch.empty(4, dtype=dt, device=dev)
+            dist.reduce_scatter_tensor(blk, full)
+            want = sum(torch.arange(4 * world) + r for r in range(world))
+            assert blk.is_cuda and torch.equal(
+                blk.cpu(), want[4 * rank:4 * rank + 4].to(dt)), (name, blk)
+            whole = torch.empty(4 * world, dtype=dt, device=dev)
+            dist.all_gather_into_tensor(whole, torch.full((4,), rank, dtype=dt,
+                                                          device=dev))
+            assert torch.equal(whole.cpu(), torch.arange(world).repeat_interleave(
+                4).to(dt)), (name, whole)
+            out[f"reduce_scatter_tensor_{name}"] = blk.tolist()
+            out[f"all_gather_into_tensor_{name}"] = whole.tolist()
+        b = torch.full((5,), float(rank + 7), device=dev)
+        dist.broadcast(b, src=0)
+        assert bool((b == 7).all()), b
+        out["broadcast"] = b.tolist()
+        m = torch.tensor([float(rank), -float(rank)], device=dev)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX)
+        assert m.tolist() == [world - 1.0, 0.0], m
+        out["all_reduce_max"] = m.tolist()
         # the rate of one large exchange, host staging included
         n = mib * 2**20 // 4
         big = torch.full((n,), rank, dtype=torch.int32, device=dev)
