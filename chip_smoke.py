@@ -46,20 +46,29 @@ Phases, in order; any failure raises and the exit code is not 0:
    timed at 196,608 beside it and torch.sort(stable=True).  The stencils
    are held bitwise (0 ulps) in every mode, also around their 4096-output
    tile, on ragged ends, on views not 16-byte aligned and past the 1024
-   taps staged at once.
-3. The seventeen main paths, each with the launch counters zeroed just
+   taps staged at once.  decode_attention's two entries over a cache
+   sharded along S (decode_attention_partial, decode_attention_merge) at a
+   rank's block of 1088 rows (two ranks' 2176-row caches) at the lm and moe
+   paths' decode shapes and at the tp_serve path's, in float32 and
+   bfloat16: each block's partial against the plain partial, the merge
+   against the plain merge, the merged blocks against the one-call kernel
+   and the plain version over the whole S, at lengths that leave a block
+   empty; 20 calls of each with the same bits; each timed beside its plain
+   version and its bound, with its device time.
+3. The eighteen main paths, each with the launch counters zeroed just
    before it and read just after:
    - relational, through ``hf`` at P = 1: Fig. 8a filter, join and
      aggregate and TPCx-BB Q26 / Q26-multikey against numpy oracles;
      prefix_sum and segment_sums must have launched;
    - windows, through ``hf``: Fig. 8b cumsum, SMA, WMA and exact rolling
-     mean at 2^27 rows, a partitioned WMA after a join and five chained
+     mean at 2^26 rows, a partitioned WMA after a join and five chained
      grouped windows (cumsum, exact rolling mean, rank, dense_rank,
-     row_number) over 2^27 rows in 11585 groups, against numpy oracles;
+     row_number) over 2^26 rows in 8192 groups, against numpy oracles
+     (cut from 2^27 rows in 11585 groups for the time limit);
      prefix_sum, segment_scan, segment_rank, stencil1d, stencil1d_exact and
      segment_stencil must have launched;
-   - sort, through ``hf`` at P = 1: a global sort of Fig. 8a's table (2^27
-     rows) and its descending head of 1000, bench_validate.py's group-by ->
+   - sort, through ``hf`` at P = 1: a global sort of Fig. 8a's table (2^26
+     rows, cut from 2^27 for the time limit) and its descending head of 1000, bench_validate.py's group-by ->
      join -> sort, rank / dense_rank / row_number over Fig. 8b's series by
      its values, an SMA after a filter (a Rebalance under the stencil), a
      concat of two halves feeding the Fig. 8a aggregate, and Fig. 12's Q26
@@ -90,11 +99,12 @@ Phases, in order; any failure raises and the exit code is not 0:
      Fig. 10's built-in and UDF filters over 2^27 rows with the same plan
      and rows, their walls, overhead and aten op histograms; prefix_sum,
      segment_sums and segment_rank must have launched;
-   - guardrails, through ``hf`` at P = 1: Fig. 8a's join shape (2^26 probe
-     rows, 35 % on key 3, as tests/test_skew.py's, against a 2^22-row
-     dimension) under adaptive statistics, planned with 2 SaltOps and a
-     salted MergeJoin, beside the same join unsalted (rows exact, on the
-     card; the salting's build side launches prefix_sum); 2^26 Zipf(1.5)
+   - guardrails, through ``hf`` at P = 1: Fig. 8a's join shape (2^25 probe
+     rows, 35 % on key 3, as tests/test_skew.py's, against a 2^21-row
+     dimension; each cut by half for the time limit) under adaptive
+     statistics, planned with 2 SaltOps and a salted MergeJoin, beside the
+     same join unsalted (rows exact, on the card; the salting's build side
+     launches prefix_sum); 2^25 Zipf(1.5)
      keys summed and counted under adaptive capacities (no overflow on the
      first run, the second sized from the realized group count) beside
      safe capacities, with their peak memory; Fig. 8a's aggregate and Q26
@@ -160,6 +170,24 @@ Phases, in order; any failure raises and the exit code is not 0:
      from it equal to the live state's); (e) that step's collectives by
      kind, calls and bytes, against the ZeRO-1 layout.  prefix_sum and
      bucket_scatter must have launched in each rank;
+   - tp_serve, in dp_train's two ranks on a (data 1, model 2) mesh over the
+     same world, through ``repro_torch.launch.steps`` (bf16, random weights
+     from a seed, each rank holding its blocks by the reference's rules):
+     qwen3-0.6b at full width and depth prefills 8 prompts of 2048 tokens
+     into 2176-row caches (1088 rows a rank) and decodes 32 greedy tokens
+     (picked across the ranks' vocabulary blocks); deepseek-moe-16b at full
+     width and 4 layers (the first dense layer and 3 MoE layers,
+     expert-parallel) prefills 4 x 2048 and decodes 16.  Each rank must
+     launch decode_attention_partial and decode_attention_merge once a
+     layer and decode step, bucket_scatter once a MoE layer in the prefill
+     and each step (P = 33 buckets), and no whole decode_attention; one
+     decode step of each under torch.profiler must show the split, combine
+     and scatter_tiles kernels; a decode step's collectives must be the
+     rules' layout.  Then the holds: at 2 layers in float32 the mesh's
+     prefill and decode logits within 1e-4 relative of one rank's without
+     a mesh, and at the path's size in bf16 the mesh's largest logit
+     deviation from one rank's bf16 run no larger than one rank's
+     bf16-against-float32 deviation on the same prompts and tokens;
    - lm, through ``repro_torch.launch.steps`` as examples/serve_lm.py
      drives the reference: qwen3-0.6b (28 layers, bf16, random weights from
      a seed) serves 32 prompts of 2048 tokens with 128 greedy new tokens;
@@ -259,6 +287,7 @@ device events (see ``one_call_profiles``).
 from __future__ import annotations
 
 import argparse
+import functools
 import hashlib
 import itertools
 import json
@@ -874,6 +903,10 @@ def ulps(torch, a, b) -> int:
 # The main path's shapes of the window kernels: 2^27 rows; the partitioned
 # queries' groups hold 2^27 / 11585 ~ 11585 rows on average.
 GROUPS = 11585
+# the window and sort paths' rows (cut from 2^27 for the time limit when
+# tp_serve came) and the window path's ~sqrt(n) groups
+WINDOW_ROWS, WINDOW_GROUPS = 2**26, 8192
+SORT_ROWS = 2**26
 
 
 def window_kernel_phases(torch, sizes, record: dict):
@@ -1308,8 +1341,180 @@ def decode_attention_device_times(torch, n: int = 20) -> dict:
                              "device_launches_a_call": count / n}
                 break
         del q, k, v
+    # the partial and the merge over a cache sharded along S (TP_MODEL
+    # ranks), each timed alone: a rank's block of every row, its partial,
+    # and the TP_MODEL partials' merge
+    for name, (b, s, hkv, gq, hd) in sharded_shapes().items():
+        q = torch.randn((b, hkv, gq, hd), device=dev, generator=g).bfloat16()
+        k, v = (torch.randn((b, s, hkv, hd), device=dev, generator=g).bfloat16()
+                for _ in range(2))
+        full = torch.full((b,), s, dtype=torch.int32, device=dev)
+        parts = torch.stack([da.decode_attention_partial_cuda(q, k, v, full)] * TP_MODEL)
+        calls = {"partial": lambda: da.decode_attention_partial_cuda(q, k, v, full),
+                 "merge": lambda: da.decode_attention_merge_cuda(parts, torch.bfloat16)}
+        for entry, call in calls.items():
+            key = f"{entry}_{name}"
+            out[key] = {"device_ms": None, "device_launches_a_call": None}
+            for _ in range(3):
+                prof, _seen, _host = traced(torch, lambda: [call() for _ in range(n)])
+                us, count = 0.0, 0
+                for e in prof.key_averages():
+                    if "decode_attention" in e.key and \
+                            str(e.device_type).endswith("CUDA"):
+                        us += e.self_device_time_total
+                        count += e.count
+                if count:
+                    out[key] = {"device_ms": us / 1e3 / n,
+                                "device_launches_a_call": count / n}
+                    break
+        del q, k, v, parts
     log(f"decode_attention device ms a call (one window of {n} calls): {out}")
     return out
+
+
+# decode_attention over a cache sharded along S on the tp_serve path's
+# TP_MODEL ranks: a rank's block (1088 rows of the 2176-row caches) at the
+# lm and moe paths' decode shapes (B 32 and 16), and at the tp_serve
+# path's own (B 8 and 4: few (b, KV head) pairs, so the partial splits S
+# and folds the splits itself)
+TP_MODEL = 2
+
+
+def sharded_shapes() -> dict:
+    """(B, S_loc, Hkv, G, hd) of a rank's block at which the partial and
+    the merge are held and timed."""
+    from repro_torch.configs import get_config
+
+    def of(arch, b):
+        cfg = get_config(arch)
+        return (b, LM_MID // TP_MODEL, cfg.n_kv_heads,
+                cfg.n_heads // cfg.n_kv_heads, cfg.hd)
+    return {"lm": of(LM_ARCH, LM_BATCH), "moe": of(MOE_ARCH, MOE_BATCH),
+            "tp_lm": of(LM_ARCH, TP_LM[0]), "tp_moe": of(MOE_ARCH, TP_MOE[0])}
+
+
+def decode_attention_sharded_phases(torch, record: dict, device: dict):
+    """decode_attention_partial and decode_attention_merge, the entries over
+    a cache sharded along S, at each of ``sharded_shapes`` with TP_MODEL
+    blocks, in float32 and bfloat16: each block's partial against the plain
+    partial (its normalised output numerator / sum within decode_attention's
+    tolerance of the plain one's; an empty block max -1e30 and sum 0), the
+    merge against the plain merge, the merged blocks against the one-call
+    kernel and the plain version over the whole S (|got - want| <= 2^-7
+    |want| + 2e-5 in bfloat16, 2e-5 in float32), at lengths that leave a
+    block empty, end inside one, fill one and fill both; then 20 calls of
+    each with the same bits; then each timed (CUDA events) beside its plain
+    version and its bound, with the device time of ``device``.  No single
+    PyTorch call computes either (SDPA returns no partial softmax), so
+    library_ms is null."""
+    from repro_torch.kernels.decode_attention import decode_attention as da
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    f32, bf16 = torch.float32, torch.bfloat16
+    rel = {f32: 0.0, bf16: 2.0 ** -7}
+    err = {"partial": 0.0, "merge": 0.0, "one_call": 0.0}
+    recs = {"partial": {}, "merge": {}}
+    for name, (b, s, hkv, gq, hd) in sharded_shapes().items():
+        total = TP_MODEL * s
+        edges = [1, s - 1, s, s + 1, total - 1, total]
+        lengths = torch.tensor([edges[i % len(edges)] for i in range(b)],
+                               dtype=torch.int32, device=dev)
+        for dt in (f32, bf16):
+            q = torch.randn((b, hkv, gq, hd), device=dev, generator=g).to(dt)
+            k, v = (torch.randn((b, total, hkv, hd), device=dev, generator=g).to(dt)
+                    for _ in range(2))
+            blocks = [(k[:, r * s:(r + 1) * s].contiguous(),
+                       v[:, r * s:(r + 1) * s].contiguous(),
+                       torch.clamp(lengths - r * s, 0, s).to(torch.int32))
+                      for r in range(TP_MODEL)]
+            parts = []
+            for kb, vb, lb in blocks:
+                got = da.decode_attention_partial_cuda(q, kb, vb, lb)
+                want = da.decode_attention_partial_plain(q, kb, vb, lb)
+                empty = want[..., -1] == 0
+                assert torch.equal(got[..., -1] == 0, empty), f"{name} {dt}: empty"
+                assert bool((got[..., -2][empty] == -1e30).all()), f"{name} {dt}"
+                assert bool(torch.isfinite(got).all()), f"{name} {dt}: not finite"
+                norm = lambda p: (p[..., :-2] / p[..., -1:].clamp(min=1e-30))  # noqa: E731
+                d = (norm(got) - norm(want)).abs()[~empty]
+                bound = (rel[dt] * norm(want).abs() + 2e-5)[~empty]
+                assert bool((d <= bound).all()), f"partial {name} {dt}"
+                err["partial"] = max(err["partial"], float(d.max()) if d.numel() else 0.0)
+                parts.append(got)
+            parts = torch.stack(parts)
+            merged = da.decode_attention_merge_cuda(parts, dt)
+            want = da.decode_attention_merge_plain(parts, dt)
+            one = da.decode_attention_cuda(q, k, v, lengths)
+            plain = da.decode_attention_plain(q, k, v, lengths)
+            for got_, want_, key in ((merged, want, "merge"), (merged, plain, "merge"),
+                                     (one, plain, "one_call")):
+                d = (got_.float() - want_.float()).abs()
+                assert bool((d <= rel[dt] * want_.float().abs() + 2e-5).all()), \
+                    f"{key} {name} {dt}"
+                err[key] = max(err[key], float(d.max()))
+            err.setdefault("partial_merge_vs_one_call", 0.0)
+            err["partial_merge_vs_one_call"] = max(
+                err["partial_merge_vs_one_call"],
+                float((merged.float() - one.float()).abs().max()))
+            del q, k, v, blocks, parts
+        # bfloat16, every row full: 20 calls with the same bits, then timed
+        q = torch.randn((b, hkv, gq, hd), device=dev, generator=g).to(bf16)
+        kb, vb = (torch.randn((b, s, hkv, hd), device=dev, generator=g).to(bf16)
+                  for _ in range(2))
+        full = torch.full((b,), s, dtype=torch.int32, device=dev)
+        part = lambda: da.decode_attention_partial_cuda(q, kb, vb, full)  # noqa: E731
+        parts = torch.stack([part(), torch.roll(part(), 1, 0)])
+        merge = lambda: da.decode_attention_merge_cuda(parts, bf16)  # noqa: E731
+        same_bits(torch, part, f"decode_attention_partial {name}")
+        first = merge().view(torch.int16)
+        for i in range(19):
+            assert torch.equal(merge().view(torch.int16), first), f"merge {name} {i}"
+        splits, rows = da.split_plan(b, hkv, s, gq, hd, 2,
+                                     da.sm_count(torch.cuda.current_device()))
+        window = {e: device.get(f"{e}_{name}", {}) for e in recs}
+        p_bytes = 2.0 * b * s * hkv * hd * 2 + q.numel() * 2 + 4.0 * b \
+            + 4.0 * b * hkv * gq * (hd + 2)
+        recs["partial"][name] = {
+            "shape": f"bf16 q ({b}, {hkv}, {gq}, {hd}), a block of k/v ({b}, {s}, "
+                     f"{hkv}, {hd}), all lengths {s}; {splits} splits",
+            "splits": splits, "rows_per_split": rows, "same_bits_calls": 20,
+            "ms": time_ms(part, torch),
+            "plain_ms": time_ms(lambda: da.decode_attention_partial_plain(q, kb, vb, full),
+                                torch),
+            "device_ms": window["partial"].get("device_ms"),
+            "device_launches_a_call": window["partial"].get("device_launches_a_call"),
+            **dict(zip(("bound_ms", "bound_by"),
+                       bound_ms(p_bytes, 4.0 * b * hkv * gq * hd * s)))}
+        m_bytes = parts.numel() * 4.0 + b * hkv * gq * hd * 2
+        recs["merge"][name] = {
+            "shape": f"{TP_MODEL} bf16-output partials ({b}, {hkv}, {gq}, {hd + 2})",
+            "same_bits_calls": 20,
+            "ms": time_ms(merge, torch),
+            "plain_ms": time_ms(lambda: da.decode_attention_merge_plain(parts, bf16), torch),
+            "device_ms": window["merge"].get("device_ms"),
+            "device_launches_a_call": window["merge"].get("device_launches_a_call"),
+            **dict(zip(("bound_ms", "bound_by"),
+                       bound_ms(m_bytes, 4.0 * TP_MODEL * b * hkv * gq * (hd + 1))))}
+        for e in recs:
+            r = recs[e][name]
+            r["of_bound"] = r["bound_ms"] / r["ms"]
+            if r["device_ms"]:
+                r["of_bound_device"] = r["bound_ms"] / r["device_ms"]
+        del q, kb, vb, parts
+        log(f"decode_attention partial and merge at {name} {(b, s, hkv, gq, hd)}: ok; "
+            f"partial {recs['partial'][name]}, merge {recs['merge'][name]}")
+    common = {"route": "cuda", "source": "src/repro_torch/csrc/decode_attention.cu",
+              "replaces": "src/repro/kernels/decode_attention/decode_attention.py:67",
+              "library_ms": None, "library_call": None}
+    for e in recs:
+        head = recs[e]["lm"]
+        record[f"decode_attention_{e}"] = {
+            "name": f"decode_attention_{e}", **common, **head,
+            "max_abs_err": err[e], **{n: r for n, r in recs[e].items() if n != "lm"}}
+    record["decode_attention_merge"]["one_call_max_abs_err"] = err["one_call"]
+    record["decode_attention_merge"]["partial_merge_vs_one_call_max_abs_diff"] = \
+        err["partial_merge_vs_one_call"]
 
 
 def decode_attention_phases(torch, record: dict, device: dict):
@@ -1852,9 +2057,10 @@ def stencil_f32(v, weights, center, prev_ok=None, next_ok=None):
 
 
 def window_path(torch, hf, synth, queries: dict, profile_dir: str | None = None,
-                checks: dict | None = None, n: int = 2**27, groups: int = GROUPS):
+                checks: dict | None = None, n: int = WINDOW_ROWS,
+                groups: int = WINDOW_GROUPS):
     """The window path: Fig. 8b (bench_analytics.py:29-62) and the
-    partitioned windows (bench_analytics.py:64-76) at n = 2^27 rows; the
+    partitioned windows (bench_analytics.py:64-76) at n = WINDOW_ROWS; the
     largest difference of each float check goes into ``checks``."""
     run = query_runner(torch, hf, queries, profile_dir)
     checks = {} if checks is None else checks
@@ -2063,7 +2269,7 @@ def concat_aggregate_frame(hf, t):
 
 
 def sort_path(torch, hf, synth, queries: dict, profile_dir: str | None = None,
-              checks: dict | None = None, n: int = 2**27):
+              checks: dict | None = None, n: int = SORT_ROWS):
     """The sort path at P = 1: a global sort of Fig. 8a's table and its
     descending head, bench_validate.py's group-by -> join -> sort, the
     global rank kinds over Fig. 8b's series, an SMA after a filter (a
@@ -2697,10 +2903,10 @@ def segmentation_path(torch, hf, synth, queries: dict,
 
 # Fig. 8a join's shape (bench_relational.py:43) with tests/test_skew.py's
 # skew: SKEW_HOT of the probe rows on key 3
-SKEW_JOIN = (2**26, 2**22)
+SKEW_JOIN = (2**25, 2**21)      # cut from (2^26, 2^22) for the time limit
 SKEW_HOT = 0.35
-ZIPF_ROWS = 2**26                # cut from 2^27 for the time limit
-FIG8A_ROWS = 2**27
+ZIPF_ROWS = 2**25                # cut from 2^27, then 2^26, for the time limit
+FIG8A_ROWS = 2**26               # cut from 2^27 for the time limit
 
 
 def skew_tables(n_probe: int, n_dim: int, seed: int = 7):
@@ -3836,16 +4042,22 @@ def dp_rank(rank: int, world: int, port: int, out_dir: str, ckpt_dir: str) -> No
     rec |= {"resume_loss_live": live_loss, "resume_loss_restored": restored_loss,
             "step_collectives": counts}
     res["train"] = rec
+    # the tp_serve path in the same ranks, the training state freed first
+    del run, drv, state, fresh, fresh_model, again, step_fn, batch
+    torch.cuda.empty_cache()
+    res["tp_serve"] = tp_serve(torch, rank, dev)
+    log(f"tp_serve rank {rank}: {json.dumps(res['tp_serve'])}")
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
     dist.destroy_process_group()
 
 
-def dp_train_path(torch, queries: dict, checks: dict) -> dict:
+def dp_train_path(torch, queries: dict, checks: dict, runs: dict) -> dict:
     """The dp_train path: DP_WORLD processes on the one card, each running
     ``dp_rank``; prefix_sum and bucket_scatter (the token pipeline at P =
     DP_WORLD) must have launched in every rank, and the ranks must agree.
-    Returns the launch counts of the bf16 run summed over the ranks."""
+    Returns the launch counts of the bf16 run summed over the ranks; the
+    ranks' tp_serve records go to ``runs["tp_serve"]``."""
     import shutil
     import socket
     import tempfile
@@ -3895,7 +4107,266 @@ def dp_train_path(torch, queries: dict, checks: dict) -> dict:
     queries["dp_train"] = rec
     log(f"dp_train: {rec}")
     queries["dp_train_launches_by_rank"] = [r["launches"] for r in ranks]
+    runs["tp_serve"] = [r["tp_serve"] for r in ranks]
     return {k: sum(r["launches"][k] for r in ranks) for k in r0["launches"]}
+
+
+def tp_serve_path(torch, queries: dict, checks: dict, runs: dict) -> dict:
+    """The tp_serve path's records from dp_train's ranks (``tp_serve``, run
+    there with the counters zeroed just before its bf16 runs and read just
+    after): both ranks fed the same tokens, its checks.  Returns its
+    launches summed over the ranks."""
+    ranks = runs["tp_serve"]
+    for k in ("lm", "moe"):
+        assert ranks[0][k]["tokens_digest"] == ranks[1][k]["tokens_digest"], k
+        assert ranks[0][k]["step_collectives"] == ranks[1][k]["step_collectives"], k
+    for r in ranks:
+        for k, v in r["hold"].items():
+            if k.endswith("_rel"):
+                checks[f"tp_serve_{k}"] = v
+            else:
+                checks[f"tp_serve_{k}_tp_vs_one_rank"] = v["tp_vs_one_rank_max_abs"]
+                checks[f"tp_serve_{k}_one_rank_vs_f32"] = v["one_rank_bf16_vs_f32_max_abs"]
+    queries["tp_serve"] = {
+        "by_rank": ranks,
+        "transport": f"gloo over tcp://localhost, {TP_MODEL} ranks on one card "
+                     f"(host staging): walls are gloo's, not NCCL's"}
+    log(f"tp_serve: {json.dumps(queries['tp_serve'])}")
+    return {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+
+
+# The tp_serve path, run in dp_train's two rank processes on a (data 1,
+# model TP_MODEL) mesh over the same world (gloo, one card): qwen3-0.6b at
+# full width and depth and deepseek-moe-16b at full width and TP_MOE_LAYERS
+# layers (the first dense layer and 3 MoE layers: depth cut for time),
+# expert-parallel, bf16, through launch/steps.py.  Each prefills its
+# requests into a LM_MID-row cache (LM_MID / TP_MODEL rows a rank) and
+# decodes greedily on: the decode continues the prefilled requests.  Then
+# one decode step of each under torch.profiler; then the holds: at 2
+# layers in float32 (TP_HOLD) the mesh's logits against one rank's without
+# a mesh, and at the path's size in bf16 the largest logit deviation from
+# one rank's bf16 run against one rank's bf16-against-float32 deviation on
+# the same prompts and tokens (rank 0 the lm's, rank 1 the moe's, at once).
+TP_LM = (8, 2048, 32)            # requests, prompt tokens, greedy new tokens
+TP_MOE = (4, 2048, 16)
+TP_MOE_LAYERS = 4
+TP_HOLD = (2, 160, 4, 256)       # requests, prompt tokens, decode steps, max_seq
+TP_KERNELS = {"decode_attention_partial": "decode_attention_split",
+              "decode_attention_merge": "decode_attention_combine",
+              "bucket_scatter": BUCKET_KERNEL}
+
+
+def tp_cfgs() -> dict:
+    from repro_torch.configs import get_config
+    return {"lm": get_config(LM_ARCH),
+            "moe": get_config(MOE_ARCH).replace(n_layers=TP_MOE_LAYERS, moe_impl="ep")}
+
+
+def tp_expected_launches() -> dict:
+    """Each rank's launches on the path: a partial and a merge a layer and
+    decode step (the cache is sharded along S: no whole decode_attention);
+    a bucket_scatter a MoE layer in the prefill and in each decode step."""
+    cfgs = tp_cfgs()
+    lm_n, moe_n = cfgs["lm"].n_layers * TP_LM[2], cfgs["moe"].n_layers * TP_MOE[2]
+    moe = cfgs["moe"]
+    return {"decode_attention_partial": lm_n + moe_n,
+            "decode_attention_merge": lm_n + moe_n,
+            "bucket_scatter": (moe.n_layers - moe.first_dense_layers) * (1 + TP_MOE[2]),
+            "decode_attention": 0}
+
+
+def tp_decode_layout(cfg, mesh, b: int, max_seq: int) -> dict:
+    """The collectives of one decode step on ``mesh`` by the rules (as
+    tests/test_torch_sharding.py counts them): an all-reduce (float32, B x
+    d) for the vocabulary-parallel embedding, each row-parallel wo and
+    SwiGLU and each MoE block; a layer's all-gather of the step's sharded
+    q/k/v columns (B x their columns, compute dtype) and, with S sharded,
+    of the partials (TP_MODEL x B x Hkv x G x (hd + 2) float32)."""
+    from repro_torch.models import lm, sharding
+    shapes = lm.param_shapes(cfg)
+    at = lambda path: functools.reduce(lambda t, k: t[k], path, shapes)  # noqa: E731
+    cut = lambda path: any(e is not None for e in  # noqa: E731
+                           sharding.param_spec_for(mesh, path, at(path)))
+    m, d, hd = mesh.shape["model"], cfg.d_model, cfg.hd
+    h, hkv = cfg.n_heads, cfg.n_kv_heads
+    item = lm._dt(cfg).itemsize
+    reduces, gathers, gbytes = int(cut(("embed",))), 0, 0
+    for name, n in lm.stacks(cfg).items():
+        ffn = ("moe", "experts", "w_gate") if name == "layers" and cfg.family == "moe" \
+            else ("mlp", "w_down")
+        reduces += n * (int(cut((name, "attn", "wo"))) + int(cut((name,) + ffn)))
+        cols = [c for w, c in (("wq", h * hd), ("wk", hkv * hd), ("wv", hkv * hd))
+                if cut((name, "attn", w))]
+        seq = max_seq % m == 0
+        gathers += n * (bool(cols) + seq)
+        gbytes += n * (item * b * sum(cols) + seq * 4 * m * b * hkv * (h // hkv) * (hd + 2))
+    return {"all_reduce_sum": {"calls": reduces, "bytes": reduces * 4 * b * d},
+            "all_gather": {"calls": gathers, "bytes": gbytes}}
+
+
+def tp_generate(torch, cfg, model, mesh, prompt, new: int, max_seq: int,
+                tokens=None, counted: bool = False) -> dict:
+    """Prefill ``prompt`` into a ``max_seq``-row cache and decode ``new``
+    steps through launch/steps.py on ``mesh`` (None: one rank, no mesh):
+    greedy (``lm.greedy`` across the vocabulary blocks), or fed ``tokens``
+    (new, B).  Returns the logits of every step gathered over the
+    vocabulary (new + 1, B, V) float32, the tokens fed, the prefill's
+    seconds, each step's ms (CUDA events, the pick included), with
+    ``counted`` the collectives of the first decode step, and the live
+    model, cache, step and next token for one more step."""
+    from repro_torch.launch import steps
+    from repro_torch.models import lm, sharding
+    tp = sharding.model_group(mesh)
+
+    def whole(lg):
+        if tp is not None and lg.shape[-1] != cfg.vocab:
+            lg = tp.all_gather(lg, dim=-1)
+        return lg.float()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = steps.make_prefill_step(cfg, max_seq, mesh=mesh)(
+        model, {"tokens": prompt})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    out, fed, counts = [whole(logits)], [], None
+    step = steps.make_decode_step(cfg, mesh=mesh)
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(new + 1)]
+    for i in range(new):
+        marks[i].record()
+        tok = (lm.greedy(logits, cfg, mesh) if tokens is None else tokens[i]
+               )[:, None].to(torch.int32)
+        fed.append(tok[:, 0])
+        if counted and i == 0:
+            mesh.reset_counts()
+        logits, caches = step(model, tok, caches)
+        if counted and i == 0:
+            counts = {k: dict(v) for k, v in mesh.counts.items()}
+        out.append(whole(logits))
+    marks[new].record()
+    torch.cuda.synchronize()
+    step_ms = [marks[i].elapsed_time(marks[i + 1]) for i in range(new)]
+    nxt = lm.greedy(logits, cfg, mesh)[:, None].to(torch.int32)
+    return {"logits": torch.stack(out), "tokens": torch.stack(fed) if fed else None,
+            "prefill_s": prefill_s, "step_ms": step_ms, "counts": counts,
+            "live": (model, caches, step, nxt)}
+
+
+def tp_serve(torch, rank: int, dev) -> dict:
+    """The tp_serve path in this rank (see TP_*): the launches of its bf16
+    runs (counters zeroed just before), the kernels one profiled decode
+    step of each model launched, and the holds."""
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import lm
+
+    mesh = M.make_local_mesh(model_axis=TP_MODEL)
+    assert dict(mesh.shape) == {"data": 1, "model": TP_MODEL}, mesh
+    cfgs = tp_cfgs()
+    shapes = {"lm": TP_LM, "moe": TP_MOE}
+    t_path = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    models = {k: lm.init_params(c, seed=5, device=dev, mesh=mesh) for k, c in cfgs.items()}
+    prompts = {k: torch.from_numpy(np.random.default_rng(30 + i).integers(
+        0, cfgs[k].vocab, shapes[k][:2]).astype(np.int32)).to(dev)
+        for i, k in enumerate(cfgs)}
+    torch.distributed.barrier()
+    cuda.reset_launches()
+    runs = {k: tp_generate(torch, cfgs[k], models[k], mesh, prompts[k], shapes[k][2],
+                           LM_MID, counted=True) for k in cfgs}
+    torch.cuda.synchronize()
+    launches = dict(cuda.launches)
+    path_s = time.perf_counter() - t_path
+    peak = torch.cuda.max_memory_allocated()
+
+    # one more decode step of each model in one profiler window: the
+    # kernels the card ran (this process's first profiler session)
+    def steps_once():
+        for r in runs.values():
+            model, caches, step, tok = r["live"]
+            step(model, tok, caches)
+    seen = {}
+    for _ in range(3):                 # a window with no device event: again
+        _, seen, _ = traced(torch, steps_once)
+        if seen:
+            break
+    profiled = {name: sum(c for k, c in seen.items() if kern in k)
+                for name, kern in TP_KERNELS.items()}
+    assert all(profiled.values()), f"tp_serve rank {rank}: the profile saw {seen}"
+    want = tp_expected_launches()
+    got = {k: launches[k] for k in want}
+    assert got == want, f"tp_serve rank {rank}: launches {got}, expected {want}"
+    rec = {"rank": rank, "mesh": dict(mesh.shape), "path_s": round(path_s, 3),
+           "peak_gib": round(peak / 2**30, 3), "launches": launches,
+           "profiled_kernels": profiled,
+           "profiled_names": sorted(k for k in seen if any(
+               kern in k for kern in TP_KERNELS.values()))}
+    for k, r in runs.items():
+        b, s, new = shapes[k]
+        layout = tp_decode_layout(cfgs[k], mesh, b, LM_MID)
+        assert r["counts"] == layout, (k, r["counts"], layout)
+        assert bool(torch.isfinite(r["logits"]).all()), f"tp_serve {k}: not finite"
+        rec[k] = {"model": cfgs[k].name, "layers": cfgs[k].n_layers,
+                  "requests": b, "prompt_tokens": s, "new_tokens": new,
+                  "max_seq": LM_MID, "rows_a_rank": LM_MID // TP_MODEL,
+                  "prefill_s": round(r["prefill_s"], 4),
+                  "step_median_ms": round(float(np.median(r["step_ms"])), 3),
+                  "step_min_ms": round(float(np.min(r["step_ms"])), 3),
+                  "step_max_ms": round(float(np.max(r["step_ms"])), 3),
+                  "step_collectives": r["counts"],
+                  "tokens_digest": digest(r["tokens"].cpu().numpy())}
+    rec["hold"] = tp_holds(torch, rank, mesh, dev, cfgs, runs, prompts)
+    rec["hold_s"] = round(time.perf_counter() - t_path - path_s, 3)
+    return rec
+
+
+def tp_holds(torch, rank: int, mesh, dev, cfgs: dict, runs: dict, prompts: dict) -> dict:
+    """(a) float32 at 2 layers (TP_HOLD), both models: the mesh's prefill
+    and decode logits against one rank's without a mesh on the same
+    weights and tokens, within 1e-4 of the largest |logit| (TF32 off; the
+    row-parallel sums add in another order); (b) bf16 at the path's size:
+    rank 0 runs the lm's one-rank bf16 and float32 steps, rank 1 the moe's,
+    fed the path's tokens; the mesh's largest logit deviation from one
+    rank's bf16 must not exceed one rank's bf16-against-float32 one."""
+    import dataclasses
+
+    from repro_torch.models import lm
+    out = {}
+    b, s, new, max_seq = TP_HOLD
+    for k, cfg in cfgs.items():
+        c32 = cfg.replace(n_layers=2, param_dtype="float32", compute_dtype="float32")
+        prompt = torch.from_numpy(np.random.default_rng(50).integers(
+            0, cfg.vocab, (b, s)).astype(np.int32)).to(dev)
+        tp = tp_generate(torch, c32, lm.init_params(c32, seed=6, device=dev, mesh=mesh),
+                         mesh, prompt, new, max_seq)
+        one = tp_generate(torch, c32, lm.init_params(c32, seed=6, device=dev), None,
+                          prompt, new, max_seq, tokens=tp["tokens"])
+        rel = float((tp["logits"] - one["logits"]).abs().max()
+                    / one["logits"].abs().max())
+        assert rel <= 1e-4, f"tp_serve {k} float32 2-layer hold: {rel}"
+        out[f"{k}_f32_2l_rel"] = rel
+        del tp, one
+        torch.cuda.empty_cache()
+    # (b): each rank one model's one-rank runs, at once
+    k = ("lm", "moe")[rank % 2]
+    cfg, run = cfgs[k], runs[k]
+    tokens = run["tokens"]
+    full = lm.init_params(cfg, seed=5, device=dev)
+    one16 = tp_generate(torch, cfg, full, None, prompts[k], len(tokens), LM_MID,
+                        tokens=tokens)["logits"]
+    c32 = dataclasses.replace(cfg, compute_dtype="float32")
+    one32 = tp_generate(torch, c32, full, None, prompts[k], len(tokens), LM_MID,
+                        tokens=tokens)["logits"]
+    dev_tp = float((run["logits"] - one16).abs().max())
+    gap = float((one16 - one32).abs().max())
+    out[f"{k}_bf16"] = {"tp_vs_one_rank_max_abs": dev_tp,
+                        "one_rank_bf16_vs_f32_max_abs": gap,
+                        "positions": int(one16.shape[0] * one16.shape[1])}
+    assert dev_tp <= gap, f"tp_serve {k} bf16: {dev_tp} from one rank, gap {gap}"
+    del full, one16, one32
+    torch.cuda.empty_cache()
+    return out
 
 
 def cache_indexes(caches: dict):
@@ -5067,6 +5538,7 @@ def main(argv=None) -> int:
     window_kernel_phases(torch, sizes, record)
     t0 = time.perf_counter()
     decode_attention_phases(torch, record, da_device)
+    decode_attention_sharded_phases(torch, record, da_device)
     log(f"decode_attention phases: {da_s:.1f} s of device-time windows, "
         f"{time.perf_counter() - t0:.1f} s of holds and timing")
     for name, seen in profiled.items():
@@ -5120,8 +5592,13 @@ def main(argv=None) -> int:
                             dict.fromkeys(("bucket_scatter", "prefix_sum"))),
             # counted in its ranks (each must launch both in its token
             # pipeline at P = 2) and summed over them
-            "dp_train": (lambda: dp_train_path(torch, queries, checks),
+            "dp_train": (lambda: dp_train_path(torch, queries, checks, lm_runs),
                          dict.fromkeys(("prefix_sum", "bucket_scatter"))),
+            # run in dp_train's ranks (counted there, summed over them): a
+            # partial and a merge a layer and decode step, a bucket_scatter
+            # a MoE layer in the prefill and each decode step
+            "tp_serve": (lambda: tp_serve_path(torch, queries, checks, lm_runs),
+                         {k: TP_MODEL * n for k, n in tp_expected_launches().items()}),
             "lm": (lambda: lm_path(torch, queries, lm_runs),
                    {"decode_attention": get_config(LM_ARCH).n_layers * LM_NEW}),
             # the pipeline's filter, cumsum and aggregate; the train steps

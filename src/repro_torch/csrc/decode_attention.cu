@@ -50,12 +50,24 @@
 //     head for the whole warp, so the numerators need no per-lane
 //     rescaling;
 //   * at the end the warps merge in order through shared memory; with one
-//     split the block writes the output, else its partial (max, sum and the
-//     float32 numerator of each query head) to a float32 workspace that
-//     the wrapper allocates, and a second launch folds the splits of each
-//     (b, kv head, query head) in split order with the log-sum-exp merge.
-//     Every sum has a fixed order and nothing is atomic, so the same inputs
-//     give the same bits on every call;
+//     split the block writes the output, else its partial (the float32
+//     numerator of each query head, then its max and sum: hd + 2 values a
+//     row) to a float32 workspace that the wrapper allocates, and a second
+//     launch folds the splits of each (b, kv head, query head) in split
+//     order with the log-sum-exp merge.  Every sum has a fixed order and
+//     nothing is atomic, so the same inputs give the same bits on every
+//     call;
+//   * two more entries serve a cache sharded along S over ranks (the
+//     reference's cache_spec_for; GSPMD's flash-decoding combine across
+//     devices): decode_attention_partial writes a rank's block's partial,
+//     (B, Hkv, G, hd + 2) float32, whatever the split plan (with one split
+//     the split kernel writes it; with more the combine folds the splits
+//     into it without dividing), and decode_attention_merge folds M such
+//     partials, gathered in rank order as (M, B, Hkv, G, hd + 2), into the
+//     output with the same combine kernel, in index order.  A block with
+//     no row below its length contributes max -1e30 and sum 0, which
+//     weighs 0 against any real max (exp(-1e30 - m) underflows) and never
+//     gives NaN;
 //   * any hd that is a multiple of VEC up to 128 (zamba2's 112, 96, 40)
 //     takes the layout of width HDP = 128, the lanes past hd idle; hd 32,
 //     64 and 128 are their own HDP (FULL).  In bfloat16 one instance a
@@ -220,9 +232,9 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 // group's query heads, sizes the CUDA-core path's registers; the
 // tensor-core path only masks with it and takes g_arg instead (one
 // instance for every G).  Block
-// bh * splits + split; with splits == 1 it writes out, else its partial
-// to ws: (max, sum) pairs of the B * Hkv * splits * G parts, then their
-// hd-wide numerators.
+// bh * splits + split; with splits == 1 and not `partial` it writes out,
+// else its partial to ws: the B * Hkv * splits * G parts' rows of hd + 2
+// floats, the numerator, then the max and the sum.
 template <typename T, int HDP, int G, bool FULL>
 __global__ void __launch_bounds__(THREADS)
 decode_attention_split(const __grid_constant__ CUtensorMap kmap,
@@ -231,7 +243,7 @@ decode_attention_split(const __grid_constant__ CUtensorMap kmap,
                        const T* __restrict__ v, const int* __restrict__ length,
                        T* __restrict__ out, float* __restrict__ ws, int S,
                        int Hkv, int hd_arg, int g_arg, int splits,
-                       int rows_per_split, float scale) {
+                       int rows_per_split, float scale, int partial) {
   using L = Layout<T, HDP>;
   constexpr int VEC = 16 / sizeof(T);    // values per lane per row
   constexpr int LPR = HDP / VEC;         // lanes per row
@@ -568,7 +580,6 @@ decode_attention_split(const __grid_constant__ CUtensorMap kmap,
   __syncthreads();
 
   // merge the warps in order; one output value per thread and step
-  const size_t parts = static_cast<size_t>(gridDim.x) * GQ;
   for (int i = threadIdx.x; i < GQ * HD; i += THREADS) {
     const int g = i / HD;
     const int d = i - g * HD;
@@ -582,66 +593,86 @@ decode_attention_split(const __grid_constant__ CUtensorMap kmap,
       den += sm_l[w * MAXG + g] * a;
       num += sm_acc[(w * GQ + g) * HDP + d] * a;
     }
-    if (splits == 1) {
+    if (splits == 1 && !partial) {
       store(out + (static_cast<size_t>(bh) * GQ + g) * HD + d,
             num / fmaxf(den, 1e-30f));
     } else {
-      const size_t part = static_cast<size_t>(blockIdx.x) * GQ + g;
-      ws[2 * parts + part * HD + d] = num;
+      float* row = ws + (static_cast<size_t>(blockIdx.x) * GQ + g) * (HD + 2);
+      row[d] = num;
       if (d == 0) {
-        ws[2 * part] = mm;
-        ws[2 * part + 1] = den;
+        row[HD] = mm;
+        row[HD + 1] = den;
       }
     }
   }
 }
 
-// Fold the splits of (b, kv head, query head) = (blockIdx.x, blockIdx.y)
-// in split order: warp 0 merges their maxima and sums (each lane the
-// splits lane, lane + 32, ... in order, then a fixed shuffle tree), then
-// each thread d < hd sums the numerators' column d with the splits'
-// weights exp(m - max) and writes the output value.
-template <typename T>
+// Fold the parts of (b, kv head, query head) = (blockIdx.x, blockIdx.y) in
+// index order: part sp of them is the row (bh * bh_stride + sp * sp_stride
+// + g) of hd + 2 floats in `parts` (a split's partial in the workspace:
+// bh_stride splits * G, sp_stride G; a rank's in the merge: bh_stride G,
+// sp_stride B * Hkv * G).  Warp 0 merges their maxima and sums (each lane
+// the parts lane, lane + 32, ... in order, then a fixed shuffle tree), then
+// each thread d < hd sums the numerators' column d with the parts' weights
+// exp(m - max) and writes the output value; with PARTIAL, the undivided
+// numerator, the max and the sum, a partial of its own, (B, Hkv, G, hd + 2).
+template <typename T, bool PARTIAL>
 __global__ void __launch_bounds__(128)
-decode_attention_combine(const float* __restrict__ ws, T* __restrict__ out,
-                         int splits, int HD) {
-  __shared__ float s_w[MAX_SPLITS];      // a split's max, then its weight
-  __shared__ float s_den;
+decode_attention_combine(const float* __restrict__ parts,
+                         typename std::conditional<PARTIAL, float, T>::type*
+                             __restrict__ out,
+                         int n, int HD, long long bh_stride,
+                         long long sp_stride) {
+  __shared__ float s_w[MAX_SPLITS];      // a part's max, then its weight
+  __shared__ float s_m, s_den;
   const int G = gridDim.y;
   const int bh = blockIdx.x;
   const int g = blockIdx.y;
-  const size_t parts = static_cast<size_t>(gridDim.x) * splits * G;
-  const size_t p0 = static_cast<size_t>(bh) * splits * G + g;   // split 0
+  const size_t W = static_cast<size_t>(HD) + 2;
+  const float* p0 = parts + (static_cast<size_t>(bh) * bh_stride + g) * W;
   if (threadIdx.x < 32) {
     const int lane = threadIdx.x;
     float mm = -1e30f;
-    for (int sp = lane; sp < splits; sp += 32) {
-      s_w[sp] = ws[2 * (p0 + static_cast<size_t>(sp) * G)];
+    for (int sp = lane; sp < n; sp += 32) {
+      s_w[sp] = p0[static_cast<size_t>(sp) * sp_stride * W + HD];
       mm = fmaxf(mm, s_w[sp]);
     }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1)
       mm = fmaxf(mm, __shfl_xor_sync(FULL_MASK, mm, o));
     float den = 0.0f;
-    for (int sp = lane; sp < splits; sp += 32) {
+    for (int sp = lane; sp < n; sp += 32) {
       const float a = expf(s_w[sp] - mm);
       s_w[sp] = a;
-      den += ws[2 * (p0 + static_cast<size_t>(sp) * G) + 1] * a;
+      den += p0[static_cast<size_t>(sp) * sp_stride * W + HD + 1] * a;
     }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) den += __shfl_xor_sync(FULL_MASK, den, o);
-    if (lane == 0) s_den = den;
+    if (lane == 0) {
+      s_m = mm;
+      s_den = den;
+    }
   }
   __syncthreads();
   const int d = threadIdx.x;
+  const size_t row = static_cast<size_t>(bh) * G + g;
   if (d < HD) {
-    const float* num_of = ws + 2 * parts + p0 * HD + d;
+    const float* num_of = p0 + d;
     float num = 0.0f;
 #pragma unroll 8
-    for (int sp = 0; sp < splits; ++sp)
-      num += num_of[static_cast<size_t>(sp) * G * HD] * s_w[sp];
-    store(out + (static_cast<size_t>(bh) * G + g) * HD + d,
-          num / fmaxf(s_den, 1e-30f));
+    for (int sp = 0; sp < n; ++sp)
+      num += num_of[static_cast<size_t>(sp) * sp_stride * W] * s_w[sp];
+    if constexpr (PARTIAL) {
+      out[row * W + d] = num;
+    } else {
+      store(out + row * HD + d, num / fmaxf(s_den, 1e-30f));
+    }
+  }
+  if constexpr (PARTIAL) {
+    if (d == 0) {
+      out[row * W + HD] = s_m;
+      out[row * W + HD + 1] = s_den;
+    }
   }
 }
 
@@ -724,10 +755,13 @@ cudaError_t cached_map(CUtensorMap* map, const void* base, int B, int S,
   return cudaSuccess;
 }
 
+// With `pout` (decode_attention_partial) the block's partial goes there:
+// written by the split kernel with one split, folded by the combine into it
+// with more.
 template <typename T, int HDP, int GT, bool FULL>
 cudaError_t launch(int G, const void* q, const void* k, const void* v,
-                   const void* length, void* out, void* ws, int B, int S,
-                   int Hkv, int HD, float scale, int splits, int rows,
+                   const void* length, void* out, void* ws, void* pout, int B,
+                   int S, int Hkv, int HD, float scale, int splits, int rows,
                    cudaStream_t s) {
   using L = Layout<T, HDP>;
   // above the default 48 KB a block must ask for its shared memory, once a
@@ -751,31 +785,40 @@ cudaError_t launch(int G, const void* q, const void* k, const void* v,
     if (e == cudaSuccess) e = cached_map<T, HDP>(&vmap, v, B, S, Hkv, HD);
     if (e != cudaSuccess) return e;
   }
+  const bool partial = pout != nullptr;
   decode_attention_split<T, HDP, GT, FULL>
       <<<B * Hkv * splits, THREADS, L::SMEM, s>>>(
           kmap, vmap, static_cast<const T*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v), static_cast<const int*>(length),
-          static_cast<T*>(out), static_cast<float*>(ws), S, Hkv, HD, G,
-          splits, rows, scale);
-  if (splits > 1)
-    decode_attention_combine<T><<<dim3(B * Hkv, G), 128, 0, s>>>(
-        static_cast<const float*>(ws), static_cast<T*>(out), splits, HD);
+          static_cast<T*>(out),
+          static_cast<float*>(partial && splits == 1 ? pout : ws), S, Hkv,
+          HD, G, splits, rows, scale, partial);
+  const dim3 grid(B * Hkv, G);
+  const long long bh_stride = static_cast<long long>(splits) * G;
+  if (splits > 1 && partial)
+    decode_attention_combine<T, true><<<grid, 128, 0, s>>>(
+        static_cast<const float*>(ws), static_cast<float*>(pout), splits, HD,
+        bh_stride, G);
+  else if (splits > 1)
+    decode_attention_combine<T, false><<<grid, 128, 0, s>>>(
+        static_cast<const float*>(ws), static_cast<T*>(out), splits, HD,
+        bh_stride, G);
   return cudaGetLastError();
 }
 
 template <typename T, int HDP, bool FULL>
 cudaError_t launch_g(int G, const void* q, const void* k, const void* v,
-                     const void* length, void* out, void* ws, int B, int S,
-                     int Hkv, int HD, float scale, int splits, int rows,
-                     cudaStream_t s) {
-#define DA_CASE(g)                                                         \
-  case g:                                                                  \
-    return launch<T, HDP, g, FULL>(G, q, k, v, length, out, ws, B, S, Hkv, \
-                                   HD, scale, splits, rows, s);
+                     const void* length, void* out, void* ws, void* pout,
+                     int B, int S, int Hkv, int HD, float scale, int splits,
+                     int rows, cudaStream_t s) {
+#define DA_CASE(g)                                                          \
+  case g:                                                                   \
+    return launch<T, HDP, g, FULL>(G, q, k, v, length, out, ws, pout, B, S, \
+                                   Hkv, HD, scale, splits, rows, s);
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {   // G only masks
     if (G < 1 || G > MAXG) return cudaErrorInvalidValue;
-    return launch<T, HDP, MAXG, FULL>(G, q, k, v, length, out, ws, B, S, Hkv,
-                                      HD, scale, splits, rows, s);
+    return launch<T, HDP, MAXG, FULL>(G, q, k, v, length, out, ws, pout, B, S,
+                                      Hkv, HD, scale, splits, rows, s);
   } else {
     switch (G) {
       DA_CASE(1) DA_CASE(2) DA_CASE(3) DA_CASE(4)
@@ -791,10 +834,11 @@ cudaError_t launch_g(int G, const void* q, const void* k, const void* v,
 template <typename T>
 cudaError_t launch_hd(int HD, int G, const void* q, const void* k,
                       const void* v, const void* length, void* out, void* ws,
-                      int B, int S, int Hkv, float scale, int splits, int rows,
-                      cudaStream_t s) {
+                      void* pout, int B, int S, int Hkv, float scale,
+                      int splits, int rows, cudaStream_t s) {
   constexpr int VEC = 16 / sizeof(T);
-#define DA_ARGS G, q, k, v, length, out, ws, B, S, Hkv, HD, scale, splits, rows, s
+#define DA_ARGS \
+  G, q, k, v, length, out, ws, pout, B, S, Hkv, HD, scale, splits, rows, s
   switch (HD) {
     case 32: return launch_g<T, 32, true>(DA_ARGS);
     case 64: return launch_g<T, 64, true>(DA_ARGS);
@@ -806,36 +850,89 @@ cudaError_t launch_hd(int HD, int G, const void* q, const void* k,
 #undef DA_ARGS
 }
 
+// The plan's checks, shared by the two entries over a cache: `splits`
+// blocks per (b, kv head), each over `rows_per_split` rows (a multiple of
+// TILE, 16, with splits * rows_per_split >= S > (splits - 1) *
+// rows_per_split, at most 512 splits), and with splits > 1 a workspace.
+bool plan_ok(int B, int S, int Hkv, int splits, int rows_per_split,
+             const void* ws) {
+  const long long blocks = static_cast<long long>(B) * Hkv * splits;
+  return splits >= 1 && rows_per_split >= TILE && rows_per_split % TILE == 0 &&
+         static_cast<long long>(splits) * rows_per_split >= S &&
+         static_cast<long long>(splits - 1) * rows_per_split < S &&
+         blocks <= INT_MAX && splits <= MAX_SPLITS &&
+         (splits == 1 || ws != nullptr);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Launch on `stream`: `splits` blocks per (b, kv head), each over
-// `rows_per_split` rows (a multiple of TILE, 16, with
-// splits * rows_per_split >= S > (splits - 1) * rows_per_split, at most 512
-// splits), and, with splits > 1, the combine over `ws`, float32 workspace
-// of B * Hkv * splits * G * (hd + 2) values.  Returns cudaGetLastError()
-// after the launches, or cudaErrorInvalidValue for a shape or plan the
-// kernel does not take (hd not a multiple of 16 bytes' values up to 128, G
-// outside [1, 8]).
+// Launch on `stream` the split kernel and, with splits > 1, the combine
+// over `ws`, float32 workspace of B * Hkv * splits * G * (hd + 2) values
+// (plan_ok's plan).  Returns cudaGetLastError() after the launches, or
+// cudaErrorInvalidValue for a shape or plan the kernel does not take (hd
+// not a multiple of 16 bytes' values up to 128, G outside [1, 8]).
 int decode_attention(const void* q, const void* k, const void* v,
                      const void* length, void* out, void* ws, int B, int S,
                      int Hkv, int G, int HD, int bf16, float scale, int splits,
                      int rows_per_split, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B * Hkv == 0) return 0;
-  const long long blocks = static_cast<long long>(B) * Hkv * splits;
-  if (splits < 1 || rows_per_split < TILE || rows_per_split % TILE ||
-      static_cast<long long>(splits) * rows_per_split < S ||
-      static_cast<long long>(splits - 1) * rows_per_split >= S ||
-      blocks > INT_MAX || splits > MAX_SPLITS || (splits > 1 && ws == nullptr))
+  if (!plan_ok(B, S, Hkv, splits, rows_per_split, ws))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t e =
-      bf16 ? launch_hd<__nv_bfloat16>(HD, G, q, k, v, length, out, ws, B, S,
-                                      Hkv, scale, splits, rows_per_split, s)
-           : launch_hd<float>(HD, G, q, k, v, length, out, ws, B, S, Hkv,
-                              scale, splits, rows_per_split, s);
+      bf16 ? launch_hd<__nv_bfloat16>(HD, G, q, k, v, length, out, ws, nullptr,
+                                      B, S, Hkv, scale, splits, rows_per_split,
+                                      s)
+           : launch_hd<float>(HD, G, q, k, v, length, out, ws, nullptr, B, S,
+                              Hkv, scale, splits, rows_per_split, s);
   return static_cast<int>(e);
+}
+
+// The same over one rank's block of a cache sharded along S (`length` the
+// rows of this block each batch row attends, 0 .. S), writing the block's
+// partial to `pout`, float32 (B, Hkv, G, hd + 2): the numerators, the max
+// and the sum of each query head.
+int decode_attention_partial(const void* q, const void* k, const void* v,
+                             const void* length, void* pout, void* ws, int B,
+                             int S, int Hkv, int G, int HD, int bf16,
+                             float scale, int splits, int rows_per_split,
+                             void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B * Hkv == 0) return 0;
+  if (!plan_ok(B, S, Hkv, splits, rows_per_split, ws) || pout == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e =
+      bf16 ? launch_hd<__nv_bfloat16>(HD, G, q, k, v, length, nullptr, ws,
+                                      pout, B, S, Hkv, scale, splits,
+                                      rows_per_split, s)
+           : launch_hd<float>(HD, G, q, k, v, length, nullptr, ws, pout, B, S,
+                              Hkv, scale, splits, rows_per_split, s);
+  return static_cast<int>(e);
+}
+
+// Fold M partials, (M, B * Hkv, G, hd + 2) float32 in rank order, into
+// `out` (B * Hkv, G, hd) of float32 or bfloat16, each (b, kv head, query
+// head) in index order by the combine kernel.
+int decode_attention_merge(const void* parts, void* out, int M, int BH, int G,
+                           int HD, int bf16, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (BH == 0) return 0;
+  if (M < 1 || M > MAX_SPLITS || BH < 0 || G < 1 || G > 65535 || HD < 1 ||
+      HD > 128)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(BH, G);
+  const long long sp_stride = static_cast<long long>(BH) * G;
+  if (bf16)
+    decode_attention_combine<__nv_bfloat16, false><<<grid, 128, 0, s>>>(
+        static_cast<const float*>(parts), static_cast<__nv_bfloat16*>(out), M,
+        HD, G, sp_stride);
+  else
+    decode_attention_combine<float, false><<<grid, 128, 0, s>>>(
+        static_cast<const float*>(parts), static_cast<float*>(out), M, HD, G,
+        sp_stride);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

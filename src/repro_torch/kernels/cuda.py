@@ -31,7 +31,8 @@ SOURCES = ("prefix_sum", "bucket_scatter", "segment_sums", "segment_scan",
 # registry names, one launch counter each
 KERNELS = ("prefix_sum", "bucket_scatter", "segment_sums", "segment_scan",
            "segment_rank", "stencil1d", "stencil1d_exact", "segment_stencil",
-           "decode_attention")
+           "decode_attention", "decode_attention_partial",
+           "decode_attention_merge")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -69,7 +70,13 @@ _SIGNATURES = {
                                       _F32, _INT, _VP)},
     "decode_attention": {"decode_attention": (_VP, _VP, _VP, _VP, _VP, _VP, _INT,
                                               _INT, _INT, _INT, _INT, _INT, _F32,
-                                              _INT, _INT, _VP)},
+                                              _INT, _INT, _VP),
+                         "decode_attention_partial": (_VP, _VP, _VP, _VP, _VP,
+                                                      _VP, _INT, _INT, _INT,
+                                                      _INT, _INT, _INT, _F32,
+                                                      _INT, _INT, _VP),
+                         "decode_attention_merge": (_VP, _VP, _INT, _INT, _INT,
+                                                    _INT, _INT, _VP)},
 }
 _LONG = ("prefix_sum_scratch_bytes", "segment_scan_scratch_bytes",
          "segment_rank_scratch_bytes", "bucket_scatter_scratch_bytes",

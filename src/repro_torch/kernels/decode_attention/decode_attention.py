@@ -24,7 +24,27 @@ enters P . V as three bf16 terms whose sum is within 2^-24 p of p, as close
 as float32 holds it (one bf16 rounding of P would miss the 2e-5 absolute
 tolerance where an output is near 0).  See the source's header.
 
-The plain version is the math of the reference's oracle
+  decode_attention_partial(q, k, v, length)
+      The same over one rank's block of a cache sharded along S (the
+      reference's ``cache_spec_for``), length (B,) int32 in [0, S]: the
+      block's float32 partial softmax (B, Hkv, G, hd + 2), the numerators
+      (the weighted sums of V's rows, undivided), then the max and the sum
+      of each query head's scores.  A block with no row below its length
+      gives max -1e30 (weight exp(-1e30 - m) = 0 against any real max) and
+      sum 0, never NaN.
+  decode_attention_merge(partials, dtype=torch.float32)
+      M partials (M, B, Hkv, G, hd + 2), in rank order, folded in index
+      order into the output (B, Hkv, G, hd) in ``dtype``.  Over the M blocks
+      of a cache, with each block's length clamp(length - r S_loc, 0,
+      S_loc), the composition is ``decode_attention`` over the whole S, up
+      to the order of float32 sums: GSPMD's flash-decoding combine
+      across devices (the reference's ``layers.py`` decode), done here by
+      hand.  On the card both run the same source's kernels: the split
+      kernel writes the partial whatever the split plan (with several
+      splits the combine folds them into it, undivided), and the combine
+      folds the M partials as it folds splits, so the bits repeat.
+
+The plain versions are the math of the reference's oracle
 ``ref.py::decode_attention_ref``.  The contract is 1 <= length <= S, which
 the decode path always meets (length = index + 1).  The registry hands CPU
 callers the plain version and CUDA callers the kernel, which raises on
@@ -106,20 +126,55 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhgs,bshd->bhgd", p, v.float()).to(q.dtype)
 
 
-# (shapes, dtypes, card) -> (the C function, its shape and plan arguments,
-# float32 workspace values or 0 without a split, whether B * Hkv == 0)
+def decode_attention_partial_plain(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor,
+                                   length: torch.Tensor) -> torch.Tensor:
+    """The plain partial: the masked float32 scores' max over the rows
+    below length (-1e30 where there is none), exp(s - max) on those rows
+    and 0 elsewhere (not the plain version's uniform weights over a fully
+    masked row), their sum, and the undivided P . V."""
+    hd = q.shape[-1]
+    s = torch.einsum("bhgd,bshd->bhgs", q.float(), k.float()) / math.sqrt(hd)
+    pos = torch.arange(k.shape[1], device=k.device)
+    mask = pos[None, None, None, :] < length.to(k.device)[:, None, None, None]
+    s = torch.where(mask, s, -1e30)
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    num = torch.einsum("bhgs,bshd->bhgd", p, v.float())
+    return torch.cat([num, m, p.sum(-1, keepdim=True)], dim=-1)
+
+
+def decode_attention_merge_plain(partials: torch.Tensor,
+                                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The plain merge: the log-sum-exp fold of the partials, in index
+    order."""
+    m = partials[..., -2].amax(0)
+    num = torch.zeros_like(partials[0, ..., :-2])
+    den = torch.zeros_like(m)
+    for part in partials:
+        w = torch.exp(part[..., -2] - m)
+        num = num + part[..., :-2] * w[..., None]
+        den = den + part[..., -1] * w
+    return (num / torch.clamp(den, min=1e-30)[..., None]).to(dtype)
+
+
+# (shapes, dtypes, card, entry) -> (the C function, its shape and plan
+# arguments, float32 workspace values or 0 without a split, whether B * Hkv
+# == 0)
 _PLANS: dict = {}
 
 
-def _checked_plan(q, k, v, length, key) -> tuple:
+def _checked_plan(q, k, v, length, key, partial: bool) -> tuple:
     """Every check, in the order the refusals are pinned (a call whose
     shapes have a plan comes here only to raise); then the plan, kept under
-    ``key``."""
+    ``key``: ``decode_attention``'s, or with ``partial``
+    ``decode_attention_partial``'s."""
+    name = "decode_attention_partial" if partial else "decode_attention"
     dtypes = (torch.float32, torch.bfloat16)
-    cuda.require("decode_attention", q, dtypes, "q", ndim=4)
-    cuda.require("decode_attention", k, (q.dtype,), "k", ndim=4)
-    cuda.require("decode_attention", v, (q.dtype,), "v", ndim=4)
-    cuda.require("decode_attention", length, (torch.int32,), "length")
+    cuda.require(name, q, dtypes, "q", ndim=4)
+    cuda.require(name, k, (q.dtype,), "k", ndim=4)
+    cuda.require(name, v, (q.dtype,), "v", ndim=4)
+    cuda.require(name, length, (torch.int32,), "length")
     b, hkv, g, hd = q.shape
     s = k.shape[1]
     if tuple(k.shape) != (b, s, hkv, hd) or v.shape != k.shape:
@@ -141,29 +196,29 @@ def _checked_plan(q, k, v, length, key) -> tuple:
     args = (b, s, hkv, g, hd, int(q.dtype == torch.bfloat16),
             1.0 / math.sqrt(hd), splits, rows)
     ws = b * hkv * splits * g * (hd + 2) if splits > 1 else 0
-    fn = None if empty else cuda.load("decode_attention").decode_attention
+    fn = None if empty else getattr(cuda.load("decode_attention"), name)
     plan = _PLANS[key] = (fn, args, ws, empty)
     return plan
 
 
-def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          length: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel: float32 or bfloat16 q, k, v of one dtype,
-    int32 lengths, all contiguous on the card."""
+def _launch(q, k, v, length, partial: bool) -> torch.Tensor:
+    """One call of ``decode_attention`` or, with ``partial``,
+    ``decode_attention_partial`` on the card."""
+    name = "decode_attention_partial" if partial else "decode_attention"
     key = (q.shape, k.shape, v.shape, length.shape, q.dtype, k.dtype, v.dtype,
-           length.dtype, q.get_device())
+           length.dtype, q.get_device(), partial)
     plan = _PLANS.get(key)
     if plan is None or not (
             k.is_cuda and v.is_cuda and length.is_cuda and q.is_contiguous()
             and k.is_contiguous() and v.is_contiguous()
             and length.is_contiguous()):
-        plan = _checked_plan(q, k, v, length, key)
+        plan = _checked_plan(q, k, v, length, key, partial)
     fn, args, ws_values, empty = plan
     qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()
     if (qp | kp | vp) & 15:
-        raise ValueError("decode_attention: q, k and v must be 16-byte "
-                         "aligned")
-    out = torch.empty_like(q)
+        raise ValueError(f"{name}: q, k and v must be 16-byte aligned")
+    out = (q.new_empty((*q.shape[:-1], q.shape[-1] + 2), dtype=torch.float32)
+           if partial else torch.empty_like(q))
     if empty:
         return out
     ws = q.new_empty(ws_values, dtype=torch.float32) if ws_values else None
@@ -171,7 +226,46 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream = torch._C._cuda_getCurrentRawStream(q.get_device())
     cuda.check(fn(
         qp, kp, vp, length.data_ptr(), out.data_ptr(),
-        None if ws is None else ws.data_ptr(), *args, stream),
-        "decode_attention")
-    cuda.launches["decode_attention"] += 1
+        None if ws is None else ws.data_ptr(), *args, stream), name)
+    cuda.launches[name] += 1
+    return out
+
+
+def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          length: torch.Tensor) -> torch.Tensor:
+    """Launch the CUDA kernel: float32 or bfloat16 q, k, v of one dtype,
+    int32 lengths, all contiguous on the card."""
+    return _launch(q, k, v, length, partial=False)
+
+
+def decode_attention_partial_cuda(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor,
+                                  length: torch.Tensor) -> torch.Tensor:
+    """Launch the CUDA kernel for a block's partial: the inputs as
+    ``decode_attention_cuda``'s, length in [0, S]."""
+    return _launch(q, k, v, length, partial=True)
+
+
+def decode_attention_merge_cuda(partials: torch.Tensor,
+                                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Launch the combine kernel over M partials, (M, B, Hkv, G, hd + 2)
+    float32 contiguous on the card, into a (B, Hkv, G, hd) output of
+    ``dtype`` (float32 or bfloat16)."""
+    name = "decode_attention_merge"
+    cuda.require(name, partials, (torch.float32,), "partials", ndim=5)
+    m, b, hkv, g, w = partials.shape
+    hd = w - 2
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: dtype {dtype} not float32 or bfloat16")
+    if not (1 <= m <= MAX_SPLITS and 0 < hd <= MAX_HEAD_DIM and g >= 1):
+        raise ValueError(f"{name}: {m} partials (1 .. {MAX_SPLITS}) of hd "
+                         f"{hd} (1 .. {MAX_HEAD_DIM}) and G {g}")
+    out = partials.new_empty((b, hkv, g, hd), dtype=dtype)
+    if b * hkv == 0:
+        return out
+    stream = torch._C._cuda_getCurrentRawStream(partials.get_device())
+    cuda.check(cuda.load("decode_attention").decode_attention_merge(
+        partials.data_ptr(), out.data_ptr(), m, b * hkv, g, hd,
+        int(dtype == torch.bfloat16), stream), name)
+    cuda.launches[name] += 1
     return out

@@ -43,6 +43,16 @@ the window functions are registered here, and the LM decode path's
                                         hd), rows >= length (B,) int32
                                         masked; float32 softmax, output in
                                         q's dtype (float32 / bfloat16)
+  decode_attention_partial(q, k, v, length)
+                                        one block of an S-sharded cache:
+                                        (B, Hkv, G, hd + 2) float32, the
+                                        numerators, max and sum; rows >=
+                                        length (B,) in [0, S] masked, an
+                                        empty block max -1e30 and sum 0
+  decode_attention_merge(partials, dtype=float32)
+                                        (M, B, Hkv, G, hd + 2) partials
+                                        folded in index order into (B, Hkv,
+                                        G, hd) of dtype
 """
 from __future__ import annotations
 
@@ -142,3 +152,7 @@ register("segment_stencil", plain=_st.segment_stencil_plain,
          kernel=_st.segment_stencil_cuda)
 register("decode_attention", plain=_da.decode_attention_plain,
          kernel=_da.decode_attention_cuda)
+register("decode_attention_partial", plain=_da.decode_attention_partial_plain,
+         kernel=_da.decode_attention_partial_cuda)
+register("decode_attention_merge", plain=_da.decode_attention_merge_plain,
+         kernel=_da.decode_attention_merge_cuda)

@@ -7,7 +7,12 @@ read (``models/sharding.py``, ``optim/adamw.py::zero1_spec``), so a mesh
 made by ``Mesh(shape)`` alone, with no process group, serves them.  A mesh
 over live ranks (``make_local_mesh``, ``make_production_mesh``) also holds
 this rank's coordinate on every axis and a ``Group`` for each axis and for
-the data axes together (``dp``), whose collectives it counts.
+the data axes together (``dp``), whose collectives it counts: the data
+group's for data-parallel training (``optim/adamw.py``), the model group's
+for tensor- and expert-parallel serving (``models/layers.py``,
+``models/moe.py``, ``models/lm.py``: all-reduces of row-parallel sums,
+all-gathers of a decode step's heads and partial softmaxes, the prefill's
+heads-to-sequence all-to-all of K and V).
 
 Ranks are laid out row-major over the axes, as the reference reshapes
 ``jax.devices()``: rank = (pod_i · data + data_i) · model + model_i, and a
@@ -116,6 +121,20 @@ class Group:
         self._count("reduce_scatter", x)
         dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM, group=self.pg)
         return out.movedim(0, dim)
+
+    def all_to_all(self, t: torch.Tensor, send: list[int],
+                   recv: list[int]) -> torch.Tensor:
+        """Rows ``send[j]`` of ``t`` (along dim 0, in member order) to member
+        j; the rows received, ``recv[i]`` from member i, concatenated in
+        member order: a new tensor.  Counted by the bytes of ``t``."""
+        if self.size == 1:
+            return t
+        x = t.contiguous()
+        out = x.new_empty((sum(recv), *x.shape[1:]))
+        self._count("all_to_all", x)
+        dist.all_to_all_single(out, x, output_split_sizes=list(recv),
+                               input_split_sizes=list(send), group=self.pg)
+        return out
 
     def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
         """Member ``src``'s ``t`` on every member, in place."""

@@ -12,8 +12,13 @@ On a mesh (``launch/mesh.py``) the train step is data-parallel over its
 data axes: each rank takes its rows of the global batch, computes its
 share of the global loss (``lm.loss_fn(group=)``), and the gradients are
 summed over the ranks by ``adamw.update(mesh=)``, by ZeRO-1 or plainly as
-the state is laid out.  A model axis over 1 raises (ROADMAP.md §1 item
-11.7).
+the state is laid out.  The serving steps run the dense and moe families
+on a (data, model) mesh: each rank takes its rows of the global batch and
+holds its blocks of the parameters and the cache, tensor- and
+expert-parallel on "model" (``models/lm.py``), the logits its (B, V/M)
+block (``lm.greedy`` picks across them).  Training on a model axis raises
+(ROADMAP.md §1 item 11.7b), and so does serving the ssm, hybrid, vlm and
+encdec families on one (item 11.7c).
 """
 from __future__ import annotations
 
@@ -130,8 +135,8 @@ def make_train_step(cfg: ModelConfig, ocfg: OptConfig, n_micro: int = 1,
     order of float32 sums."""
     if mesh is not None and mesh.shape.get("model", 1) > 1:
         raise NotImplementedError(
-            "a model axis over 1 (tensor parallelism) is not ported yet: "
-            "ROADMAP.md §1 item 11.7")
+            "training on a model axis over 1 (tensor parallelism) is not "
+            "ported yet: ROADMAP.md §1 item 11.7b")
     dp = mesh.dp if mesh is not None and mesh.dp.size > 1 else None
     loss_fn = make_loss_fn(cfg, group=dp)
 
@@ -182,12 +187,23 @@ def _micro(key: str, v, n: int, i: int):
     return v.reshape(n, v.shape[0] // n, *v.shape[1:])[i]
 
 
-def make_prefill_step(cfg: ModelConfig, max_seq: int):
+def _rows(mesh, key: str, v):
+    """This rank's rows of the global batch entry ``v`` (``batch_spec``)."""
+    if mesh is None or v is None:
+        return v
+    return sharding.shard(v, sharding.batch_spec(mesh, key, tuple(v.shape)), mesh)
+
+
+def make_prefill_step(cfg: ModelConfig, max_seq: int, mesh=None):
     """(params, batch) -> (last_logits, caches): a fresh ``max_seq`` cache on
     the inputs' device, filled with the prompts: ``batch["tokens"]`` (B, S);
     the vlm family's "inputs_embeds" (B, S, d) and "positions" (3, B, S);
-    the encdec family's "frames" (B, F, d) and prompt "tokens"."""
+    the encdec family's "frames" (B, F, d) and prompt "tokens".  On a
+    ``mesh`` (dense and moe on a model axis) params are this rank's blocks,
+    the batch is global, and the step returns this rank's blocks of the
+    logits and of the cache."""
     lm.require_ported(cfg)
+    lm.require_servable(cfg, mesh)
     if cfg.family == "encdec":
         def prefill(params, batch):
             return whisper.prefill(params, batch["frames"], batch["tokens"],
@@ -197,30 +213,37 @@ def make_prefill_step(cfg: ModelConfig, max_seq: int):
     def prefill(params, batch):
         tokens, embeds = batch.get("tokens"), batch.get("inputs_embeds")
         first = tokens if tokens is not None else embeds
-        caches = lm.init_cache(cfg, first.shape[0], max_seq, device=first.device)
-        logits, caches, _ = lm.forward(params, tokens, cfg, caches=caches,
-                                       positions=batch.get("positions"),
-                                       inputs_embeds=embeds, q_offset=0)
+        caches = lm.init_cache(cfg, first.shape[0], max_seq, device=first.device,
+                               mesh=mesh)
+        logits, caches, _ = lm.forward(
+            params, _rows(mesh, "tokens", tokens), cfg, caches=caches,
+            positions=_rows(mesh, "positions", batch.get("positions")),
+            inputs_embeds=_rows(mesh, "inputs_embeds", embeds), q_offset=0,
+            mesh=mesh)
         return logits[:, -1], caches
     return prefill
 
 
-def make_decode_step(cfg: ModelConfig):
+def make_decode_step(cfg: ModelConfig, mesh=None):
     """(params, token (B, 1), caches) -> (logits (B, V), caches).  With
     M-RoPE the step's position is the reference's: the cache index on all
-    three streams (ROADMAP.md §3)."""
+    three streams (ROADMAP.md §3).  On a ``mesh`` the token is the global
+    batch's, the logits this rank's block (``make_prefill_step``)."""
     lm.require_ported(cfg)
+    lm.require_servable(cfg, mesh)
     if cfg.family == "encdec":
         def step(params, token, caches):
             return whisper.decode_step(params, token, caches, cfg)
         return step
 
     def step(params, token, caches):
+        token = _rows(mesh, "token", token)
         positions = None
         if cfg.mrope:
             positions = torch.full((3, token.shape[0], 1), caches["host_index"],
                                    dtype=torch.int32, device=token.device)
-        return lm.decode_step(params, token, caches, cfg, positions=positions)
+        return lm.decode_step(params, token, caches, cfg, positions=positions,
+                              mesh=mesh)
     return step
 
 

@@ -25,7 +25,8 @@ the checkpoints.  Without ``torchrun`` the world is one process.
 at any number of ranks).  ``--moe-impl gspmd`` sets the config's
 ``moe_impl`` as the reference does; ``--moe-impl ep``, ``--model-axis``
 other than 1 and ``--production-mesh`` (a model axis of 16) raise
-``NotImplementedError`` (ROADMAP.md §1 item 11.7, the model axis).  The vlm family
+``NotImplementedError``: the model axis serves (``launch/steps.py``), and
+training on it waits for ROADMAP.md §1 item 11.7b.  The vlm family
 trains on the reference's stand-in batches: zero bf16 ``inputs_embeds``
 and positions counting up on all three M-RoPE streams, no tokens.  The
 encdec family exits as the reference's does (a whisper-specific driver).
@@ -55,7 +56,8 @@ from . import steps as S
 
 def _not_ported(what: str):
     return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP.md §1 item 11.7 (the model axis)")
+        f"{what} is not ported yet for training: ROADMAP.md §1 item 11.7b "
+        f"(training on the model axis)")
 
 
 def _require_trainable(cfg: ModelConfig) -> None:

@@ -30,13 +30,19 @@ def _check(shapes: dict, tree: dict, path: str = "") -> None:
                              f"{np.shape(tree[k])}, expected {s}")
 
 
-def params_from_jax(cfg: ModelConfig, params: dict, device="cuda") -> lm.LM:
+def params_from_jax(cfg: ModelConfig, params: dict, device="cuda",
+                    mesh=None) -> lm.LM:
     """The port's model holding the same values as ``params``: the reference
     package's parameter pytree as nested dicts of numpy arrays (per-layer
     entries stacked over L), e.g. ``jax.tree.map(np.asarray, params)``; a
-    decoder-only family's (the vlm family's too)."""
+    decoder-only family's (the vlm family's too).  On a ``mesh``, this
+    rank's blocks of them (``sharding.shard_params``), as ``lm.init_params
+    (..., mesh=)`` holds them."""
     dev = lm.device_of(device)
     _check(lm.param_shapes(cfg), params)
+    if mesh is not None:
+        lm.require_servable(cfg, mesh)
+        params = sharding.shard_params(params, mesh)
     return lm.LM(cfg, lm.tree_map(lambda a: _tensor(a, dev), params))
 
 

@@ -10,9 +10,22 @@ single-token step with a cache, or over precomputed cross-attention K/V,
 goes through the registry's ``decode_attention``: the hand-written kernel on
 the card, its plain version on the CPU.
 
-Not ported yet: the reference's GSPMD constraints (``set_tp_mesh``,
-``_pin_cache_sharding``, ``_seq_shard_qkv``; they wait for the model axis,
-ROADMAP.md §1 item 11.7, and do nothing on the data axes or on one card).
+On a model axis (``tp``, the mesh's "model" group of M ranks) the blocks
+are Megatron's, by the reference's rules (``models/sharding.py``): wq, wk,
+wv (and their biases) column-parallel, so a rank holds H/M query heads and
+Hkv/M KV heads (head h = kv * G + g: a contiguous block of query heads is
+its KV heads' groups), wo row-parallel and summed by one all-reduce
+(``tp_sum``, in float32); a dim the rules replicate is computed whole on
+every rank.  The decode cache is sharded along S (``cache_spec_for``).  A
+prefill attends on the rank's heads, then one all-to-all moves each rank's
+S block of every KV head into its cache (``heads_to_seq``).  A decode step
+gathers the step's heads (one all-gather), the rank holding row ``index``
+writes it, every rank takes ``decode_attention_partial`` over its block,
+and the all-gathered partials are merged in rank order
+(``decode_attention_merge``): the flash-decoding combine the reference
+leaves to GSPMD.  The reference's other GSPMD constraints
+(``_pin_cache_sharding``, ``_seq_shard_qkv``) pin layouts that the port
+holds by construction, or are levers it does not take.
 """
 from __future__ import annotations
 
@@ -23,6 +36,7 @@ import torch.nn.functional as F
 
 from ..kernels import registry
 from .config import ModelConfig
+from .sharding import SeqBlock
 
 ATTN_CHUNK_THRESHOLD = 8192   # plain softmax below, chunked above
 KV_CHUNK = 1024
@@ -151,8 +165,51 @@ def attention_chunked(q, k, v, causal: bool, q_offset=0, kv_chunk: int = KV_CHUN
     return o.permute(0, 3, 1, 2, 4).to(q.dtype)       # (B, Sq, Hkv, G, hd)
 
 
+def _projections(p, x, cfg: ModelConfig, cross: bool):
+    """x @ wq (+ bq), and without ``cross`` x @ wk, x @ wv (+ bk, bv):
+    (B, S, columns) in x's dtype, each the rank's columns on a model axis."""
+    dt = x.dtype
+    q = x @ p["wq"].to(dt)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(dt)
+    if cross:
+        return q, None, None
+    k = x @ p["wk"].to(dt)
+    v = x @ p["wv"].to(dt)
+    if cfg.qkv_bias:
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+    return q, k, v
+
+
+def _rotated(p, q, k, cfg: ModelConfig, positions):
+    """Per-head q_norm / k_norm, then RoPE (M-RoPE with ``cfg.mrope``) at
+    ``positions`` (None: no rotation); k None for cross-attention."""
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        if k is not None:
+            k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    if k is not None and positions is not None:
+        if cfg.mrope:
+            q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+            k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+        else:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k
+
+
+def _attend(qg, k, v, cfg: ModelConfig, causal: bool, q_offset):
+    """Plain grouped attention below ATTN_CHUNK_THRESHOLD keys and queries,
+    the chunked online softmax above."""
+    if k.shape[1] <= ATTN_CHUNK_THRESHOLD and qg.shape[1] <= ATTN_CHUNK_THRESHOLD:
+        return attention_scores(qg, k, v, causal=causal, q_offset=q_offset)
+    return attention_chunked(qg, k, v, causal=causal, q_offset=q_offset,
+                             kv_chunk=cfg.kv_chunk)
+
+
 def attention_block(p, x, cfg: ModelConfig, positions, cache=None,
-                    layer_cross_kv=None, cross_length=None):
+                    layer_cross_kv=None, cross_length=None, tp=None):
     """Full attention: projections + rope + (cached) attention + out proj.
 
     p: the layer's attention weights by name (wq (d, H*hd), wk/wv
@@ -177,37 +234,29 @@ def attention_block(p, x, cfg: ModelConfig, positions, cache=None,
     row (made once a step by the caller), a single-token query goes
     through ``decode_attention`` as a cached step does: the same softmax
     over all F keys.
+
+    tp: the mesh's "model" group over more than one rank, with p holding
+    this rank's blocks (module docstring; ``attention_tp``).
     """
+    if tp is not None:
+        if layer_cross_kv is not None:
+            raise NotImplementedError(
+                "cross-attention on a model axis (the encdec family) is not "
+                "ported yet: ROADMAP.md §1 item 11.7c")
+        return attention_tp(p, x, cfg, positions, cache, tp)
     b, s, d = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    dt = x.dtype
-    q = x @ p["wq"].to(dt)
-    if cfg.qkv_bias:
-        q = q + p["bq"].to(dt)
-    q = q.reshape(b, s, h, hd)
     cross = layer_cross_kv is not None
+    q, k, v = _projections(p, x, cfg, cross)
+    q = q.reshape(b, s, h, hd)
     if cross:
         k, v = layer_cross_kv
     else:
-        k = x @ p["wk"].to(dt)
-        v = x @ p["wv"].to(dt)
-        if cfg.qkv_bias:
-            k = k + p["bk"].to(dt)
-            v = v + p["bv"].to(dt)
         k = k.reshape(b, s, hkv, hd)
         v = v.reshape(b, s, hkv, hd)
-
-    if cfg.qk_norm:
-        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
-        if not cross:
-            k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
-    if not cross and positions is not None:
-        if cfg.mrope:
-            q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
-            k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
-        else:
-            q = apply_rope(q, positions, cfg.rope_theta)
-            k = apply_rope(k, positions, cfg.rope_theta)
+    q, k_rot = _rotated(p, q, None if cross else k, cfg, positions)
+    if not cross:
+        k = k_rot
 
     q_offset, length = 0, cross_length
     if cache is not None and not cross:
@@ -230,23 +279,154 @@ def attention_block(p, x, cfg: ModelConfig, positions, cache=None,
         # (cfg.attn_decode_kernel is not read: the device decides)
         kernels = registry.resolve(x.device.type)
         out = kernels.decode_attention(qg[:, 0], k, v, length)[:, None]
-    elif k.shape[1] <= ATTN_CHUNK_THRESHOLD and s <= ATTN_CHUNK_THRESHOLD:
-        out = attention_scores(qg, k, v, causal=not cross, q_offset=q_offset)
     else:
-        out = attention_chunked(qg, k, v, causal=not cross, q_offset=q_offset,
-                                kv_chunk=cfg.kv_chunk)
-    return out.reshape(b, s, h * hd) @ p["wo"].to(dt)
+        out = _attend(qg, k, v, cfg, not cross, q_offset)
+    return out.reshape(b, s, h * hd) @ p["wo"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the model axis
+# ---------------------------------------------------------------------------
+
+def tp_sum(y, tp, dtype=None):
+    """The sum over the model group of the ranks' partial ``y``, in float32,
+    as ``dtype`` (y's by default): one all-reduce, one rounding at the end."""
+    return tp.all_reduce(y.float()).to(dtype or y.dtype)
+
+
+def row_parallel(y, w, tp, full: int):
+    """``y @ w`` for a row-parallel ``w`` of ``full`` rows: with w's rows
+    sharded (this rank's block of ``full``), y's matching columns (all of
+    y's when y holds only them) times w in float32, summed over the ranks
+    and rounded once to y's dtype, as the one-device product accumulates
+    in float32 and rounds once; with them replicated, y @ w on every
+    rank."""
+    rows = w.shape[0]
+    if rows == full:
+        return y @ w.to(y.dtype)
+    if y.shape[-1] == full:
+        y = y[..., tp.index * rows:(tp.index + 1) * rows]
+    return tp_sum(y.float() @ w.float(), tp, y.dtype)
+
+
+def _whole_columns(tp, parts: list, fulls: list) -> list:
+    """Each tensor of ``parts`` (B, S, columns) with all of its ``fulls``
+    columns on every rank: the sharded ones (fewer columns than their full
+    count, this rank's block) gathered over the model group in ONE
+    all-gather, the rank order giving the column order."""
+    which = [i for i, (t, f) in enumerate(zip(parts, fulls)) if t.shape[-1] != f]
+    if not which:
+        return list(parts)
+    widths = [parts[i].shape[-1] for i in which]
+    both = tp.all_gather(torch.cat([parts[i] for i in which], dim=-1)[None])
+    out = list(parts)
+    for i, piece in zip(which, both.split(widths, dim=-1)):
+        # (M, B, S, w) -> (B, S, M w): rank r's block at columns r w
+        out[i] = piece.movedim(0, -2).reshape(*piece.shape[1:-1], -1)
+    return out
+
+
+def heads_to_seq(tp, kv, idx: int, blk: SeqBlock):
+    """The heads-to-sequence exchange of a prefill's K/V: ``kv`` (B, S, n,
+    w), this rank's n KV heads (a block of n M in head order) of the rows
+    [idx, idx + S); returns this rank's rows of its cache block, with every
+    head, (B, r, n M, w), and their first row in the block.  One all-to-all
+    over the model group: rank j is sent the rows inside its block."""
+    b, s, n, w = kv.shape
+    m = tp.size
+    spans = [(max(idx, j * blk.rows), min(idx + s, (j + 1) * blk.rows))
+             for j in range(m)]
+    send = [max(hi - lo, 0) for lo, hi in spans]
+    mine = send[tp.index]
+    got = tp.all_to_all(kv.transpose(0, 1), send, [mine] * m)      # (m r, B, n, w)
+    got = got.reshape(m, mine, b, n, w).permute(2, 1, 0, 3, 4)
+    return got.reshape(b, mine, m * n, w), spans[tp.index][0] - blk.offset
+
+
+def attention_tp(p, x, cfg: ModelConfig, positions, cache, tp):
+    """``attention_block`` on a model axis (module docstring): p holds this
+    rank's blocks; the cache (``cache["block"]``, a ``SeqBlock``) this
+    rank's rows of K and V, every head."""
+    b, s, _ = x.shape
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    g, m = h // hkv, tp.size
+    q, k, v = _projections(p, x, cfg, cross=False)
+    idx = cache["index"] if cache is not None else 0
+    blk = cache["block"] if cache is not None else None
+    if blk is not None and idx + s > blk.total:
+        raise ValueError(f"KV cache overflow: writing {s} rows at {idx} of a "
+                         f"{blk.total}-row cache")
+
+    if s == 1 and cache is not None:
+        # a decode step: the step's heads whole on every rank
+        q, k, v = _whole_columns(tp, [q, k, v], [h * hd, hkv * hd, hkv * hd])
+        q, k = _rotated(p, q.reshape(b, 1, h, hd), k.reshape(b, 1, hkv, hd),
+                        cfg, positions)
+        ck, cv = cache["k"], cache["v"]
+        if blk.offset <= idx < blk.offset + blk.rows:       # the row's owner
+            ck[:, idx - blk.offset] = k[:, 0]
+            cv[:, idx - blk.offset] = v.reshape(b, hkv, hd)
+        kernels = registry.resolve(x.device.type)
+        qg = q.reshape(b, hkv, g, hd)
+        if blk.rows == blk.total:                           # S replicated
+            out = kernels.decode_attention(qg, ck, cv, cache["length"])
+        else:
+            part = kernels.decode_attention_partial(qg, ck, cv,
+                                                    cache["length_block"])
+            out = kernels.decode_attention_merge(tp.all_gather(part[None]),
+                                                 dtype=q.dtype)
+        return row_parallel(out.reshape(b, 1, h * hd), p["wo"], tp, h * hd)
+
+    local = (q.shape[-1] != h * hd and k.shape[-1] != hkv * hd
+             and h % m == 0 and hkv % m == 0)
+    if local:
+        # this rank's query heads and their KV heads
+        nq, nk = h // m, hkv // m
+    else:
+        # heads the rules do not cut whole: every head on every rank
+        q, k, v = _whole_columns(tp, [q, k, v], [h * hd, hkv * hd, hkv * hd])
+        nq, nk = h, hkv
+    q, k = _rotated(p, q.reshape(b, s, nq, hd), k.reshape(b, s, nk, hd), cfg,
+                    positions)
+    v = v.reshape(b, s, nk, hd)
+    heads = slice(tp.index * nk, (tp.index + 1) * nk) if local else slice(None)
+    if cache is not None:
+        ck, cv = cache["k"], cache["v"]
+        kv = torch.cat([k, v], dim=-1)
+        if local and blk.rows != blk.total:
+            rows, at = heads_to_seq(tp, kv, idx, blk)
+        else:
+            if local:                                       # S replicated
+                kv = tp.all_gather(kv, dim=2)
+            lo = max(idx, blk.offset)
+            hi = min(idx + s, blk.offset + blk.rows)
+            rows, at = kv[:, lo - idx:max(hi, lo) - idx], lo - blk.offset
+        ck[:, at:at + rows.shape[1]] = rows[..., :hd]
+        cv[:, at:at + rows.shape[1]] = rows[..., hd:]
+        if idx:
+            # a later chunk attends over the rows written before it
+            kk, vv = ck, cv
+            if blk.rows != blk.total:
+                both = tp.all_gather(torch.cat([ck, cv], dim=-1), dim=1)
+                kk, vv = both[..., :hd], both[..., hd:]
+            k, v = kk[:, :idx + s, heads], vv[:, :idx + s, heads]
+    out = _attend(q.reshape(b, s, nk, g, hd), k, v, cfg, True, idx)
+    return row_parallel(out.reshape(b, s, nq * hd), p["wo"], tp, h * hd)
 
 
 # ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
 
+def swiglu_hidden(p, x, dt=None):
+    """SwiGLU's hidden activations silu(x @ w_gate) * (x @ w_up)."""
+    dt = dt or x.dtype
+    return F.silu(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
+
+
 def swiglu(p, x, dt=None):
     dt = dt or x.dtype
-    g = F.silu(x @ p["w_gate"].to(dt))
-    u = x @ p["w_up"].to(dt)
-    return (g * u) @ p["w_down"].to(dt)
+    return swiglu_hidden(p, x, dt) @ p["w_down"].to(dt)
 
 
 def gelu_mlp(p, x, dt=None):

@@ -55,6 +55,18 @@ their ``.grad`` as in any module.  ``cfg.remat == "block"`` recomputes each
 block in the backward pass (``torch.utils.checkpoint``, the reference's
 ``jax.checkpoint`` per layer; per group of Mamba2 layers and its shared
 block for the hybrid family, as the reference's ``group_body``).
+
+Serving on a mesh (``mesh=``, ``launch/mesh.py``; the dense and moe
+families): ``init_params`` and ``init_cache`` hold this rank's blocks by the
+reference's rules (``models/sharding.py``), ``forward`` and ``decode_step``
+take this rank's rows of the batch.  On a model axis the embedding (V, d)
+is vocabulary-parallel (a rank looks up the tokens of its range, zeroes the
+rest, and one all-reduce sums them), the blocks are tensor- and
+expert-parallel (``models/layers.py``, ``models/moe.py``), and the head
+(``lm_head`` or the tied ``embed``) gives each rank its (B, S, V/M) block of
+the logits, the reference's (dp, "model") out-sharding; ``greedy`` picks
+the next tokens across the blocks.  The ssm, hybrid and vlm families on a
+model axis wait for ROADMAP.md §1 item 11.7c.
 """
 from __future__ import annotations
 
@@ -67,9 +79,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from . import moe as moe_mod
+from . import sharding
 from . import ssm as ssm_mod
 from .config import ModelConfig
-from .layers import attention_block, norm, swiglu
+from .layers import attention_block, norm, row_parallel, swiglu, swiglu_hidden
 
 #: the decoder-only families of this module
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
@@ -322,7 +335,16 @@ def copy_into(dst: dict, src: dict) -> None:
                 d.copy_(s)
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> LM:
+def require_servable(cfg: ModelConfig, mesh) -> None:
+    """The families that run on a model axis: dense and moe."""
+    if mesh is not None and mesh.shape.get("model", 1) > 1 \
+            and cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family on a model axis is not "
+            f"ported yet: ROADMAP.md §1 item 11.7c")
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda", mesh=None) -> LM:
     """Random weights from a ``torch.Generator`` seeded with ``seed``, on
     ``device``, by the reference's rule (``init_one``), read off the stacked
     shape: 1-D scales are ones; other shapes of at most two dims ending in
@@ -330,7 +352,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> LM:
     N(0, 1) / sqrt(shape[-2]).  The distributions are the reference's, the
     numbers another generator's.  A leaf is drawn in float32 and scaled in
     place before its cast, so a (27, 64, 2048, 1408) expert leaf needs one
-    float32 copy beside its bf16 one, not two."""
+    float32 copy beside its bf16 one, not two.  On a ``mesh`` each leaf is
+    drawn whole, in the same order, and this rank keeps its block of it
+    (``sharding.param_spec_for``): the blocks of the weights one process
+    draws without a mesh."""
+    require_servable(cfg, mesh)
     dev = device_of(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     pdt = _pdt(cfg)
@@ -346,7 +372,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> LM:
             scale = 1.0 / math.sqrt(shape[-2] if len(shape) >= 2 else shape[-1])
         return torch.randn(shape, generator=gen, device=dev).mul_(scale).to(pdt)
 
-    return LM(cfg, tree_map(init_one, param_shapes(cfg)))
+    def leaf(path, shape):
+        t = init_one(shape)
+        if mesh is None:
+            return t
+        sp = sharding.param_spec_for(mesh, path, shape)
+        return t[sharding.block_slices(shape, sp, mesh)].clone()
+
+    return LM(cfg, tree_map(leaf, param_shapes(cfg), path=()))
 
 
 # ---------------------------------------------------------------------------
@@ -417,19 +450,63 @@ def _ssm_stack(tree, x, cfg: ModelConfig, positions, caches, attn_cache,
 
 
 def _transformer_block(lp: Block, x, cfg: ModelConfig, positions, cache=None,
-                       group=None):
+                       group=None, mesh=None):
     """One block: (x, aux), aux the MoE's load-balancing loss (0.0 for a
-    SwiGLU block; this rank's share of it over a data ``group``)."""
+    SwiGLU block; this rank's share of it over a data ``group``).  On a
+    ``mesh``'s model axis lp holds this rank's blocks: the SwiGLU's column
+    and row blocks end in one all-reduce (the MoE's, ``moe_block``)."""
+    tp = sharding.model_group(mesh)
     x = x + attention_block(lp.attn, norm(x, lp.ln1, cfg), cfg, positions,
-                            cache=cache)
+                            cache=cache, tp=tp)
     if lp.moe is None:
-        return x + swiglu(lp.mlp, norm(x, lp.ln2, cfg)), 0.0
-    y, aux = moe_mod.moe_block(lp.moe, norm(x, lp.ln2, cfg), cfg, group=group)
+        if tp is None:
+            return x + swiglu(lp.mlp, norm(x, lp.ln2, cfg)), 0.0
+        # the moe family's only SwiGLU blocks are its first dense layers
+        ff = cfg.d_ff_first_dense if cfg.family == "moe" else cfg.d_ff
+        return x + row_parallel(swiglu_hidden(lp.mlp, norm(x, lp.ln2, cfg)),
+                                lp.mlp["w_down"], tp, ff), 0.0
+    y, aux = moe_mod.moe_block(lp.moe, norm(x, lp.ln2, cfg), cfg, group=group,
+                               mesh=mesh)
     return x + y, aux
 
 
+def embed_tokens(embed, tokens, cfg: ModelConfig, tp=None):
+    """The embedding rows of ``tokens`` in the compute dtype; over a model
+    group ``tp`` with ``embed`` this rank's block of the vocabulary, the
+    rows of its range, zeros for the rest, summed over the ranks (one
+    all-reduce, exact: each token's row comes from one rank)."""
+    if tp is None or embed.shape[0] == cfg.vocab:
+        return F.embedding(tokens, embed).to(_dt(cfg))
+    rows = embed.shape[0]
+    local = tokens - tp.index * rows
+    mine = (local >= 0) & (local < rows)
+    x = F.embedding(torch.where(mine, local, 0), embed)
+    return tp.all_reduce(torch.where(mine[..., None], x.float(), 0.0)).to(_dt(cfg))
+
+
+def greedy(logits, cfg: ModelConfig, mesh=None):
+    """The next tokens (B,) int64, greedy: the argmax over the vocabulary
+    of ``logits`` (B, V) in this rank's rows, or on a ``mesh`` (B, V/M), this
+    rank's block of the vocabulary; there the block's max and its index are
+    gathered over "model" and the first largest taken, so ties go to the
+    lowest index as ``argmax`` over all of V; then the rows of every data
+    rank are gathered, in the order of the global batch."""
+    pick = logits.argmax(-1)
+    tp = sharding.model_group(mesh)
+    if tp is not None and logits.shape[-1] != cfg.vocab:
+        val = logits.gather(-1, pick[:, None])[:, 0].double()
+        idx = (pick + tp.index * logits.shape[-1]).double()
+        both = tp.all_gather(torch.stack([val, idx], dim=-1)[None])   # (M, B, 2)
+        best = both[..., 0].argmax(0)
+        pick = both[..., 1].gather(0, best[None])[0].long()
+    if mesh is not None and mesh.dp.size > 1:
+        pick = mesh.dp.all_gather(pick)
+    return pick
+
+
 def forward(params, tokens, cfg: ModelConfig, *, positions=None,
-            inputs_embeds=None, caches=None, q_offset=None, group=None):
+            inputs_embeds=None, caches=None, q_offset=None, group=None,
+            mesh=None):
     """Shared forward.  params: an ``LM`` or its ``tree()`` (nested dicts of
     tensors in ``param_shapes(cfg)``'s layout); tokens: (B, S) int32, or
     None with ``inputs_embeds`` (B, S, d), which replace the embedding
@@ -450,14 +527,22 @@ def forward(params, tokens, cfg: ModelConfig, *, positions=None,
     hold their rows of one global batch (training); the MoE blocks then
     route as the global computation does (``moe.route``) and aux_loss is
     this rank's share of the global one.
+
+    mesh: serving on a mesh (module docstring): params and caches this
+    rank's blocks, tokens its rows; the logits its (B, S, V/M) block on a
+    model axis.  The data group is ``group``'s default.
     """
     _require_lm(cfg)
+    require_servable(cfg, mesh)
+    tp = sharding.model_group(mesh)
+    if group is None and mesh is not None and mesh.dp.size > 1:
+        group = mesh.dp
     tree = params.tree() if isinstance(params, LM) else params
     cdt = _dt(cfg)
     if inputs_embeds is not None:
         x = inputs_embeds.to(cdt)
     else:
-        x = F.embedding(tokens, tree["embed"]).to(cdt)
+        x = embed_tokens(tree["embed"], tokens, cfg, tp)
     b, s = x.shape[:2]
     if positions is None:
         positions = (torch.arange(s, dtype=torch.int32, device=x.device)[None, :]
@@ -465,12 +550,18 @@ def forward(params, tokens, cfg: ModelConfig, *, positions=None,
         if cfg.mrope:
             positions = positions.expand(3, b, s)
 
-    length = idx = None
+    length = idx = length_block = None
+    blk = caches.get("block") if caches is not None else None
     if caches is not None:
         idx = caches["host_index"]
-        # the decode kernel's (B,) lengths, made once for all layers
+        # the decode kernel's (B,) lengths, made once for all layers, and
+        # on a sequence-sharded cache this rank's share of them
         if s == 1 and cfg.family != "ssm":
             length = torch.full((b,), idx + 1, dtype=torch.int32, device=x.device)
+            if blk is not None:
+                length_block = torch.full(
+                    (b,), min(max(idx + 1 - blk.offset, 0), blk.rows),
+                    dtype=torch.int32, device=x.device)
 
     def attn_cache(c, i):
         """Layer i's view of attention cache c (c itself for i None; None
@@ -478,7 +569,8 @@ def forward(params, tokens, cfg: ModelConfig, *, positions=None,
         if c is None:
             return None
         k, v = (c["k"], c["v"]) if i is None else (c["k"][i], c["v"][i])
-        return {"k": k, "v": v, "index": idx, "length": length}
+        return {"k": k, "v": v, "index": idx, "length": length, "block": blk,
+                "length_block": length_block}
 
     remat = caches is None and remat_wanted(tree, cfg)
     total_aux = 0.0
@@ -487,14 +579,15 @@ def forward(params, tokens, cfg: ModelConfig, *, positions=None,
     else:
         for name, n in stacks(cfg).items():
             c = None if caches is None else caches[name]
-            for i, blk in enumerate(unstack(tree[name], n)):
+            for i, lp in enumerate(unstack(tree[name], n)):
                 if remat:
-                    x, aux = checkpoint(_transformer_block, blk, x, cfg, positions,
+                    x, aux = checkpoint(_transformer_block, lp, x, cfg, positions,
                                         group=group, use_reentrant=False,
                                         preserve_rng_state=False)
                 else:
-                    x, aux = _transformer_block(blk, x, cfg, positions,
-                                                cache=attn_cache(c, i), group=group)
+                    x, aux = _transformer_block(lp, x, cfg, positions,
+                                                cache=attn_cache(c, i), group=group,
+                                                mesh=mesh)
                 total_aux = total_aux + aux
     if caches is not None:
         _advance(caches, idx + s)
@@ -595,17 +688,33 @@ def _zeros(spec, dev):
     return tuple(_zeros(v, dev) for v in spec)
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda") -> dict:
-    caches = _zeros(init_cache_specs(cfg, batch, max_seq), device_of(device))
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda",
+               mesh=None) -> dict:
+    """A zero decode cache for ``batch`` rows of ``max_seq`` positions; on a
+    ``mesh`` this rank's blocks of it (``sharding.cache_spec_for``: its rows
+    of the batch over the data axes, its rows of S on a model axis, recorded
+    as ``"block"``, a ``sharding.SeqBlock``)."""
+    specs = init_cache_specs(cfg, batch, max_seq)
+    if mesh is not None:
+        require_servable(cfg, mesh)
+        specs = sharding.map_with_path(
+            lambda path, sd: (sharding.local_shape(
+                sd[0], sharding.cache_spec_for(mesh, path, sd[0]), mesh), sd[1]),
+            specs)
+    caches = _zeros(specs, device_of(device))
     caches["host_index"] = 0
+    if mesh is not None and mesh.shape.get("model", 1) > 1:
+        caches["block"] = sharding.seq_block(mesh, max_seq)
     return caches
 
 
 def decode_step(params: LM, token, caches: dict, cfg: ModelConfig,
-                positions=None):
+                positions=None, mesh=None):
     """One-token decode.  token: (B, 1) int32; positions: None (the cache
     index) or as ``forward``'s.  Returns (logits, caches): logits (B, V) of
-    the step, caches the same dict, written in place."""
+    the step (on a ``mesh``'s model axis this rank's (B, V/M) block),
+    caches the same dict, written in place."""
     logits, caches, _ = forward(params, token, cfg, positions=positions,
-                                caches=caches, q_offset=caches["host_index"])
+                                caches=caches, q_offset=caches["host_index"],
+                                mesh=mesh)
     return logits[:, -1], caches

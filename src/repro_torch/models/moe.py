@@ -23,9 +23,20 @@ share of the global one (global first-choice shares, local probability
 sums over the global token count), so the shares and their gradients sum
 over the ranks to the reference's.
 
-Not ported yet: the expert-parallel dispatch (``_moe_block_ep``, a
-``shard_map`` over the "model" axis) and its mesh registry; ``moe_impl ==
-"ep"`` raises (ROADMAP.md §1 item 11.7, the model axis).
+On a mesh with a "model" axis of M ranks (serving; training there waits
+for ROADMAP.md §1 item 11.7b) each rank holds E/M experts (the reference's
+EP rule) and the shared experts' column and row blocks, and the block
+input is replicated over "model".  With ``moe_impl == "ep"`` and M
+dividing E it is the reference's ``_moe_block_ep``: the router is
+replicated, each rank ranks the rows routed to its own experts through
+``bucket_scatter`` at P = E/M + 1 (bucket E/M: another rank's, the
+reference's ``le_c``; ``ep_slots``), with a capacity per (expert, data
+shard), and aux from global means over the data axes.  Otherwise (the
+"gspmd" impl) it is the one-device block's function: global ranks and
+capacity (``route``), each rank computing its experts' rows.  Either way
+the experts' and the shared experts' partial outputs are summed by ONE
+all-reduce over "model" a layer.  Without a model axis "ep" computes the
+gspmd block, as the reference's does without an EP mesh.
 """
 from __future__ import annotations
 
@@ -38,7 +49,8 @@ import torch.nn.functional as F
 from ..kernels import registry
 from ..kernels.hash_partition.hash_partition import MAX_P
 from .config import ModelConfig
-from .layers import swiglu
+from .layers import swiglu, swiglu_hidden, tp_sum
+from .sharding import model_group
 
 
 def expert_capacity(cfg: ModelConfig, n_tokens: int) -> int:
@@ -109,47 +121,122 @@ def route(p: dict, xt, cfg: ModelConfig, group=None) -> Routing:
                    expert_capacity(cfg, n), aux)
 
 
-def moe_block(p: dict, x, cfg: ModelConfig, group=None):
-    """x: (B, S, d) -> (out, aux_loss), the reference's ``_moe_block_gspmd``.
+def moe_block(p: dict, x, cfg: ModelConfig, group=None, mesh=None):
+    """x: (B, S, d) -> (out, aux_loss), the reference's ``moe_block``.
 
     p: ``router`` (d, E); ``experts`` {w_gate, w_up: (E, d, ff), w_down:
     (E, ff, d)}; optional ``shared`` {w_gate, w_up, w_down}, an always-on
     SwiGLU.  The capacity is the one of this call's B·S tokens, or of the
-    whole data ``group``'s (``route``).
+    whole data ``group``'s (``route``).  On a ``mesh`` with a model axis,
+    p holds this rank's blocks (module docstring).
     """
-    if cfg.moe_impl == "ep":
-        raise NotImplementedError(
-            "moe_impl='ep' (expert-parallel dispatch over a mesh) is not "
-            "ported yet: ROADMAP.md §1 item 11.7 (the model axis)")
+    M = mesh.shape.get("model", 1) if mesh is not None else 1
+    if (cfg.moe_impl == "ep" and mesh is not None and "model" in mesh.shape
+            and cfg.n_experts % M == 0):
+        return _moe_block_ep(p, x, cfg, mesh)
     b, s, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     T = b * s
-    dt = x.dtype
     xt = x.reshape(T, d)
     r = route(p, xt, cfg, group)
-    C = r.C
+    tp = model_group(mesh)
+    E_loc = p["experts"]["w_gate"].shape[0]
     flat_e = r.topi.reshape(T * k)
-    keep = r.slot < C
-    slot = torch.where(keep, r.slot, C).long()
+    if E_loc != E:
+        # this rank's experts [lo, lo + E_loc); the rest to bucket E_loc
+        le = flat_e - tp.index * E_loc
+        flat_e = torch.where((le >= 0) & (le < E_loc), le, E_loc)
+    y = _experts(p["experts"], xt, flat_e, r.slot, r.topw, E_loc, r.C, k)
+    return _with_shared(p, y, xt, cfg, tp).reshape(b, s, d), r.aux
 
-    # every dropped row writes column C, which is sliced off
+
+def _experts(ex: dict, xt, le, slot, topw, E_loc: int, C: int, k: int):
+    """The routed experts' sum over each token's k rows: row j (token j //
+    k's (j % k)-th choice) goes to local expert ``le[j]`` (E_loc: none of
+    this rank's) at ``slot[j]`` if below the capacity C, into an (E_loc +
+    1, C + 1, d) buffer whose last expert and column (every dropped row)
+    are sliced off; three batched products; each kept row's output weighted
+    by its renormalised probability."""
+    T, d = xt.shape
+    dt = xt.dtype
+    keep = (le < E_loc) & (slot < C)
+    slot = torch.where(keep, slot, C).long()
     rows = xt[:, None].expand(T, k, d).reshape(T * k, d)
-    buf = torch.zeros((E, C + 1, d), dtype=dt, device=x.device)
-    buf = buf.index_put((flat_e, slot), rows)[:, :C]              # (E, C, d)
-
-    ex = p["experts"]
+    buf = torch.zeros((E_loc + 1, C + 1, d), dtype=dt, device=xt.device)
+    buf = buf.index_put((le, slot), rows)[:E_loc, :C]             # (E, C, d)
     g = F.silu(torch.bmm(buf, ex["w_gate"].to(dt)))
     u = torch.bmm(buf, ex["w_up"].to(dt))
     eo = torch.bmm(g * u, ex["w_down"].to(dt))                    # (E, C, d)
-
     # token t's k rows are rows t·k .. t·k + k - 1: summing them in order is
     # the reference's scatter-add over flat_t, without atomics
-    contrib = eo[flat_e, torch.clamp(slot, max=C - 1)]
-    contrib = contrib * (r.topw.reshape(T * k) * keep.float()).to(dt)[:, None]
-    y = contrib.view(T, k, d).sum(1)
+    contrib = eo[torch.clamp(le, max=E_loc - 1), torch.clamp(slot, max=C - 1)]
+    contrib = contrib * (topw.reshape(T * k) * keep.float()).to(dt)[:, None]
+    return contrib.view(T, k, d).sum(1)
+
+
+def _with_shared(p: dict, y, xt, cfg: ModelConfig, tp):
+    """The experts' ``y`` plus the shared experts' SwiGLU of ``xt``, summed
+    over the model group ``tp`` when the experts are split over it: the
+    shared experts' partial, when their rules split them too, in the same
+    all-reduce."""
+    if tp is None:
+        return y + swiglu(p["shared"], xt) if "shared" in p else y
+    terms = [(y, cfg.n_experts % tp.size == 0)]
     if "shared" in p:
-        y = y + swiglu(p["shared"], xt, dt)
-    return y.reshape(b, s, d), r.aux
+        cut = (cfg.d_ff_expert * cfg.n_shared_experts) % tp.size == 0
+        sh = p["shared"]
+        # a split down-projection's partial in float32, as row_parallel's
+        terms.append((swiglu_hidden(sh, xt).float() @ sh["w_down"].float() if cut
+                      else swiglu(sh, xt), cut))
+    split = [t for t, cut in terms if cut]
+    out = tp_sum(sum(split[1:], split[0]), tp, y.dtype) if split else 0
+    for t, cut in terms:
+        if not cut:                    # replicated: whole on every rank
+            out = out + t
+    return out
+
+
+def ep_slots(flat_e, E: int, M: int, m_idx: int, kernels):
+    """Rank ``m_idx``'s expert-parallel ranks of (T·k,) expert choices:
+    ``le`` each row's local expert (E/M: another rank's, the reference's
+    ``le_c``) and ``slot`` its rank among the rows of its local expert, in
+    row order, from ``bucket_scatter`` at P = E/M + 1 (the reference's
+    one-hot cumsum)."""
+    E_loc = E // M
+    if E_loc + 1 > MAX_P:
+        raise ValueError(f"{E} experts over {M} ranks: {E_loc + 1} buckets; "
+                         f"bucket_scatter takes at most {MAX_P}")
+    le = flat_e - m_idx * E_loc
+    le = torch.where((le >= 0) & (le < E_loc), le, E_loc).to(torch.int32)
+    slot, _ = kernels.bucket_scatter(le.contiguous(), E_loc + 1)
+    return le.long(), slot
+
+
+def _moe_block_ep(p: dict, x, cfg: ModelConfig, mesh):
+    """The reference's ``_moe_block_ep`` on this rank: its experts' rows
+    (``ep_slots``) at a capacity of this data shard's tokens, the routed
+    and shared partials summed by one all-reduce over "model"; aux the
+    product of global means over the data axes."""
+    b, s, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    M = mesh.shape["model"]
+    T = b * s
+    xt = x.reshape(T, d)
+    logits = (xt @ p["router"].to(xt.dtype)).float()
+    probs = torch.softmax(logits, dim=-1)
+    topw, topi = top_k(probs, k)
+    topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
+    me = probs.mean(0)
+    ce = F.one_hot(topi[:, 0], E).float().mean(0)
+    if mesh.dp.size > 1:           # the product of GLOBAL means
+        me = mesh.dp.all_reduce(me) / mesh.dp.size
+        ce = mesh.dp.all_reduce(ce) / mesh.dp.size
+    aux = E * torch.sum(me * ce)
+    le, slot = ep_slots(topi.reshape(T * k), E, M, mesh.coords["model"],
+                        registry.resolve(x.device.type))
+    y = _experts(p["experts"], xt, le, slot, topw, E // M,
+                 expert_capacity(cfg, T), k)
+    return _with_shared(p, y, xt, cfg, model_group(mesh)).reshape(b, s, d), aux
 
 
 def moe_param_shapes(cfg: ModelConfig) -> dict:

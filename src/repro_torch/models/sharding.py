@@ -14,14 +14,20 @@ entry a dim, each an axis name, a tuple of names or None, trailing Nones
 dropped (``spec``; a tuple of one name is the name, as jax normalises it).
 
 ``shard`` and ``gather`` move between a whole tensor and this rank's block
-of it.  What runs on a mesh today is the data axes (``launch/steps.py``,
-``optim/adamw.py``); a model axis over 1 raises where it would run
-(ROADMAP.md §1 item 11.7).
+of it; ``shard_params`` and ``shard_cache`` cut a parameter or cache tree
+into this rank's blocks by the rules, and ``seq_block`` gives a rank's rows
+of a cache sharded along S.  On a mesh the port trains over the data axes
+(``launch/steps.py``, ``optim/adamw.py``) and serves the dense and moe
+families over data and model axes (``models/{layers,moe,lm}.py``): a block
+the rules give a rank is what it holds and computes, a dim they replicate
+is computed whole on every rank.  Training on a model axis waits for
+ROADMAP.md §1 item 11.7b, the ssm channel sharding and the vlm, hybrid and
+encdec families on it for item 11.7c.
 """
 from __future__ import annotations
 
 import math
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
 
@@ -222,3 +228,66 @@ def gather_tree(tree, specs, mesh):
     every rank (collectives every rank joins, in the tree's order)."""
     return map_with_path(lambda path, t: gather(t, spec_at(specs, path), mesh),
                          tree)
+
+
+def block_slices(shape: tuple, sp: tuple, mesh) -> tuple:
+    """The slices of this rank's block of a ``shape`` tensor under ``sp``
+    (for a numpy array as for a tensor)."""
+    out = []
+    for dim, d in enumerate(shape):
+        n = _axsize(mesh, sp[dim]) if dim < len(sp) else 1
+        size = d // n
+        start = mesh.index_of(sp[dim]) * size if n > 1 else 0
+        out.append(slice(start, start + size))
+    return tuple(out)
+
+
+def _blocks(tree, mesh, rule):
+    def one(path, t):
+        block = t[block_slices(tuple(t.shape), rule(mesh, path, tuple(t.shape)),
+                               mesh)]
+        return block.clone() if isinstance(t, torch.Tensor) else block.copy()
+    return map_with_path(one, tree)
+
+
+def shard_params(tree, mesh):
+    """Every leaf of a parameter tree (whole tensors or numpy arrays) as a
+    copy of this rank's block under ``param_spec_for``."""
+    return _blocks(tree, mesh, param_spec_for)
+
+
+def shard_cache(tree, mesh):
+    """Every leaf of a decode cache tree (whole) as a copy of this rank's
+    block under ``cache_spec_for``."""
+    return _blocks(tree, mesh, cache_spec_for)
+
+
+class SeqBlock(NamedTuple):
+    """This rank's rows [offset, offset + rows) of a ``total``-row cache."""
+    offset: int
+    rows: int
+    total: int
+
+
+def seq_block(mesh, total: int) -> SeqBlock:
+    """The rows of a ``total``-row K/V cache this rank holds under
+    ``cache_spec_for``: a block of total / M on a model axis of M that
+    divides it, else all of them (the rule replicates S)."""
+    m = mesh.shape.get("model", 1) if mesh is not None else 1
+    if m == 1 or total % m:
+        return SeqBlock(0, total, total)
+    rows = total // m
+    return SeqBlock(mesh.coords["model"] * rows, rows, total)
+
+
+def model_group(mesh):
+    """The mesh's "model" group when that axis holds more than one rank,
+    else None."""
+    if mesh is None or mesh.shape.get("model", 1) == 1:
+        return None
+    group = mesh.groups["model"]
+    if group.size != mesh.shape["model"]:
+        raise ValueError(f"{mesh}: no live group of {mesh.shape['model']} "
+                         f"ranks on the model axis")
+    return group
+

@@ -1645,3 +1645,72 @@ def test_family_prefill_and_decode_on_card_match_cpu(card, arch):
     (lc, _), (lg, launched) = out
     assert launched == 3 * cfg.n_layers * (2 if encdec else 1)
     assert float((lg - lc).abs().max()) <= 1e-4
+
+
+# decode_attention over a cache sharded along S (a model axis of M ranks):
+# each block's partial (max, sum, numerator in float32) from the split
+# kernel, whatever the split plan, and the M partials folded in rank order
+# by the combine kernel.  Shapes (B, S_loc, Hkv, G, hd): a rank's block at
+# the tp_serve path's lm and moe shapes (one split each), a block that
+# splits, and hd 112; lengths that leave a block empty, end inside one, and
+# fill it.  The partial's fields within 1e-4 relative of the plain
+# version's (its numerators and sums scale with exp(m) of a max that
+# rounds in another order); merged outputs as decode_attention's.
+PARTIAL_SHAPES = ((32, 1088, 8, 2, 128), (16, 1088, 16, 1, 128), (16, 1088, 2, 6, 128),
+                  (3, 700, 1, 3, 112))
+
+
+def _partial_lengths(b, s, m):
+    total = m * s
+    base = [1, s - 1, s, s + 1, total - 1, total]
+    return torch.tensor([base[i % len(base)] for i in range(b)], dtype=torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("shape", PARTIAL_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_decode_attention_partial_merge_match_plain_on_card(card, shape, dtype):
+    b, s, hkv, g, hd = shape
+    m = 2
+    tdt, rtol = (torch.float32, 0.0) if dtype == "float32" else (torch.bfloat16, 2.0 ** -7)
+    q, k, v = _decode_inputs(card, (b, m * s, hkv, g, hd), tdt, b + s + hd)
+    length = _partial_lengths(b, s, m).to(card)
+    part, merge = treg.get("decode_attention_partial"), treg.get("decode_attention_merge")
+    got, want = [], []
+    for r in range(m):
+        kb, vb = (t[:, r * s:(r + 1) * s].contiguous() for t in (k, v))
+        lb = torch.clamp(length - r * s, 0, s).to(torch.int32)
+        got.append(part.kernel(q, kb, vb, lb))
+        want.append(part.plain(q, kb, vb, lb))
+    torch.cuda.synchronize()
+    for gp, wp in zip(got, want):
+        assert gp.dtype == torch.float32 and gp.shape == (b, hkv, g, hd + 2)
+        assert bool(torch.isfinite(gp).all())
+        empty = wp[..., -1] == 0
+        assert torch.equal(gp[..., -1] == 0, empty)
+        assert bool((gp[..., -2][empty] == -1e30).all())
+        scale = wp.abs().amax(-1, keepdim=True).clamp(min=1e-30)
+        off = ((gp - wp).abs() / scale)[~empty]
+        assert off.numel() == 0 or float(off.max()) <= 1e-4
+    parts = torch.stack(got)
+    out = merge.kernel(parts, dtype=tdt)
+    torch.testing.assert_close(out.float(), merge.plain(parts, tdt).float(),
+                               rtol=rtol, atol=2e-5)
+    torch.testing.assert_close(out.float(),
+                               treg.get("decode_attention").plain(q, k, v, length).float(),
+                               rtol=rtol, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", PARTIAL_SHAPES[:3], ids=lambda s: "x".join(map(str, s)))
+def test_decode_attention_partial_merge_repeat_bitwise_on_card(card, shape):
+    b, s, hkv, g, hd = shape
+    q, k, v = _decode_inputs(card, shape, torch.bfloat16, 12)
+    length = _partial_lengths(b, s, 1).to(card).clamp(max=s)
+    part, merge = treg.get("decode_attention_partial"), treg.get("decode_attention_merge")
+    first = part.kernel(q, k, v, length)
+    parts = torch.stack([first, torch.flip(first, (0,))])
+    out = merge.kernel(parts, dtype=torch.bfloat16).view(torch.int16)
+    for _ in range(19):
+        assert torch.equal(part.kernel(q, k, v, length), first)
+        assert torch.equal(merge.kernel(parts, dtype=torch.bfloat16).view(torch.int16), out)

@@ -35,7 +35,10 @@ def _to_jax(a):
 
 
 def test_registry_has_the_main_path_primitives():
-    assert set(treg.names()) == set(NAMES)
+    # and decode_attention's partial and merge over a cache sharded along S
+    # (tests/test_torch_model_axis.py holds them against the reference)
+    assert set(treg.names()) == set(NAMES) | {"decode_attention_partial",
+                                              "decode_attention_merge"}
     assert treg.resolve("cpu").prefix_sum is treg.get("prefix_sum").plain
     assert treg.resolve("cuda").prefix_sum is treg.get("prefix_sum").kernel
 

@@ -13,7 +13,14 @@ moe family (capacity binding) and the vlm family, against the reference's
 one-device step on the global batch; the ZeRO-1 blocks against
 ``zero1_spec``; a checkpoint saved at P = 2 restored at P = 1, at P = 2
 and by the reference; the agreed preemption; the token pipeline at P = 2;
-the launcher.
+the launcher.  Then, on a (data 1, model 2) mesh over the same two ranks,
+serving: the prefill and decode steps of the reduced qwen3-0.6b (and a
+variant whose vocabulary, MLP, S and heads the rules do not cut whole)
+and of the reduced deepseek-moe-16b (expert-parallel and gspmd, capacity
+binding) against the reference's one-device steps on the same weights in
+float32 (rtol 1e-4, atol 1e-5: the same operations, the row-parallel sums
+added in another order), their greedy picks, caches, a prompt prefilled in
+two chunks, and a decode step's collectives against the layout.
 """
 from __future__ import annotations
 
@@ -298,6 +305,51 @@ LAUNCHER = ["--arch", "qwen3-0.6b", "--reduced", "--device", "cpu", "--steps", "
             "--batch", "4", "--seq", "16"]
 
 
+# serving on a (data 1, model WORLD) mesh: name -> (arch, config changes,
+# max_seq).  24 rows shard S (12 a rank: the prompt's 9 rows all in rank
+# 0's block, the 4th decode step's row the first of rank 1's); 25 rows, a
+# vocabulary of 511, an MLP of 255 and 3 query heads over 1 KV head (whole
+# heads do not divide the axis) are replicated or gathered by the rules
+SERVE = {
+    "qwen3-0.6b": ("qwen3-0.6b", {}, 24),
+    "qwen3-0.6b-replicated": ("qwen3-0.6b", dict(vocab=511, d_ff=255, n_heads=3,
+                                                 n_kv_heads=1), 25),
+    "deepseek-moe-16b-ep": ("deepseek-moe-16b", dict(capacity_factor=0.5,
+                                                     moe_impl="ep"), 24),
+    "deepseek-moe-16b-gspmd": ("deepseek-moe-16b", dict(capacity_factor=0.5), 24),
+}
+SERVE_PROMPT = (4, 9)
+SERVE_STEPS = 4
+SERVE_CHUNK = 5
+
+
+def _serve_rcfg(name):
+    arch, changes, _ = SERVE[name]
+    return rconfigs.get_reduced(arch).replace(**F32, **changes)
+
+
+def _ref_serve(rcfg, params, case):
+    """The reference's one-device prefill and decode steps on the case's
+    prompt and tokens: the logits of each step and the last cache."""
+    prefill = jax.jit(rsteps.make_prefill_step(rcfg, case["max_seq"]))
+    decode = jax.jit(rsteps.make_decode_step(rcfg))
+    p = jax.tree.map(jnp.asarray, params)
+    logits, caches = prefill(p, {"tokens": jnp.asarray(case["prompt"])})
+    out = [np.asarray(logits)]
+    for tok in case["decode_tokens"]:
+        logits, caches = decode(p, jnp.asarray(tok)[:, None], caches)
+        out.append(np.asarray(logits))
+    # the prompt in two chunks (a capacity-bound MoE routes each chunk at
+    # its own capacity, so the one-shot prefill is not the yardstick)
+    prompt, cut = jnp.asarray(case["prompt"]), case["chunk"]
+    chunks = jax.tree.map(lambda sd: jnp.zeros(sd.shape, sd.dtype),
+                          rlm.init_cache_specs(rcfg, prompt.shape[0], case["max_seq"]))
+    _, chunks, _ = rlm.forward(p, prompt[:, :cut], rcfg, caches=chunks, q_offset=0)
+    last, _, _ = rlm.forward(p, prompt[:, cut:], rcfg, caches=chunks, q_offset=cut)
+    return {"logits": out, "cache": jax.tree.map(np.asarray, caches),
+            "chunked_last": np.asarray(last[:, -1])}
+
+
 def _name(arch, zero1, n_micro):
     return f"{arch}-{'zero1' if zero1 else 'replicated'}-micro{n_micro}"
 
@@ -382,6 +434,19 @@ def dp_run():
             "tree_err": [{"a": np.zeros((4, 6), np.float32),
                           "b": {"c": np.full((9,), 0.01, np.float32)}}
                          for _ in range(WORLD)]}
+    serve = []
+    for name, (arch, _, _) in SERVE.items():
+        rcfg = _serve_rcfg(name)
+        # one prompt an architecture: the ep and gspmd cases share theirs
+        # and the reference's run
+        rng = np.random.default_rng(40 + len(arch))
+        serve.append({
+            "name": name, "cfg": dataclasses.asdict(rcfg), "max_seq": SERVE[name][2],
+            "params": jax.tree.map(np.asarray, rlm.init_params(rcfg, jax.random.PRNGKey(6))),
+            "prompt": rng.integers(0, rcfg.vocab, SERVE_PROMPT).astype(np.int32),
+            "decode_tokens": [rng.integers(0, rcfg.vocab, SERVE_PROMPT[0]).astype(np.int32)
+                              for _ in range(SERVE_STEPS)],
+            "chunk": SERVE_CHUNK})
     corpus = token_corpus(600, 128, seed=4)
     pcfg = dict(vocab=128, seq_len=16, global_batch=4, min_len=64, min_quality=0.3)
     cases = [{"name": _name(a, z, n), "cfg": dataclasses.asdict(_rcfg(a)),
@@ -391,7 +456,8 @@ def dp_run():
               "ckpt_dir": os.path.join(d, "ckpt"),
               "preempt_dir": os.path.join(d, "preempt"),
               "pipeline": {"corpus": corpus, "pcfg": pcfg},
-              "launcher": LAUNCHER + ["--ckpt-dir", os.path.join(d, "launcher")]}
+              "launcher": LAUNCHER + ["--ckpt-dir", os.path.join(d, "launcher")],
+              "serve": serve}
     torch.save(inputs, os.path.join(d, "inputs.pt"))
     port = _free_port()
     procs = []
@@ -430,6 +496,15 @@ def dp_run():
             pipe.close()
         with tempfile.TemporaryDirectory() as ld:
             ref["launcher"] = ttrain.main(LAUNCHER + ["--ckpt-dir", ld])["losses"]
+        # one reference a model: without an EP mesh its "ep" is gspmd
+        ref["serve"] = {}
+        for case in serve:
+            key = (SERVE[case["name"]][0], SERVE[case["name"]][2],
+                   tuple(sorted(SERVE[case["name"]][1].items() - {("moe_impl", "ep")})))
+            if key not in ref["serve"]:
+                ref["serve"][key] = _ref_serve(_serve_rcfg(case["name"]),
+                                               case["params"], case)
+            ref["serve"][case["name"]] = ref["serve"][key]
         outs = []
         for r, p in enumerate(procs):
             stdout, stderr = p.communicate(timeout=300)
@@ -643,3 +718,96 @@ def test_launcher_trains_data_parallel(dp_run):
         got = o["launcher"]["losses"]
         np.testing.assert_allclose(got[0], ref["launcher"][0], rtol=1e-5)
         np.testing.assert_allclose(got[1:], ref["launcher"][1:], rtol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# serving on the model axis
+# ---------------------------------------------------------------------------
+
+
+def test_ranks_served_on_a_model_mesh(dp_run):
+    _, _, outs, _ = dp_run
+    for o in outs:
+        assert o["serve_mesh"] == {"data": 1, "model": WORLD}
+
+
+@pytest.mark.parametrize("name", list(SERVE))
+def test_tp_serving_matches_reference(dp_run, name):
+    """Prefill and 4 decode steps on (data 1, model 2) against the
+    reference's one-device steps: every step's logits (rtol 1e-4, atol
+    1e-5), the same on both ranks; the greedy picks the reference logits'
+    argmax; the cache after the last step, gathered; the last logits of the
+    prompt prefilled in two chunks (the reference's forward over the same
+    chunks); each rank's rows of S."""
+    _, ref, outs, _ = dp_run
+    want = ref["serve"][name]
+    max_seq = SERVE[name][2]
+    for r, o in enumerate(outs):
+        got = o["serve"][name]
+        assert len(got["logits"]) == len(want["logits"]) == SERVE_STEPS + 1
+        for i, (g, w) in enumerate(zip(got["logits"], want["logits"])):
+            np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-5, err_msg=f"step {i}")
+            np.testing.assert_array_equal(got["picks"][i], w.argmax(-1))
+            np.testing.assert_array_equal(g, outs[0]["serve"][name]["logits"][i])
+        for stack, c in got["cache"].items():
+            for k in ("k", "v"):
+                np.testing.assert_allclose(c[k], want["cache"][stack][k], rtol=1e-4,
+                                           atol=1e-5, err_msg=f"{stack}/{k}")
+        np.testing.assert_allclose(got["chunked_last"], want["chunked_last"],
+                                   rtol=1e-4, atol=1e-5)
+        rows = max_seq // WORLD if max_seq % WORLD == 0 else max_seq
+        assert got["block"] == ((r * rows if rows < max_seq else 0), rows, max_seq)
+
+
+def _decode_layout(cfg: dict, max_seq: int) -> dict:
+    """The collectives of one decode step on (data 1, model M) by the
+    rules, B rows: an all-reduce (float32, B x d) for the vocabulary-
+    parallel embedding, for each row-parallel wo and MLP and for each MoE
+    block; an all-gather a layer of the step's sharded q/k/v columns
+    (float32, B x their columns) and, with S sharded, of the partial
+    softmaxes (M x B x Hkv x G x (hd + 2) float32)."""
+    amesh = AbstractMesh((1, WORLD), ("data", "model"))
+    rcfg = rconfigs.get_reduced(cfg["name"]).replace(**{
+        k: cfg[k] for k in ("vocab", "d_ff", "n_heads", "n_kv_heads", "moe_impl")})
+    shapes = rlm.param_specs(rcfg)
+    cut = lambda path: any(e is not None for e in rsharding.param_spec_for(  # noqa: E731
+        amesh, path, _at_path(shapes, path).shape))
+    b, d, hd = SERVE_PROMPT[0], rcfg.d_model, rcfg.hd
+    h, hkv = rcfg.n_heads, rcfg.n_kv_heads
+    stacks = {"dense_layers": rcfg.first_dense_layers,
+              "layers": rcfg.n_layers - rcfg.first_dense_layers} \
+        if rcfg.family == "moe" else {"layers": rcfg.n_layers}
+    reduces = int(cut(("embed",)))
+    gathers, gather_bytes = 0, 0
+    for name, n in stacks.items():
+        ffn = ("moe", "experts", "w_gate") if name == "layers" and rcfg.family == "moe" \
+            else ("mlp", "w_down")
+        reduces += n * (int(cut((name, "attn", "wo"))) + int(cut((name,) + ffn)))
+        cols = [c for w, c in (("wq", h * hd), ("wk", hkv * hd), ("wv", hkv * hd))
+                if cut((name, "attn", w))]
+        seq = max_seq % WORLD == 0
+        gathers += n * (bool(cols) + seq)
+        gather_bytes += n * (4 * b * sum(cols)
+                             + seq * 4 * WORLD * b * hkv * (h // hkv) * (hd + 2))
+    out = {"all_reduce_sum": {"calls": reduces, "bytes": reduces * 4 * b * d}}
+    if gathers:
+        out["all_gather"] = {"calls": gathers, "bytes": gather_bytes}
+    return out
+
+
+def _at_path(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+@pytest.mark.parametrize("name", list(SERVE))
+def test_tp_decode_step_collectives_follow_the_layout(dp_run, name):
+    """A decode step's collectives, counted on both ranks, against the
+    rules' layout (``_decode_layout``)."""
+    inputs, _, outs, _ = dp_run
+    case = next(c for c in inputs["serve"] if c["name"] == name)
+    want = _decode_layout(case["cfg"], case["max_seq"])
+    for o in outs:
+        assert o["serve"][name]["counts"] == want, (o["serve"][name]["counts"], want)
+

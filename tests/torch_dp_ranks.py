@@ -19,7 +19,13 @@ side at P = world, and writes ``DIR/rank<r>.pt``:
   state (bitwise against the live blocks), the first step's loss from
   each; the step every rank stopped at when one rank was preempted;
 - "pipeline": the token pipeline's plan and first batches at P = world;
-- "launcher": ``launch.train.main``'s losses.
+- "launcher": ``launch.train.main``'s losses;
+- "serve": on a (data 1, model world) mesh, for each serving case the
+  prefill and decode steps of ``launch/steps.py`` (tensor- and
+  expert-parallel, the cache sharded along S): the logits of each step
+  gathered over the vocabulary, the greedy picks, the collectives of the
+  first decode step, the cache gathered after the last step, and the last
+  logits of the same prompt prefilled in two chunks.
 """
 from __future__ import annotations
 
@@ -155,6 +161,44 @@ def pipeline(inp: dict) -> dict:
             "batches": batches}
 
 
+def serve_case(case: dict, mesh) -> dict:
+    """One serving case on the model mesh (module docstring)."""
+    cfg = ModelConfig(**case["cfg"])
+    model = params_from_jax(cfg, case["params"], device="cpu", mesh=mesh)
+    tp = mesh.groups["model"]
+
+    def whole(logits):
+        return (tp.all_gather(logits, dim=-1) if logits.shape[-1] != cfg.vocab
+                else logits).numpy().copy()
+
+    prompt = torch.from_numpy(case["prompt"])
+    logits, caches = steps.make_prefill_step(cfg, case["max_seq"], mesh=mesh)(
+        model, {"tokens": prompt})
+    out = {"logits": [whole(logits)], "picks": [lm.greedy(logits, cfg, mesh).numpy()]}
+    decode = steps.make_decode_step(cfg, mesh=mesh)
+    for i, tok in enumerate(case["decode_tokens"]):
+        mesh.reset_counts()
+        logits, caches = decode(model, torch.from_numpy(tok)[:, None], caches)
+        if i == 0:
+            out["counts"] = {k: dict(v) for k, v in mesh.counts.items()}
+        out["logits"].append(whole(logits))
+        out["picks"].append(lm.greedy(logits, cfg, mesh).numpy())
+    specs = sharding.cache_shardings(
+        mesh, lm.init_cache_specs(cfg, prompt.shape[0], case["max_seq"]))
+    out["cache"] = {name: {k: sharding.gather(caches[name][k], specs[name][k],
+                                              mesh).numpy()
+                           for k in ("k", "v")} for name in lm.stacks(cfg)}
+    out["block"] = tuple(caches["block"])
+    # the prompt in two chunks: the second attends over the first's rows
+    chunks = lm.init_cache(cfg, prompt.shape[0], case["max_seq"], "cpu", mesh=mesh)
+    cut = case["chunk"]
+    lm.forward(model, prompt[:, :cut], cfg, caches=chunks, mesh=mesh)
+    last, _, _ = lm.forward(model, prompt[:, cut:], cfg, caches=chunks, mesh=mesh,
+                            q_offset=cut)
+    out["chunked_last"] = whole(last[:, -1])
+    return out
+
+
 def main(out_dir: str) -> None:
     world = M.init_distributed("cpu")
     mesh = M.make_local_mesh()
@@ -197,6 +241,10 @@ def main(out_dir: str) -> None:
     out["pipeline"] = pipeline(inp["pipeline"])
     res = train.main(inp["launcher"])
     out["launcher"] = {"losses": res["losses"], "steps": res["steps"]}
+    model_mesh = M.make_local_mesh(model_axis=world)
+    out["serve_mesh"] = dict(model_mesh.shape)
+    out["serve"] = {case["name"]: serve_case(case, model_mesh)
+                    for case in inp["serve"]}
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     torch.distributed.destroy_process_group()
 
