@@ -55,20 +55,22 @@ Phases, in order; any failure raises and the exit code is not 0:
    and the plain version over the whole S, at lengths that leave a block
    empty; 20 calls of each with the same bits; each timed beside its plain
    version and its bound, with its device time.
-3. The eighteen main paths, each with the launch counters zeroed just
+3. The nineteen main paths, each with the launch counters zeroed just
    before it and read just after:
    - relational, through ``hf`` at P = 1: Fig. 8a filter, join and
      aggregate and TPCx-BB Q26 / Q26-multikey against numpy oracles;
      prefix_sum and segment_sums must have launched;
    - windows, through ``hf``: Fig. 8b cumsum, SMA, WMA and exact rolling
-     mean at 2^26 rows, a partitioned WMA after a join and five chained
+     mean at 2^25 rows, a partitioned WMA after a join and five chained
      grouped windows (cumsum, exact rolling mean, rank, dense_rank,
-     row_number) over 2^26 rows in 8192 groups, against numpy oracles
-     (cut from 2^27 rows in 11585 groups for the time limit);
+     row_number) over 2^25 rows in 5793 groups, against numpy oracles
+     (cut from 2^27 rows in 11585 groups for the time limit, by half when
+     tp_serve came and again when tp_train came);
      prefix_sum, segment_scan, segment_rank, stencil1d, stencil1d_exact and
      segment_stencil must have launched;
-   - sort, through ``hf`` at P = 1: a global sort of Fig. 8a's table (2^26
-     rows, cut from 2^27 for the time limit) and its descending head of 1000, bench_validate.py's group-by ->
+   - sort, through ``hf`` at P = 1: a global sort of Fig. 8a's table (2^25
+     rows, cut from 2^27 for the time limit) and its descending head of
+     1000, bench_validate.py's group-by ->
      join -> sort, rank / dense_rank / row_number over Fig. 8b's series by
      its values, an SMA after a filter (a Rebalance under the stencil), a
      concat of two halves feeding the Fig. 8a aggregate, and Fig. 12's Q26
@@ -76,10 +78,11 @@ Phases, in order; any failure raises and the exit code is not 0:
      reference's plan counts; against numpy and scipy oracles; prefix_sum,
      segment_sums and stencil1d must have launched;
    - frame, through ``hf`` at P = 1 on bench_tpcx.py's string inputs at
-     scale 64 (25.6 M web clicks over Zipf-skewed items, 1.28 M items with
-     a category name, 25.6 M store sales with a channel and a discount, 2 %
-     of each null): Q05 over category names (its plan the int-category
-     Q05's), the Q09 channel rollup, dropna -> fillna -> assign -> astype
+     scale 32, cut from 64 for the tp_train path (12.8 M web clicks over
+     Zipf-skewed items, 640 K items with a category name, 12.8 M store
+     sales with a channel and a discount, 2 % of each null): Q05 over
+     category names (its plan the int-category Q05's), the Q09 channel
+     rollup, dropna -> fillna -> assign -> astype
      -> rename -> drop and a column from a string predicate feeding a
      group-by, the rows where either nullable column is null, a concat of
      two halves whose dictionaries differ, and a merge on category keys
@@ -129,19 +132,20 @@ Phases, in order; any failure raises and the exit code is not 0:
      prefix_sum and segment_sums must have launched;
    - exchange_p2, two ranks on the one card joined by gloo (NCCL refuses
      two ranks on one card; gloo stages CUDA tensors through the host):
-     Fig. 8a join at 2^23 x 2^19 rows, Q26 at scale 32, a sort of Fig.
-     8a's table and a global rank of the series at 2^23 rows (each cut by
-     half for the time limit when dp_train came), the SMA after a filter,
+     Fig. 8a join at 2^22 x 2^18 rows, Q26 at scale 16, a sort of Fig.
+     8a's table and a global rank of the series at 2^22 rows (each cut by
+     half for the time limit when dp_train came, and again when tp_train
+     came), the SMA after a filter,
      Fig. 12's two Q26 legs, and the frame path's Q05 over category names
      and merge on category keys (each rank encoding the host tables
      itself, the dictionaries equal on both), ``transform("sum")`` and
-     ``head(2)`` over 2^23 rows in 9 groups (a third in one), and the
+     ``head(2)`` over 2^22 rows in 9 groups (a third in one), and the
      segmentation program's ``collect_matrix`` (each rank's count its
      1D_BLOCK block, bucket_scatter launched in each), the guardrails' skew
-     join at 2^22 x 2^20 salted and unsalted (the salted per-rank max/mean
-     lower, as many all_to_all), and Fig. 8a's aggregate at 2^23 rows
+     join at 2^21 x 2^19 salted and unsalted (the salted per-rank max/mean
+     lower, as many all_to_all), and Fig. 8a's aggregate at 2^22 rows
      healed after a forced overflow and a corruption, and the serving
-     session over a 2^23-row store_sales (six concurrent submits with the
+     session over a 2^22-row store_sales (six concurrent submits with the
      same cache outcomes on both ranks; a 1-shard state registered, split
      1 -> 2 and its hash claim re-established by one exchange, then grouped
      on its key with no exchange), through ``hf`` at P = 2,
@@ -162,7 +166,7 @@ Phases, in order; any failure raises and the exit code is not 0:
      (c) ``tree_compressed_psum`` of the gradients within half a
      quantisation step of their plain mean, its error buffers exact and
      its means the same on both ranks; then qwen3-0.6b at 14 layers (bf16,
-     remat per block, ZeRO-1) trained 4 steps of a global 8 x 2048 tokens
+     remat per block, ZeRO-1) trained 3 steps of a global 8 x 2048 tokens
      (4 x 2048 a rank) from the token pipeline at P = 2 over 2^16
      documents, every loss finite and the first within 0.5 of ln V; (d)
      the one checkpoint restored at P = 1 (bitwise against the gathered
@@ -170,6 +174,23 @@ Phases, in order; any failure raises and the exit code is not 0:
      from it equal to the live state's); (e) that step's collectives by
      kind, calls and bytes, against the ZeRO-1 layout.  prefix_sum and
      bucket_scatter must have launched in each rank;
+   - tp_train, in dp_train's two ranks on a (data 1, model 2) mesh over the
+     same world, through ``launch.steps.make_train_step`` and
+     ``launch.train.run`` (models/tp.py's autograd collectives, the
+     vocabulary-parallel loss): at full width and 2 layers in float32 (TF32
+     off) on a global batch of 8 x 512 tokens, (a) qwen3-0.6b and (b)
+     deepseek-moe-16b expert-parallel (its first dense layer and one MoE
+     layer) against one rank's step without a mesh (the gspmd block): the
+     loss within 1e-4 relative, each gradient within 1e-4 of its leaf's
+     largest |g|, the parameters after one AdamW step within 2 lr where
+     |g| is below 1e-4 of its leaf's largest and within rtol 1e-5, atol
+     1e-2 lr elsewhere; (b) must launch bucket_scatter at P = 33 once a MoE
+     layer in the forward and once in the recomputation; then (c)
+     qwen3-0.6b at 14 layers (bf16, remat per block, ZeRO-1) trained 3
+     steps of a global 4 x 2048 tokens from the token pipeline, every loss
+     finite and the first within 0.5 of ln V, and one more step's
+     collectives by kind against the layout (``tp_train_layout``);
+     prefix_sum and bucket_scatter must have launched in each rank;
    - tp_serve, in dp_train's two ranks on a (data 1, model 2) mesh over the
      same world, through ``repro_torch.launch.steps`` (bf16, random weights
      from a seed, each rank holding its blocks by the reference's rules):
@@ -904,9 +925,10 @@ def ulps(torch, a, b) -> int:
 # queries' groups hold 2^27 / 11585 ~ 11585 rows on average.
 GROUPS = 11585
 # the window and sort paths' rows (cut from 2^27 for the time limit when
-# tp_serve came) and the window path's ~sqrt(n) groups
-WINDOW_ROWS, WINDOW_GROUPS = 2**26, 8192
-SORT_ROWS = 2**26
+# tp_serve came, and to 2^25 when tp_train came) and the window path's
+# ~sqrt(n) groups
+WINDOW_ROWS, WINDOW_GROUPS = 2**25, 5793
+SORT_ROWS = 2**25
 
 
 def window_kernel_phases(torch, sizes, record: dict):
@@ -2376,7 +2398,7 @@ def sort_path(torch, hf, synth, queries: dict, profile_dir: str | None = None,
 
 # The frame path: TPCx-BB's string queries (bench_tpcx.py:100-125, 192-210)
 # and the frame, null and dtype verbs, at Q26's scale 64.
-FRAME_SCALE = Q26_SCALE
+FRAME_SCALE = Q26_SCALE // 2            # 64 before the tp_train path came
 # a dimension keyed by category name: four of synth.CATEGORY_NAMES, two new
 FRAME_DIM_NAMES = ("bikes", "books", "garden", "music", "toys", "wine")
 
@@ -3359,16 +3381,16 @@ def serve_path(torch, hf, synth, queries: dict, checks: dict):
 # relational path's rows, cut for that staging, and Q26 at its scale.
 # cut from 2^24 x 2^20 (and the sort's 2^24 rows, the Q26 and frame tables'
 # scale 64, the serving session's 2^24 sales rows) to pay for the dp_train
-# path within the time limit
-P2_JOIN = (2**23, 2**19)
+# path within the time limit, and each by half again for the tp_train path
+P2_JOIN = (2**22, 2**18)
 P2_WORLD = 2
-P2_SCALE = 32
+P2_SCALE = 16
 
 
-P2_SORT = 2**23
-# the skew join at P = 2: a quarter of the guardrails path's rows each side
-# cut for gloo's host staging, as P2_JOIN is
-P2_SKEW_JOIN = (2**22, 2**20)
+P2_SORT = 2**22
+# the skew join at P = 2: an eighth of the guardrails path's rows each side,
+# cut for gloo's host staging, as P2_JOIN is (2^22 x 2^20 before tp_train)
+P2_SKEW_JOIN = (2**21, 2**19)
 
 
 def exchange_rank(rank: int, world: int, port: int, out_dir: str) -> None:
@@ -3386,9 +3408,11 @@ def exchange_rank(rank: int, world: int, port: int, out_dir: str) -> None:
     from repro_torch.data import synth
     from repro_torch.kernels import cuda
 
+    from repro_torch.launch.mesh import PG_TIMEOUT
+
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            world_size=world, rank=rank)
+                            world_size=world, rank=rank, timeout=PG_TIMEOUT)
     calls = [0]
     a2a = dist.all_to_all_single
 
@@ -3635,7 +3659,7 @@ def p2_guardrails(torch, dist, hf, synth, calls: list) -> dict:
 
 
 # the serving session at P = 2: launch/serve.py's tables at 2^23 sales rows
-P2_SERVE_SCALE = 2**23 / 200_000
+P2_SERVE_SCALE = 2**22 / 200_000      # 2^23 sales rows before tp_train
 
 
 def p2_serve(torch, dist, hf, calls: list) -> dict:
@@ -3770,7 +3794,7 @@ DP_WORLD = 2
 # embedding, and the first loss far above ln V (19.55 at 4 layers)
 DP_LAYERS = 14
 DP_BATCH, DP_SEQ = 8, 2048
-DP_STEPS = 4
+DP_STEPS = 3                             # 4 before the tp_train path came
 DP_DOCS = 2**16
 DP_HOLD = (8, 512)
 
@@ -3952,7 +3976,7 @@ def dp_rank(rank: int, world: int, port: int, out_dir: str, ckpt_dir: str) -> No
     torch.backends.cudnn.allow_tf32 = False
     backend = M.backend_for(world, dev)
     dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
-                            world_size=world, rank=rank)
+                            world_size=world, rank=rank, timeout=M.PG_TIMEOUT)
     mesh = M.make_local_mesh(model_axis=1)
     res = {"rank": rank, "backend": backend, "mesh": dict(mesh.shape),
            "probe": dp_probe(torch, mesh, dev)}
@@ -4042,8 +4066,12 @@ def dp_rank(rank: int, world: int, port: int, out_dir: str, ckpt_dir: str) -> No
     rec |= {"resume_loss_live": live_loss, "resume_loss_restored": restored_loss,
             "step_collectives": counts}
     res["train"] = rec
-    # the tp_serve path in the same ranks, the training state freed first
+    # the tp_train and tp_serve paths in the same ranks, the training state
+    # freed first
     del run, drv, state, fresh, fresh_model, again, step_fn, batch
+    torch.cuda.empty_cache()
+    res["tp_train"] = tp_train(torch, rank, dev, os.path.join(ckpt_dir, "tp"))
+    log(f"tp_train rank {rank}: {json.dumps(res['tp_train'])}")
     torch.cuda.empty_cache()
     res["tp_serve"] = tp_serve(torch, rank, dev)
     log(f"tp_serve rank {rank}: {json.dumps(res['tp_serve'])}")
@@ -4107,7 +4135,30 @@ def dp_train_path(torch, queries: dict, checks: dict, runs: dict) -> dict:
     queries["dp_train"] = rec
     log(f"dp_train: {rec}")
     queries["dp_train_launches_by_rank"] = [r["launches"] for r in ranks]
+    runs["tp_train"] = [r["tp_train"] for r in ranks]
     runs["tp_serve"] = [r["tp_serve"] for r in ranks]
+    return {k: sum(r["launches"][k] for r in ranks) for k in r0["launches"]}
+
+
+def tp_train_path(torch, queries: dict, checks: dict, runs: dict) -> dict:
+    """The tp_train path's records from dp_train's ranks (``tp_train``, run
+    there with the counters zeroed just before its bf16 run and read just
+    after): both ranks the same losses and step collectives, the holds'
+    deviations.  Returns the run's launches summed over the ranks."""
+    ranks = runs["tp_train"]
+    r0, r1 = ranks
+    for key in ("losses", "step_collectives"):
+        assert r0["run"][key] == r1["run"][key], (key, r0["run"][key], r1["run"][key])
+    for k in ("dense", "ep"):
+        h = r0["hold"][k]
+        checks[f"tp_train_{k}_f32_2l_loss_rel_vs_one_rank"] = h["loss_rel"]
+        checks[f"tp_train_{k}_f32_2l_grad_rel_vs_one_rank"] = h["grad_max_rel"]
+        checks[f"tp_train_{k}_f32_2l_param_max_abs_vs_one_rank"] = h["param_max_abs"]
+    queries["tp_train"] = {
+        "by_rank": ranks,
+        "transport": f"gloo over tcp://localhost, {TP_MODEL} ranks on one card "
+                     f"(host staging): walls are gloo's, not NCCL's"}
+    log(f"tp_train: {json.dumps(queries['tp_train'])}")
     return {k: sum(r["launches"][k] for r in ranks) for k in r0["launches"]}
 
 
@@ -4133,6 +4184,213 @@ def tp_serve_path(torch, queries: dict, checks: dict, runs: dict) -> dict:
                      f"(host staging): walls are gloo's, not NCCL's"}
     log(f"tp_serve: {json.dumps(queries['tp_serve'])}")
     return {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+
+
+# The tp_train path, run in dp_train's two rank processes on a (data 1,
+# model TP_MODEL) mesh over the same world (gloo, one card), through
+# launch/steps.py's make_train_step and launch/train.py's run: tensor- and
+# expert-parallel training (models/tp.py's autograd collectives, the
+# vocabulary-parallel loss).  First two holds at full width and 2 layers in
+# float32 (TF32 off) on a global batch of TP_TRAIN_HOLD tokens, each against
+# one rank's step without a mesh on the same weights and batch: (a)
+# qwen3-0.6b, (b) deepseek-moe-16b (the first dense layer and one MoE
+# layer) expert-parallel against one rank's gspmd block, bucket_scatter
+# launched at P = E/M + 1 = 33 once a MoE layer in the forward and once in
+# the recomputation (remat per block): the loss within 1e-4 relative, each
+# gradient leaf within 1e-4 of its largest |g|, the parameters after one
+# AdamW step within 2 lr where |g| is below 1e-4 of the leaf's largest and
+# within rtol 1e-5, atol 1e-2 lr elsewhere.  Then (c) qwen3-0.6b at
+# TP_TRAIN_LAYERS layers in bf16, remat per block, ZeRO-1 (at data 1 the
+# moments are whole blocks of the model blocks), TP_TRAIN_STEPS steps of a
+# global TP_TRAIN_BATCH x TP_TRAIN_SEQ tokens from the token pipeline, the
+# first loss within 0.5 of ln V; one more step's collectives against the
+# layout (``tp_train_layout``); prefix_sum and bucket_scatter (the
+# pipeline) launched in each rank.
+TP_TRAIN_HOLD = (8, 512)
+TP_TRAIN_MOE_LAYERS = 2
+TP_TRAIN_LAYERS = DP_LAYERS
+TP_TRAIN_BATCH, TP_TRAIN_SEQ = 4, 2048
+TP_TRAIN_STEPS = 3
+
+
+def tp_train_layout(cfg, b: int, s: int) -> dict:
+    """The collectives of one dense train step on (data 1, model 2), one
+    micro-batch of b x s, every dim cut whole (as tests/test_torch_sharding.py
+    and the thread ranks count them): float32 all-reduces of a (b, s, d)
+    activation, a layer two in the forward (wo's and the SwiGLU's sums),
+    one in the recomputation with remat (the SwiGLU's sum comes after the
+    last tensor it saves, so its early stop skips it), two in the backward
+    (the cotangents of the q/k/v and SwiGLU inputs) and, with qk_norm, two
+    of the per-head norm scales' (hd,) gradients; once a step the
+    embedding's sum, the head input's cotangent, the loss's sum of
+    exponentials with the gold logit ((2, b, s)) and the clipping norm's
+    scalar; the loss's max, (b, s)."""
+    act = 4 * b * s * cfg.d_model
+    remat = int(cfg.remat == "block")
+    norms = 2 * int(cfg.qk_norm)
+    calls = cfg.n_layers * (4 + remat + norms) + 4
+    nbytes = (cfg.n_layers * ((4 + remat) * act + norms * 4 * cfg.hd)
+              + 2 * act + 8 * b * s + 4)
+    return {"all_reduce_sum": {"calls": calls, "bytes": nbytes},
+            "all_reduce_max": {"calls": 1, "bytes": 4 * b * s}}
+
+
+def tp_hold(torch, mesh, dev, cfg, one_cfg, seed: int) -> dict:
+    """One float32 hold of the tp_train path: ``cfg``'s gradient and one
+    AdamW step on ``mesh`` against one rank's of ``one_cfg`` without a
+    mesh, on rank 0's draw of the weights and one batch; the bucket_scatter
+    launches of the mesh's gradient and the bucket counts ``ep_slots``
+    asked for."""
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import steps
+    from repro_torch.models import lm, moe, sharding
+    from repro_torch.optim import OptConfig, adamw
+
+    ocfg = OptConfig(lr=3e-4, warmup_steps=2, total_steps=TRAIN_SCHEDULE)
+    whole = lm.init_params(cfg, seed=seed, device=dev).tree()
+    for _, t in lm.leaves(whole):
+        mesh.world.broadcast(t.data)
+    b, s = TP_TRAIN_HOLD
+    batch = token_batches(torch, cfg.vocab, b, s, 1, 19, dev)[0]
+    pspecs = sharding.param_shardings(cfg, mesh, steps.model_param_specs(cfg))
+    params = sharding.shard_params(whole, mesh)
+    buckets, ep_slots = [], moe.ep_slots
+
+    def counted(flat_e, E, M, m_idx, kernels):
+        buckets.append(E // M + 1)
+        return ep_slots(flat_e, E, M, m_idx, kernels)
+    moe.ep_slots = counted
+    try:
+        torch.cuda.synchronize()
+        before = cuda.launches["bucket_scatter"]
+        loss, g = steps.value_and_grad(steps.make_loss_fn(cfg, mesh=mesh), params, batch)
+        torch.cuda.synchronize()
+        launched = cuda.launches["bucket_scatter"] - before
+    finally:
+        moe.ep_slots = ep_slots
+    g = sharding.gather_tree(g, pspecs, mesh)
+    state = {"params": params,
+             "opt": adamw.init_state(params, ocfg, mesh=mesh, specs=pspecs)}
+    _, step_loss = steps.make_train_step(cfg, ocfg, mesh=mesh)(state, batch)
+    after = sharding.gather_tree(state["params"], pspecs, mesh)
+    del state, params
+    out = {"model": cfg.name, "layers": cfg.n_layers, "moe_impl": cfg.moe_impl,
+           "dtype": cfg.param_dtype, "batch": b, "seq": s, "loss_tp": float(loss),
+           "step_loss_tp": float(step_loss), "bucket_scatter_launches": launched,
+           "ep_buckets": buckets}
+    if mesh.rank != 0:
+        return out
+    # one rank, no mesh: rank 0's weights (the mesh holds copies of blocks)
+    loss1, g1 = steps.value_and_grad(steps.make_loss_fn(one_cfg), whole, batch)
+    grad_rel = {"/".join(k): float((x - y).abs().max() / y.abs().max().clamp(min=1e-30))
+                for (k, x), (_, y) in zip(lm.leaves(g), lm.leaves(g1))}
+    del g
+    st1 = {"params": whole, "opt": adamw.init_state(whole, ocfg)}
+    steps.make_train_step(one_cfg, ocfg)(st1, batch)
+    lr = ocfg.lr
+    worst, worst_resolved = 0.0, 0.0
+    for (k, x), (_, w), (_, gw) in zip(lm.leaves(after), lm.leaves(st1["params"]),
+                                       lm.leaves(g1)):
+        diff = (x - w).abs()
+        worst = max(worst, float(diff.max()))
+        resolved = gw.abs() > 1e-4 * gw.abs().max()
+        if bool(resolved.any()):
+            worst_resolved = max(worst_resolved, float(
+                (diff - 1e-5 * w.abs())[resolved].max()))
+    out |= {"loss_one_rank": float(loss1), "loss_rel": abs(float(loss) / float(loss1) - 1),
+            "grad_max_rel": max(grad_rel.values()), "grad_rel": grad_rel,
+            "param_max_abs": worst, "param_resolved_max_excess": worst_resolved}
+    # float32 on both sides, TF32 off: the order of sums differs
+    assert out["loss_rel"] <= 1e-4 and out["grad_max_rel"] <= 1e-4, out
+    assert worst <= 2 * lr and worst_resolved <= 1e-2 * lr, out
+    return out
+
+
+def tp_train(torch, rank: int, dev, ckpt_dir: str) -> dict:
+    """The tp_train path in this rank (see TP_TRAIN_*): the holds, then the
+    bf16 run through ``train.run`` with the counters zeroed just before
+    it, then one counted step."""
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import synth
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import steps, train
+    from repro_torch.models import lm
+    from repro_torch.optim import OptConfig
+
+    mesh = M.make_local_mesh(model_axis=TP_MODEL)
+    assert dict(mesh.shape) == {"data": 1, "model": TP_MODEL}, mesh
+    t0 = time.perf_counter()
+    dense = hold_cfg(get_config(LM_ARCH))
+    moe_cfg = hold_cfg(get_config(MOE_ARCH)).replace(n_layers=TP_TRAIN_MOE_LAYERS)
+    hold = {"dense": tp_hold(torch, mesh, dev, dense, dense, 3)}
+    torch.cuda.empty_cache()
+    hold["ep"] = tp_hold(torch, mesh, dev, moe_cfg.replace(moe_impl="ep"), moe_cfg, 4)
+    torch.cuda.empty_cache()
+    n_moe = moe_cfg.n_layers - moe_cfg.first_dense_layers
+    ep_p = moe_cfg.n_experts // TP_MODEL + 1
+    # the forward and the recomputation, each MoE layer, at P = E/M + 1
+    assert hold["ep"]["bucket_scatter_launches"] == 2 * n_moe, hold["ep"]
+    assert hold["ep"]["ep_buckets"] == [ep_p] * (2 * n_moe), hold["ep"]
+    assert hold["dense"]["bucket_scatter_launches"] == 0, hold["dense"]
+    hold_s = time.perf_counter() - t0
+
+    cfg = get_config(LM_ARCH).replace(n_layers=TP_TRAIN_LAYERS)
+    ocfg = OptConfig(lr=3e-4, warmup_steps=2, total_steps=TRAIN_SCHEDULE)
+    corpus = synth.token_corpus(DP_DOCS, cfg.vocab)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda.reset_launches()
+    mesh.reset_counts()
+    torch.distributed.barrier()
+    t0 = time.perf_counter()
+    run = train.run(cfg, ocfg, corpus, steps=TP_TRAIN_STEPS, batch=TP_TRAIN_BATCH,
+                    seq=TP_TRAIN_SEQ, ckpt_dir=ckpt_dir, ckpt_every=TP_TRAIN_STEPS + 1,
+                    device=dev, log_every=1, mesh=mesh)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(cuda.launches)
+    peak = torch.cuda.max_memory_allocated()
+    for name in ("prefix_sum", "bucket_scatter"):
+        assert launches[name] > 0, f"{name} never launched in tp_train rank {rank}"
+    losses = run["losses"]
+    assert len(losses) == TP_TRAIN_STEPS and all(map(math.isfinite, losses)), losses
+    assert abs(losses[0] - math.log(cfg.vocab)) <= 0.5, (losses[0], math.log(cfg.vocab))
+    drv = run["driver"]
+    state = drv.state
+    rec = {"model": cfg.name, "layers": cfg.n_layers, "dtype": cfg.param_dtype,
+           "remat": cfg.remat, "mesh": dict(mesh.shape),
+           "global_batch": TP_TRAIN_BATCH, "seq": TP_TRAIN_SEQ,
+           "steps": run["steps"], "losses": losses,
+           "pipeline_s": round(run["pipeline_s"], 3), "run_s": round(run_s, 3),
+           "step_ms": [round(x * 1e3, 3) for x in drv.stats.times],
+           "step_median_ms": round(float(np.median(drv.stats.times)) * 1e3, 3),
+           "peak_gib": round(peak / 2**30, 3),
+           "param_bytes": sum(t.numel() * t.element_size()
+                              for _, t in lm.leaves(state["params"])),
+           "opt_bytes": opt_bytes(state["opt"]),
+           "run_collectives": {k: dict(v) for k, v in mesh.counts.items()},
+           "saves": [{k: (round(v, 3) if isinstance(v, float) else v)
+                      for k, v in r.items()} for r in drv.saver.records]}
+    # one more step, counted, against the layout
+    step_fn = steps.make_train_step(cfg, ocfg, mesh=mesh)
+    batch = token_batches(torch, cfg.vocab, TP_TRAIN_BATCH, TP_TRAIN_SEQ, 1, 29, dev)[0]
+    mesh.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, loss = step_fn(state, batch)
+    loss = float(loss)
+    rec["counted_step_ms"] = round((time.perf_counter() - t0) * 1e3, 3)
+    counts = {k: dict(v) for k, v in mesh.counts.items()}
+    want = tp_train_layout(cfg, TP_TRAIN_BATCH, TP_TRAIN_SEQ)
+    assert counts == want, (counts, want)
+    assert math.isfinite(loss), loss
+    rec |= {"step_collectives": counts, "counted_step_loss": loss}
+    del run, drv, state, step_fn, batch
+    return {"rank": rank, "hold": hold, "hold_s": round(hold_s, 3), "run": rec,
+            "launches": launches}
 
 
 # The tp_serve path, run in dp_train's two rank processes on a (data 1,
@@ -5594,6 +5852,10 @@ def main(argv=None) -> int:
             # pipeline at P = 2) and summed over them
             "dp_train": (lambda: dp_train_path(torch, queries, checks, lm_runs),
                          dict.fromkeys(("prefix_sum", "bucket_scatter"))),
+            # run in dp_train's ranks (counted there, summed over them): the
+            # token pipeline's kernels in each rank's bf16 run
+            "tp_train": (lambda: tp_train_path(torch, queries, checks, lm_runs),
+                         dict.fromkeys(("prefix_sum", "bucket_scatter"))),
             # run in dp_train's ranks (counted there, summed over them): a
             # partial and a merge a layer and decode step, a bucket_scatter
             # a MoE layer in the prefill and each decode step
@@ -5661,7 +5923,7 @@ def main(argv=None) -> int:
                 t0 = time.perf_counter()
                 mm_checks(torch, lm_runs[path], queries, checks, path)
                 log(f"{path} checks: {time.perf_counter() - t0:.1f} s")
-        for path in ("train", "moe_train", "dp_train"):
+        for path in ("train", "moe_train", "dp_train", "tp_train"):
             assert launched[path]["decode_attention"] == 0, launched[path]
         log(f"checks (max abs diff; bitwise): {checks}")
         for r in record.values():

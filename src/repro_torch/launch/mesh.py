@@ -9,10 +9,12 @@ over live ranks (``make_local_mesh``, ``make_production_mesh``) also holds
 this rank's coordinate on every axis and a ``Group`` for each axis and for
 the data axes together (``dp``), whose collectives it counts: the data
 group's for data-parallel training (``optim/adamw.py``), the model group's
-for tensor- and expert-parallel serving (``models/layers.py``,
-``models/moe.py``, ``models/lm.py``: all-reduces of row-parallel sums,
-all-gathers of a decode step's heads and partial softmaxes, the prefill's
-heads-to-sequence all-to-all of K and V).
+for tensor- and expert-parallel serving and training (``models/tp.py``'s
+autograd operators over it, used by ``models/layers.py``,
+``models/moe.py``, ``models/lm.py``: all-reduces of row-parallel sums and
+of the column-parallel inputs' cotangents, all-gathers of a decode step's
+heads and partial softmaxes, the prefill's heads-to-sequence all-to-all of
+K and V, the vocabulary-parallel loss's row statistics).
 
 Ranks are laid out row-major over the axes, as the reference reshapes
 ``jax.devices()``: rank = (pod_i · data + data_i) · model + model_i, and a
@@ -28,6 +30,7 @@ one to the other.
 """
 from __future__ import annotations
 
+import datetime
 import math
 import os
 from collections import OrderedDict
@@ -37,6 +40,10 @@ import torch.distributed as dist
 
 #: the data-parallel axes, in the order the rules name them
 DP_AXES = ("pod", "data")
+#: how long a collective may wait for its peers before it fails: ranks that
+#: issue collectives in different orders fail with a message in minutes
+#: rather than hanging for gloo's default half hour
+PG_TIMEOUT = datetime.timedelta(seconds=300)
 
 
 def backend_for(world: int, device) -> str:
@@ -51,9 +58,10 @@ def backend_for(world: int, device) -> str:
 def init_distributed(device="cuda") -> int:
     """Join the ranks ``torchrun`` started (``RANK``, ``WORLD_SIZE``,
     ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT`` in the environment) in
-    the default process group, with ``backend_for``'s backend, and return
-    the world size.  Without them, or with a world of 1, nothing is
-    initialised and the world is 1.  A group already initialised is kept."""
+    the default process group, with ``backend_for``'s backend and a
+    ``PG_TIMEOUT`` on every collective, and return the world size.
+    Without them, or with a world of 1, nothing is initialised and the
+    world is 1.  A group already initialised is kept."""
     if dist.is_initialized():
         return dist.get_world_size()
     world = int(os.environ.get("WORLD_SIZE", "1"))
@@ -70,7 +78,7 @@ def init_distributed(device="cuda") -> int:
           f"{torch.cuda.device_count() if dev.type == 'cuda' else 0} cards)",
           flush=True)
     dist.init_process_group(backend, init_method="env://", rank=rank,
-                            world_size=world)
+                            world_size=world, timeout=PG_TIMEOUT)
     return world
 
 
@@ -231,7 +239,8 @@ def _live_mesh(sizes: tuple, names: tuple) -> Mesh:
             members.setdefault(tuple(c[a] for a in names if a not in varying),
                                []).append(r)
         for ranks in members.values():
-            pg = dist.group.WORLD if len(ranks) == world else dist.new_group(ranks)
+            pg = dist.group.WORLD if len(ranks) == world else dist.new_group(
+                ranks, timeout=PG_TIMEOUT)
             if rank in ranks:
                 groups[key] = pg
     return Mesh(shape, rank=rank, groups=groups, backend=dist.get_backend())

@@ -12,13 +12,16 @@ On a mesh (``launch/mesh.py``) the train step is data-parallel over its
 data axes: each rank takes its rows of the global batch, computes its
 share of the global loss (``lm.loss_fn(group=)``), and the gradients are
 summed over the ranks by ``adamw.update(mesh=)``, by ZeRO-1 or plainly as
-the state is laid out.  The serving steps run the dense and moe families
-on a (data, model) mesh: each rank takes its rows of the global batch and
-holds its blocks of the parameters and the cache, tensor- and
-expert-parallel on "model" (``models/lm.py``), the logits its (B, V/M)
-block (``lm.greedy`` picks across them).  Training on a model axis raises
-(ROADMAP.md §1 item 11.7b), and so does serving the ssm, hybrid, vlm and
-encdec families on one (item 11.7c).
+the state is laid out.  On a model axis too (the dense and moe families)
+each rank holds, differentiates and updates its blocks of the parameters
+(``sharding.shard_params``), tensor- and expert-parallel through
+``models/tp.py``'s autograd collectives, and takes the loss from its block
+of the vocabulary; the batch is split over the data ranks only.  The
+serving steps run the same families on a (data, model) mesh: each rank
+takes its rows of the global batch and holds its blocks of the parameters
+and the cache, the logits its (B, V/M) block (``lm.greedy`` picks across
+them).  Training or serving the ssm, hybrid, vlm and encdec families on a
+model axis raises (ROADMAP.md §1 item 11.7c).
 """
 from __future__ import annotations
 
@@ -89,13 +92,15 @@ def model_param_specs(cfg: ModelConfig) -> dict:
     return lm.tree_map(lambda s: (s, lm._pdt(cfg)), shapes)
 
 
-def make_loss_fn(cfg: ModelConfig, group=None):
+def make_loss_fn(cfg: ModelConfig, group=None, mesh=None):
     """(params, batch) -> scalar loss (this rank's share over a data
-    ``group``)."""
+    ``group``; on a ``mesh`` with a model axis, params this rank's
+    blocks)."""
     lm.require_ported(cfg)
+    lm.require_servable(cfg, mesh)
     if cfg.family == "encdec":
         return functools.partial(whisper.loss_fn, cfg=cfg, group=group)
-    return functools.partial(lm.loss_fn, cfg=cfg, group=group)
+    return functools.partial(lm.loss_fn, cfg=cfg, group=group, mesh=mesh)
 
 
 def value_and_grad(loss_fn, params: dict, batch: dict):
@@ -132,13 +137,19 @@ def make_train_step(cfg: ModelConfig, ocfg: OptConfig, n_micro: int = 1,
     shards each of the reference's micro-batches), the loss returned is
     the global one (one all-reduce of the ranks' shares), and the step
     equals the reference's one-device step on the global batch up to the
-    order of float32 sums."""
-    if mesh is not None and mesh.shape.get("model", 1) > 1:
-        raise NotImplementedError(
-            "training on a model axis over 1 (tensor parallelism) is not "
-            "ported yet: ROADMAP.md §1 item 11.7b")
+    order of float32 sums.  On a model axis (the dense and moe families;
+    the others raise, ROADMAP.md §1 item 11.7c) "params" are this rank's
+    blocks (``sharding.shard_params``), "opt" is ``adamw.init_state(...,
+    mesh=mesh, specs=cell_shardings(...)["params"])``, the batch's rows
+    are replicated over "model", and the loss is the same on every rank of
+    the model group."""
+    specs = None
+    if mesh is not None:
+        lm.require_servable(cfg, mesh)
+        specs = sharding.param_shardings(cfg, mesh, model_param_specs(cfg))
+    model_axis = mesh is not None and mesh.shape.get("model", 1) > 1
     dp = mesh.dp if mesh is not None and mesh.dp.size > 1 else None
-    loss_fn = make_loss_fn(cfg, group=dp)
+    loss_fn = make_loss_fn(cfg, group=dp, mesh=mesh if model_axis else None)
 
     def rows(key, v, i):
         mb = _micro(key, v, n_micro, i)
@@ -171,7 +182,7 @@ def make_train_step(cfg: ModelConfig, ocfg: OptConfig, n_micro: int = 1,
                 loss_fn, params, {k: rows(k, v, 0) for k, v in batch.items()})
         if dp is not None:
             loss = dp.all_reduce(loss.clone())
-        adamw.update(params, grads, state["opt"], ocfg, mesh=mesh)
+        adamw.update(params, grads, state["opt"], ocfg, mesh=mesh, specs=specs)
         return state, loss
 
     return train_step

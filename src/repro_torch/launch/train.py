@@ -1,5 +1,5 @@
-"""Training launcher: --arch <id> on one device, or data-parallel over
-the ranks ``torchrun`` starts.
+"""Training launcher: --arch <id> on one device, or over a (data, model)
+mesh of the ranks ``torchrun`` starts.
 
 The port of the reference package's ``launch/train.py``, the dense, moe,
 ssm, hybrid and vlm families: the arch config -> the local mesh ->
@@ -21,16 +21,30 @@ global batches and trains on its rows of each (``steps.make_train_step``);
 the AdamW moments are ZeRO-1 blocks (``OptConfig.zero1``); rank 0 writes
 the checkpoints.  Without ``torchrun`` the world is one process.
 
+``--model-axis M`` lays the ranks out as (data world/M, model M)
+(``make_local_mesh``; a world M does not divide raises ``ValueError``):
+the dense and moe families train tensor- and expert-parallel on "model",
+each rank holding its blocks of the parameters and of the moments,
+data-parallel over "data":
+
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \
+        -m repro_torch.launch.train --arch qwen3-0.6b --reduced \
+        --device cpu --model-axis 2
+
+``--production-mesh`` asks for the reference's 16 x 16 mesh
+(``make_production_mesh``, which raises unless the world holds 256
+ranks).  ``--moe-impl`` sets the config's ``moe_impl`` as the reference
+does: "ep" is ``moe._moe_block_ep`` on a model axis and the gspmd block at
+model axis 1.  The ssm, hybrid and vlm families on a model axis raise
+``NotImplementedError`` (ROADMAP.md §1 item 11.7c).
+
 ``--resume`` continues from the latest checkpoint in ``--ckpt-dir`` (saved
-at any number of ranks).  ``--moe-impl gspmd`` sets the config's
-``moe_impl`` as the reference does; ``--moe-impl ep``, ``--model-axis``
-other than 1 and ``--production-mesh`` (a model axis of 16) raise
-``NotImplementedError``: the model axis serves (``launch/steps.py``), and
-training on it waits for ROADMAP.md §1 item 11.7b.  The vlm family
-trains on the reference's stand-in batches: zero bf16 ``inputs_embeds``
-and positions counting up on all three M-RoPE streams, no tokens.  The
-encdec family exits as the reference's does (a whisper-specific driver).
-``run`` is the body, for callers with their own corpus.
+at any mesh; the blocks are gathered and rank 0 writes whole leaves).  The
+vlm family trains on the reference's stand-in batches: zero bf16
+``inputs_embeds`` and positions counting up on all three M-RoPE streams,
+no tokens.  The encdec family exits as the reference's does (a
+whisper-specific driver).  ``run`` is the body, for callers with their own
+corpus.
 """
 from __future__ import annotations
 
@@ -46,18 +60,12 @@ from ..core.lower import ExecConfig
 from ..data.pipeline import PipelineConfig, TokenPipeline
 from ..data.synth import token_corpus
 from ..configs import ShapeSpec
-from ..models import lm
+from ..models import lm, sharding
 from ..models.config import ModelConfig
 from ..optim import OptConfig, adamw
 from ..runtime import FTConfig, TrainDriver
 from . import mesh as M
 from . import steps as S
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet for training: ROADMAP.md §1 item 11.7b "
-        f"(training on the model axis)")
 
 
 def _require_trainable(cfg: ModelConfig) -> None:
@@ -75,7 +83,8 @@ def run(cfg: ModelConfig, ocfg: OptConfig, corpus: dict, *, steps: int,
     from random weights (seed 0), checkpointing every ``ckpt_every`` steps
     with the arch's name as metadata.  On a ``mesh`` (``make_local_mesh``
     over the initialised group) the steps are data-parallel over its data
-    ranks: ``batch`` is the global batch.
+    ranks (``batch`` is the global batch) and tensor- and expert-parallel
+    over its model ranks, each holding its blocks of rank 0's weights.
 
     Returns the driver's result ({"steps", "losses", "stragglers",
     "mean_step_s"}) with "driver" (the TrainDriver: its state, step times
@@ -85,6 +94,7 @@ def run(cfg: ModelConfig, ocfg: OptConfig, corpus: dict, *, steps: int,
     or None) and "cell" (on a mesh, ``cell_shardings``' specs: "params",
     "opt_sh"; else None)."""
     _require_trainable(cfg)
+    lm.require_servable(cfg, mesh)
     dev = lm.device_of(device)
     exec_cfg = ExecConfig(device=dev.type)
     if mesh is not None and M.mesh_chip_count(mesh) == 1:
@@ -94,10 +104,15 @@ def run(cfg: ModelConfig, ocfg: OptConfig, corpus: dict, *, steps: int,
     model = lm.init_params(cfg, seed=0, device=dev)
     params = model.tree()
     if mesh is not None:
-        # every rank starts from rank 0's draw, as DDP does
+        # every rank starts from rank 0's draw, as DDP does, and keeps its
+        # blocks of it
         for _, t in lm.leaves(params):
             mesh.world.broadcast(t.data)
-    state = {"params": params, "opt": adamw.init_state(params, ocfg, mesh=mesh)}
+        if mesh.shape.get("model", 1) > 1:
+            model = lm.LM(cfg, sharding.shard_params(params, mesh))
+            params = model.tree()
+    state = {"params": params, "opt": adamw.init_state(
+        params, ocfg, mesh=mesh, specs=cell and cell["params"])}
     step_fn = S.make_train_step(cfg, ocfg, n_micro=micro, mesh=mesh)
     t0 = time.perf_counter()
     pipe = TokenPipeline(corpus, PipelineConfig(
@@ -106,7 +121,8 @@ def run(cfg: ModelConfig, ocfg: OptConfig, corpus: dict, *, steps: int,
     try:
         driver = TrainDriver(FTConfig(ckpt_dir=ckpt_dir, ckpt_every=ckpt_every),
                              state, step_fn, metadata={"arch": cfg.name},
-                             mesh=mesh, shardings=cell and {"opt": cell["opt_sh"]})
+                             mesh=mesh, shardings=cell and {"params": cell["params"],
+                                                            "opt": cell["opt_sh"]})
         resumed = None
         if resume and driver.maybe_resume():
             resumed = driver.step
@@ -152,16 +168,20 @@ def main(argv=None) -> dict:
 
     cfg = configs.get_reduced(args.arch) if args.reduced \
         else configs.get_config(args.arch)
-    if args.moe_impl == "ep":
-        raise _not_ported("--moe-impl ep (expert parallelism over a mesh)")
     if args.moe_impl:
         cfg = cfg.replace(moe_impl=args.moe_impl)
-    if args.model_axis != 1 or args.production_mesh:
-        raise _not_ported("a model axis (--model-axis over 1, --production-mesh)")
     _require_trainable(cfg)
+    if args.model_axis > 1 or args.production_mesh:
+        lm.require_servable(cfg, M.Mesh({"data": 1, "model": 2}))
     started = not torch.distributed.is_initialized()
     M.init_distributed(args.device)
-    mesh = M.make_local_mesh(model_axis=args.model_axis)
+    try:
+        mesh = (M.make_production_mesh() if args.production_mesh
+                else M.make_local_mesh(model_axis=args.model_axis))
+    except BaseException:
+        if started and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        raise
     print(f"device {args.device}; mesh {dict(mesh.shape)} "
           f"({mesh.backend or 'one process'}); model {cfg.name} "
           f"{cfg.param_count()/1e6:.1f}M params")

@@ -26,6 +26,14 @@ and the all-gathered partials are merged in rank order
 leaves to GSPMD.  The reference's other GSPMD constraints
 (``_pin_cache_sharding``, ``_seq_shard_qkv``) pin layouts that the port
 holds by construction, or are levers it does not take.
+
+The model-axis collectives go through ``models/tp.py``, whose operators
+autograd differentiates, so the same forward trains: a replicated input
+enters a product on this rank's columns through ``copy_to_model`` (only
+the products whose columns are cut), row-parallel sums leave through
+``reduce_from_model``, gathered columns through ``gather_from_model`` and
+a block of a replicated tensor through ``scatter_to_model``.  The no-cache
+training forward attends on the rank's heads and reaches no all-to-all.
 """
 from __future__ import annotations
 
@@ -37,6 +45,8 @@ import torch.nn.functional as F
 from ..kernels import registry
 from .config import ModelConfig
 from .sharding import SeqBlock
+from .tp import (all_to_all_model, copy_to_model, gather_from_model,
+                 reduce_from_model, scatter_to_model)
 
 ATTN_CHUNK_THRESHOLD = 8192   # plain softmax below, chunked above
 KV_CHUNK = 1024
@@ -165,17 +175,27 @@ def attention_chunked(q, k, v, causal: bool, q_offset=0, kv_chunk: int = KV_CHUN
     return o.permute(0, 3, 1, 2, 4).to(q.dtype)       # (B, Sq, Hkv, G, hd)
 
 
-def _projections(p, x, cfg: ModelConfig, cross: bool):
+def _projections(p, x, cfg: ModelConfig, cross: bool, tp=None):
     """x @ wq (+ bq), and without ``cross`` x @ wk, x @ wv (+ bk, bv):
-    (B, S, columns) in x's dtype, each the rank's columns on a model axis."""
+    (B, S, columns) in x's dtype, each the rank's columns on a model axis
+    ``tp``, where a product whose columns are cut takes x through
+    ``copy_to_model`` (one for all of them) and a replicated one takes x
+    itself."""
     dt = x.dtype
-    q = x @ p["wq"].to(dt)
+    xf = copy_to_model(x, tp)
+    fulls = {"wq": cfg.n_heads * cfg.hd, "wk": cfg.n_kv_heads * cfg.hd,
+             "wv": cfg.n_kv_heads * cfg.hd}
+
+    def into(w):
+        return xf if p[w].shape[-1] != fulls[w] else x
+
+    q = into("wq") @ p["wq"].to(dt)
     if cfg.qkv_bias:
         q = q + p["bq"].to(dt)
     if cross:
         return q, None, None
-    k = x @ p["wk"].to(dt)
-    v = x @ p["wv"].to(dt)
+    k = into("wk") @ p["wk"].to(dt)
+    v = into("wv") @ p["wv"].to(dt)
     if cfg.qkv_bias:
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
@@ -290,8 +310,9 @@ def attention_block(p, x, cfg: ModelConfig, positions, cache=None,
 
 def tp_sum(y, tp, dtype=None):
     """The sum over the model group of the ranks' partial ``y``, in float32,
-    as ``dtype`` (y's by default): one all-reduce, one rounding at the end."""
-    return tp.all_reduce(y.float()).to(dtype or y.dtype)
+    as ``dtype`` (y's by default): one all-reduce, one rounding at the end
+    (``reduce_from_model``: the backward is the identity)."""
+    return reduce_from_model(y, tp, dtype or y.dtype)
 
 
 def row_parallel(y, w, tp, full: int):
@@ -300,12 +321,13 @@ def row_parallel(y, w, tp, full: int):
     y's when y holds only them) times w in float32, summed over the ranks
     and rounded once to y's dtype, as the one-device product accumulates
     in float32 and rounds once; with them replicated, y @ w on every
-    rank."""
+    rank.  A whole (replicated) y gives up its block through
+    ``scatter_to_model``, so its cotangent comes back whole."""
     rows = w.shape[0]
     if rows == full:
         return y @ w.to(y.dtype)
     if y.shape[-1] == full:
-        y = y[..., tp.index * rows:(tp.index + 1) * rows]
+        y = scatter_to_model(y, tp, -1)
     return tp_sum(y.float() @ w.float(), tp, y.dtype)
 
 
@@ -318,7 +340,7 @@ def _whole_columns(tp, parts: list, fulls: list) -> list:
     if not which:
         return list(parts)
     widths = [parts[i].shape[-1] for i in which]
-    both = tp.all_gather(torch.cat([parts[i] for i in which], dim=-1)[None])
+    both = gather_from_model(torch.cat([parts[i] for i in which], dim=-1)[None], tp)
     out = list(parts)
     for i, piece in zip(which, both.split(widths, dim=-1)):
         # (M, B, S, w) -> (B, S, M w): rank r's block at columns r w
@@ -338,7 +360,7 @@ def heads_to_seq(tp, kv, idx: int, blk: SeqBlock):
              for j in range(m)]
     send = [max(hi - lo, 0) for lo, hi in spans]
     mine = send[tp.index]
-    got = tp.all_to_all(kv.transpose(0, 1), send, [mine] * m)      # (m r, B, n, w)
+    got = all_to_all_model(kv.transpose(0, 1), tp, send, [mine] * m)  # (m r, B, n, w)
     got = got.reshape(m, mine, b, n, w).permute(2, 1, 0, 3, 4)
     return got.reshape(b, mine, m * n, w), spans[tp.index][0] - blk.offset
 
@@ -350,7 +372,7 @@ def attention_tp(p, x, cfg: ModelConfig, positions, cache, tp):
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     g, m = h // hkv, tp.size
-    q, k, v = _projections(p, x, cfg, cross=False)
+    q, k, v = _projections(p, x, cfg, cross=False, tp=tp)
     idx = cache["index"] if cache is not None else 0
     blk = cache["block"] if cache is not None else None
     if blk is not None and idx + s > blk.total:
@@ -380,8 +402,12 @@ def attention_tp(p, x, cfg: ModelConfig, positions, cache, tp):
     local = (q.shape[-1] != h * hd and k.shape[-1] != hkv * hd
              and h % m == 0 and hkv % m == 0)
     if local:
-        # this rank's query heads and their KV heads
+        # this rank's query heads and their KV heads; the per-head norm
+        # scales, replicated, scale only these heads here
         nq, nk = h // m, hkv // m
+        if cfg.qk_norm:
+            p = dict(p, q_norm=copy_to_model(p["q_norm"], tp),
+                     k_norm=copy_to_model(p["k_norm"], tp))
     else:
         # heads the rules do not cut whole: every head on every rank
         q, k, v = _whole_columns(tp, [q, k, v], [h * hd, hkv * hd, hkv * hd])
@@ -418,9 +444,12 @@ def attention_tp(p, x, cfg: ModelConfig, positions, cache, tp):
 # MLP
 # ---------------------------------------------------------------------------
 
-def swiglu_hidden(p, x, dt=None):
-    """SwiGLU's hidden activations silu(x @ w_gate) * (x @ w_up)."""
+def swiglu_hidden(p, x, dt=None, tp=None):
+    """SwiGLU's hidden activations silu(x @ w_gate) * (x @ w_up); over a
+    model group ``tp`` (the in-projections this rank's columns) x enters
+    through ``copy_to_model``."""
     dt = dt or x.dtype
+    x = copy_to_model(x, tp)
     return F.silu(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
 
 

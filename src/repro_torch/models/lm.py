@@ -67,6 +67,14 @@ expert-parallel (``models/layers.py``, ``models/moe.py``), and the head
 the logits, the reference's (dp, "model") out-sharding; ``greedy`` picks
 the next tokens across the blocks.  The ssm, hybrid and vlm families on a
 model axis wait for ROADMAP.md §1 item 11.7c.
+
+Training on a mesh (``loss_fn(mesh=)``; the dense and moe families): the
+same forward on this rank's blocks, its collectives ``models/tp.py``'s
+autograd operators (the embedding's sum a ``reduce_from_model``, the head's
+input a ``copy_to_model``), and the loss ``tp.vocab_parallel_token_loss``
+over the (B, S, V/M) block, so no rank holds the whole logits.  With remat
+each block's recomputation re-issues its collectives in the backward pass,
+in the one order every rank's identical graph gives.
 """
 from __future__ import annotations
 
@@ -83,6 +91,7 @@ from . import sharding
 from . import ssm as ssm_mod
 from .config import ModelConfig
 from .layers import attention_block, norm, row_parallel, swiglu, swiglu_hidden
+from .tp import copy_to_model, reduce_from_model, vocab_parallel_token_loss
 
 #: the decoder-only families of this module
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
@@ -336,7 +345,7 @@ def copy_into(dst: dict, src: dict) -> None:
 
 
 def require_servable(cfg: ModelConfig, mesh) -> None:
-    """The families that run on a model axis: dense and moe."""
+    """The families that serve and train on a model axis: dense and moe."""
     if mesh is not None and mesh.shape.get("model", 1) > 1 \
             and cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
@@ -463,7 +472,8 @@ def _transformer_block(lp: Block, x, cfg: ModelConfig, positions, cache=None,
             return x + swiglu(lp.mlp, norm(x, lp.ln2, cfg)), 0.0
         # the moe family's only SwiGLU blocks are its first dense layers
         ff = cfg.d_ff_first_dense if cfg.family == "moe" else cfg.d_ff
-        return x + row_parallel(swiglu_hidden(lp.mlp, norm(x, lp.ln2, cfg)),
+        cut = tp if lp.mlp["w_down"].shape[0] != ff else None
+        return x + row_parallel(swiglu_hidden(lp.mlp, norm(x, lp.ln2, cfg), tp=cut),
                                 lp.mlp["w_down"], tp, ff), 0.0
     y, aux = moe_mod.moe_block(lp.moe, norm(x, lp.ln2, cfg), cfg, group=group,
                                mesh=mesh)
@@ -481,7 +491,7 @@ def embed_tokens(embed, tokens, cfg: ModelConfig, tp=None):
     local = tokens - tp.index * rows
     mine = (local >= 0) & (local < rows)
     x = F.embedding(torch.where(mine, local, 0), embed)
-    return tp.all_reduce(torch.where(mine[..., None], x.float(), 0.0)).to(_dt(cfg))
+    return reduce_from_model(torch.where(mine[..., None], x.float(), 0.0), tp, _dt(cfg))
 
 
 def greedy(logits, cfg: ModelConfig, mesh=None):
@@ -528,8 +538,8 @@ def forward(params, tokens, cfg: ModelConfig, *, positions=None,
     route as the global computation does (``moe.route``) and aux_loss is
     this rank's share of the global one.
 
-    mesh: serving on a mesh (module docstring): params and caches this
-    rank's blocks, tokens its rows; the logits its (B, S, V/M) block on a
+    mesh: serving or training on a mesh (module docstring): params and
+    caches this rank's blocks, tokens its rows; the logits its (B, S, V/M) block on a
     model axis.  The data group is ``group``'s default.
     """
     _require_lm(cfg)
@@ -582,7 +592,7 @@ def forward(params, tokens, cfg: ModelConfig, *, positions=None,
             for i, lp in enumerate(unstack(tree[name], n)):
                 if remat:
                     x, aux = checkpoint(_transformer_block, lp, x, cfg, positions,
-                                        group=group, use_reentrant=False,
+                                        group=group, mesh=mesh, use_reentrant=False,
                                         preserve_rng_state=False)
                 else:
                     x, aux = _transformer_block(lp, x, cfg, positions,
@@ -594,6 +604,8 @@ def forward(params, tokens, cfg: ModelConfig, *, positions=None,
 
     x = norm(x, tree["final_ln"], cfg)
     head = tree["embed"] if cfg.tie_embeddings else tree["lm_head"]
+    if head.shape[0] != cfg.vocab:             # this rank's block of V
+        x = copy_to_model(x, tp)
     logits = x @ head.to(cdt).T
     return logits, caches, total_aux
 
@@ -617,17 +629,25 @@ def _advance(caches: dict, index: int) -> None:
         caches["host_index"] = index
 
 
-def loss_fn(params, batch: dict, cfg: ModelConfig, group=None):
+def loss_fn(params, batch: dict, cfg: ModelConfig, group=None, mesh=None):
     """Causal LM loss, as the reference computes it: ``token_loss`` plus
     0.01 x the aux loss.  batch: {"tokens" (B, S) int32, "labels" (B, S)
     int32}; the vlm family's "inputs_embeds" and "positions" in place of
     "tokens" (``forward``).  Over a data ``group`` (each rank its rows of
     one global batch) it is this rank's share of the global loss: the
-    shares, and their gradients, sum over the ranks to the global batch's."""
+    shares, and their gradients, sum over the ranks to the global batch's.
+    On a ``mesh`` with a model axis params are this rank's blocks and the
+    loss is taken from its block of the logits
+    (``tp.vocab_parallel_token_loss``); every rank of the model group
+    holds the same value."""
     logits, _, aux = forward(params, batch.get("tokens"), cfg,
                              positions=batch.get("positions"),
                              inputs_embeds=batch.get("inputs_embeds"),
-                             group=group)
+                             group=group, mesh=mesh)
+    tp = sharding.model_group(mesh)
+    if tp is not None and logits.shape[-1] != cfg.vocab:
+        return vocab_parallel_token_loss(logits, batch["labels"], tp, group) \
+            + 0.01 * aux
     return token_loss(logits, batch["labels"], group) + 0.01 * aux
 
 

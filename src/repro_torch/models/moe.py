@@ -23,20 +23,30 @@ share of the global one (global first-choice shares, local probability
 sums over the global token count), so the shares and their gradients sum
 over the ranks to the reference's.
 
-On a mesh with a "model" axis of M ranks (serving; training there waits
-for ROADMAP.md §1 item 11.7b) each rank holds E/M experts (the reference's
-EP rule) and the shared experts' column and row blocks, and the block
-input is replicated over "model".  With ``moe_impl == "ep"`` and M
+On a mesh with a "model" axis of M ranks (serving and training) each rank
+holds E/M experts (the reference's EP rule) and the shared experts' column
+and row blocks, and the block input is replicated over "model".  With ``moe_impl == "ep"`` and M
 dividing E it is the reference's ``_moe_block_ep``: the router is
 replicated, each rank ranks the rows routed to its own experts through
 ``bucket_scatter`` at P = E/M + 1 (bucket E/M: another rank's, the
 reference's ``le_c``; ``ep_slots``), with a capacity per (expert, data
-shard), and aux from global means over the data axes.  Otherwise (the
+shard), and aux the product of global means over the data axes (this
+rank's share of it: its probabilities' sum over the global count times
+the global first-choice shares, so the shares and their gradients sum to
+the reference's).  Otherwise (the
 "gspmd" impl) it is the one-device block's function: global ranks and
 capacity (``route``), each rank computing its experts' rows.  Either way
 the experts' and the shared experts' partial outputs are summed by ONE
 all-reduce over "model" a layer.  Without a model axis "ep" computes the
 gspmd block, as the reference's does without an EP mesh.
+
+In training the block's input enters this rank's experts (and the cut
+shared experts) through ``tp.copy_to_model``, one for both, and so do the
+routing weights, whose cotangent each rank holds only for its own experts'
+rows; the partials leave through ``tp.reduce_from_model``.  The router and
+the aux loss are computed whole on every rank.  With remat the routing is
+recomputed in the backward pass: the same experts and slots, since
+``bucket_scatter``'s slots are deterministic.
 """
 from __future__ import annotations
 
@@ -51,6 +61,7 @@ from ..kernels.hash_partition.hash_partition import MAX_P
 from .config import ModelConfig
 from .layers import swiglu, swiglu_hidden, tp_sum
 from .sharding import model_group
+from .tp import copy_to_model
 
 
 def expert_capacity(cfg: ModelConfig, n_tokens: int) -> int:
@@ -142,12 +153,31 @@ def moe_block(p: dict, x, cfg: ModelConfig, group=None, mesh=None):
     tp = model_group(mesh)
     E_loc = p["experts"]["w_gate"].shape[0]
     flat_e = r.topi.reshape(T * k)
+    xf, topw = _entry(p, xt, r.topw, cfg, tp)
     if E_loc != E:
         # this rank's experts [lo, lo + E_loc); the rest to bucket E_loc
         le = flat_e - tp.index * E_loc
         flat_e = torch.where((le >= 0) & (le < E_loc), le, E_loc)
-    y = _experts(p["experts"], xt, flat_e, r.slot, r.topw, E_loc, r.C, k)
-    return _with_shared(p, y, xt, cfg, tp).reshape(b, s, d), r.aux
+    y = _experts(p["experts"], xf if E_loc != E else xt, flat_e, r.slot, topw,
+                 E_loc, r.C, k)
+    return _with_shared(p, y, xt, cfg, tp, xf).reshape(b, s, d), r.aux
+
+
+def _shared_cut(p: dict, cfg: ModelConfig) -> bool:
+    """The shared experts' columns are this rank's block of them."""
+    return "shared" in p and \
+        p["shared"]["w_down"].shape[0] != cfg.d_ff_expert * cfg.n_shared_experts
+
+
+def _entry(p: dict, xt, topw, cfg: ModelConfig, tp):
+    """(xt, topw) as they enter the rank's share of the block over a model
+    group ``tp``: xt through one ``copy_to_model`` when the experts or the
+    shared experts are cut, topw through another when the experts are."""
+    if tp is None:
+        return xt, topw
+    cut = p["experts"]["w_gate"].shape[0] != cfg.n_experts
+    xf = copy_to_model(xt, tp) if cut or _shared_cut(p, cfg) else xt
+    return xf, (copy_to_model(topw, tp) if cut else topw)
 
 
 def _experts(ex: dict, xt, le, slot, topw, E_loc: int, C: int, k: int):
@@ -174,20 +204,20 @@ def _experts(ex: dict, xt, le, slot, topw, E_loc: int, C: int, k: int):
     return contrib.view(T, k, d).sum(1)
 
 
-def _with_shared(p: dict, y, xt, cfg: ModelConfig, tp):
+def _with_shared(p: dict, y, xt, cfg: ModelConfig, tp, xf=None):
     """The experts' ``y`` plus the shared experts' SwiGLU of ``xt``, summed
     over the model group ``tp`` when the experts are split over it: the
     shared experts' partial, when their rules split them too, in the same
-    all-reduce."""
+    all-reduce (``xf``: xt as it enters their columns, ``_entry``)."""
     if tp is None:
         return y + swiglu(p["shared"], xt) if "shared" in p else y
-    terms = [(y, cfg.n_experts % tp.size == 0)]
+    terms = [(y, p["experts"]["w_gate"].shape[0] != cfg.n_experts)]
     if "shared" in p:
-        cut = (cfg.d_ff_expert * cfg.n_shared_experts) % tp.size == 0
+        cut = _shared_cut(p, cfg)
         sh = p["shared"]
         # a split down-projection's partial in float32, as row_parallel's
-        terms.append((swiglu_hidden(sh, xt).float() @ sh["w_down"].float() if cut
-                      else swiglu(sh, xt), cut))
+        terms.append((swiglu_hidden(sh, xt if xf is None else xf).float()
+                      @ sh["w_down"].float() if cut else swiglu(sh, xt), cut))
     split = [t for t, cut in terms if cut]
     out = tp_sum(sum(split[1:], split[0]), tp, y.dtype) if split else 0
     for t, cut in terms:
@@ -228,15 +258,20 @@ def _moe_block_ep(p: dict, x, cfg: ModelConfig, mesh):
     topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
     me = probs.mean(0)
     ce = F.one_hot(topi[:, 0], E).float().mean(0)
-    if mesh.dp.size > 1:           # the product of GLOBAL means
-        me = mesh.dp.all_reduce(me) / mesh.dp.size
+    if mesh.dp.size > 1:
+        # the product of GLOBAL means, as this rank's share: the global
+        # first-choice shares (no gradient) times its probabilities' mean
+        # over the global count
         ce = mesh.dp.all_reduce(ce) / mesh.dp.size
+        me = me / mesh.dp.size
     aux = E * torch.sum(me * ce)
     le, slot = ep_slots(topi.reshape(T * k), E, M, mesh.coords["model"],
                         registry.resolve(x.device.type))
-    y = _experts(p["experts"], xt, le, slot, topw, E // M,
+    tp = model_group(mesh)
+    xf, topw = _entry(p, xt, topw, cfg, tp)
+    y = _experts(p["experts"], xf, le, slot, topw, E // M,
                  expert_capacity(cfg, T), k)
-    return _with_shared(p, y, xt, cfg, model_group(mesh)).reshape(b, s, d), aux
+    return _with_shared(p, y, xt, cfg, tp, xf).reshape(b, s, d), aux
 
 
 def moe_param_shapes(cfg: ModelConfig) -> dict:

@@ -16,13 +16,14 @@ dropped (``spec``; a tuple of one name is the name, as jax normalises it).
 ``shard`` and ``gather`` move between a whole tensor and this rank's block
 of it; ``shard_params`` and ``shard_cache`` cut a parameter or cache tree
 into this rank's blocks by the rules, and ``seq_block`` gives a rank's rows
-of a cache sharded along S.  On a mesh the port trains over the data axes
-(``launch/steps.py``, ``optim/adamw.py``) and serves the dense and moe
-families over data and model axes (``models/{layers,moe,lm}.py``): a block
-the rules give a rank is what it holds and computes, a dim they replicate
-is computed whole on every rank.  Training on a model axis waits for
-ROADMAP.md §1 item 11.7b, the ssm channel sharding and the vlm, hybrid and
-encdec families on it for item 11.7c.
+of a cache sharded along S.  On a mesh the port trains and serves the
+dense and moe families over data and model axes (``launch/steps.py``,
+``optim/adamw.py``, ``models/{layers,moe,lm,tp}.py``): a block the rules
+give a rank is what it holds, computes and differentiates (the leaves of
+``shard_params`` are the train step's parameters), a dim they replicate is
+computed whole on every rank.  The ssm channel sharding and the vlm,
+hybrid and encdec families on a model axis wait for ROADMAP.md §1 item
+11.7c.
 """
 from __future__ import annotations
 
@@ -176,6 +177,22 @@ def local_shape(shape: tuple, sp: tuple, mesh) -> tuple:
     """The shape of a rank's block of a ``shape`` tensor under ``sp``."""
     return tuple(d // _axsize(mesh, sp[i]) if i < len(sp) else d
                  for i, d in enumerate(shape))
+
+
+def whole_shape(block: tuple, sp: tuple, mesh) -> tuple:
+    """The shape of the whole tensor of which a ``block``-shaped tensor is a
+    rank's block under ``sp`` (``local_shape``'s inverse)."""
+    return tuple(d * _axsize(mesh, sp[i]) if i < len(sp) else d
+                 for i, d in enumerate(block))
+
+
+def only_axes(sp: tuple, axes: tuple) -> tuple:
+    """``sp`` with every entry that names none of ``axes`` made None: the
+    spec that cuts a block further along those axes alone."""
+    def keep(e):
+        names = (e,) if isinstance(e, str) else (e or ())
+        return e if any(a in axes for a in names) else None
+    return spec(*map(keep, sp))
 
 
 def shard(t: torch.Tensor, sp: tuple, mesh) -> torch.Tensor:

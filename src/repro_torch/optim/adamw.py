@@ -26,6 +26,16 @@ norm is the global one: the blocks' squares summed, then one all-reduce.
 With ``zero1=False`` every gradient is all-reduced and the moments are
 whole on every rank.  Without a mesh, or with one data rank, nothing is
 communicated and the arithmetic is the one-process step's.
+
+On a mesh with a model axis the parameters and gradients are this rank's
+blocks (``sharding.shard_params``) and ``specs=`` gives the whole leaves'
+specs (``sharding.param_shardings`` of the whole shapes; ``steps.
+cell_shardings``' "params"): each moment is then ``zero1_spec``'s data-axis
+block OF THE MODEL BLOCK (the reference's ``zero1_spec(mesh, param_spec,
+shape)``), the data-axis sums run over the data group of this rank's model
+index, and the clipping norm adds each model-sharded leaf's squares over
+"model" and over the data axes, and each leaf replicated over "model"
+(norm scales, the router) once, not M times.
 """
 from __future__ import annotations
 
@@ -71,17 +81,19 @@ def lr_at(step, cfg: OptConfig) -> torch.Tensor:
     return cfg.lr * warm * decay
 
 
-def init_state(params: dict, cfg: OptConfig, mesh=None) -> dict:
+def init_state(params: dict, cfg: OptConfig, mesh=None, specs=None) -> dict:
     """Zero moments in ``cfg.state_dtype`` beside each parameter, step 0 on
     the parameters' device (+ float32 master copies with ``use_master``);
-    on a ``mesh``, each this rank's block of ``state_shardings``' layout."""
+    on a ``mesh``, each this rank's block of ``state_shardings``' layout
+    (on a model axis ``params`` this rank's blocks and ``specs`` the whole
+    leaves' specs: module docstring)."""
     sdt = getattr(torch, cfg.state_dtype)
     dev = next(leaves(params))[1].device
-    specs = _moment_specs(params, cfg, mesh)
+    lay = _layout(params, cfg, mesh, specs)
 
     def zeros(path, p):
         shape = p.shape if mesh is None else sharding.local_shape(
-            tuple(p.shape), _at(specs, path), mesh)
+            lay[path].whole, lay[path].moment, mesh)
         return torch.zeros(shape, dtype=sdt, device=p.device)
 
     state = {"m": tree_map(zeros, params, path=()),
@@ -89,8 +101,8 @@ def init_state(params: dict, cfg: OptConfig, mesh=None) -> dict:
              "step": torch.zeros((), dtype=torch.int32, device=dev)}
     if cfg.use_master:
         state["master"] = tree_map(
-            lambda path, p: (p.detach() if mesh is None else sharding.shard(
-                p.detach(), _at(specs, path), mesh)).float().clone(),
+            lambda path, p: (p.detach() if mesh is None else lay[path].block(
+                p.detach(), mesh)).float().clone(),
             params, path=())
     return state
 
@@ -118,14 +130,17 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def update(params: dict, grads: dict, state: dict, cfg: OptConfig, mesh=None):
+def update(params: dict, grads: dict, state: dict, cfg: OptConfig, mesh=None,
+           specs=None):
     """One AdamW step: writes the new parameters and state in place and
     returns (params, state, stats), stats = {"lr", "grad_norm"} (the norm
     before clipping), both float32 scalar tensors.  On a ``mesh`` with more
     than one data rank, ``grads`` is this rank's share and ``state`` is laid
-    out by ``init_state(..., mesh=)`` (module docstring)."""
-    if mesh is not None and mesh.dp.size > 1:
-        return _update_dp(params, grads, state, cfg, mesh)
+    out by ``init_state(..., mesh=)``; on a model axis params and grads are
+    this rank's blocks and ``specs`` the whole leaves' specs (module
+    docstring)."""
+    if mesh is not None and (mesh.dp.size > 1 or _model(mesh) is not None):
+        return _update_mesh(params, grads, state, cfg, mesh, specs)
     step = state["step"]
     step.add_(1)
     lr = lr_at(step, cfg)
@@ -169,45 +184,112 @@ def _upd_fn(cfg: OptConfig, step, lr, scale):
     return upd
 
 
-def _update_dp(params: dict, grads: dict, state: dict, cfg: OptConfig, mesh):
-    """``update`` over the data ranks of ``mesh``: each gradient summed over
-    the ranks (reduce-scattered to this rank's block along its ZeRO-1 dim,
-    or all-reduced), the global norm from one all-reduce of the blocks'
-    squares, the arithmetic on this rank's block, the parameter
-    all-gathered."""
+def _update_mesh(params: dict, grads: dict, state: dict, cfg: OptConfig,
+                 mesh, specs=None):
+    """``update`` on ``mesh``: each gradient summed over the data ranks
+    (reduce-scattered to this rank's block along its ZeRO-1 dim, or
+    all-reduced), the global norm (``mesh_sq_norm``), the arithmetic on
+    this rank's block, the parameter all-gathered over the data ranks."""
     dp = mesh.dp
-    specs = _moment_specs(params, cfg, mesh)
+    lay = _layout(params, cfg, mesh, specs)
     step = state["step"]
     step.add_(1)
     lr = lr_at(step, cfg)
-    summed, sharded_sq, whole_sq = {}, [], []
+    summed, sq = {}, {}
     for path, g in leaves(grads):
-        dim = dp_dim(_at(specs, path))
+        dim = lay[path].dim
         if dim is None:
             gs = dp.all_reduce(g.to(torch.float32, copy=True))
-            whole_sq.append(torch.sum(torch.square(gs)))
         else:
             gs = dp.reduce_scatter(g.float(), dim)
-            sharded_sq.append(torch.sum(torch.square(gs)))
+        sq[path] = torch.sum(torch.square(gs))
         summed[path] = gs
-    sq = dp.all_reduce(torch.stack(sharded_sq).sum()) if sharded_sq else 0.0
-    if whole_sq:
-        sq = sq + torch.stack(whole_sq).sum()
-    gnorm = torch.sqrt(torch.as_tensor(sq, dtype=torch.float32))
+    gnorm = torch.sqrt(_global_sq(sq, lay, mesh))
     upd = _upd_fn(cfg, step, lr, _clip_scale(cfg, gnorm))
     for path, p in leaves(params):
-        dim = dp_dim(_at(specs, path))
         rest = [_at(state["m"], path), _at(state["v"], path)]
         if cfg.use_master:
             rest.append(_at(state["master"], path))
         g = summed.pop(path)
-        if dim is None:
+        if lay[path].dim is None:
             upd(p, g, *rest)
         else:
-            block = sharding.shard(p, _at(specs, path), mesh)
+            block = lay[path].block(p, mesh)
             upd(block, g, *rest)
-            p.copy_(dp.all_gather(block, dim))
+            if dp.size > 1:
+                p.copy_(dp.all_gather(block, lay[path].dim))
     return params, state, {"lr": lr, "grad_norm": gnorm}
+
+
+def _global_sq(sq: dict, lay: dict, mesh) -> torch.Tensor:
+    """The squared global norm from each leaf's sum of squares ``sq`` (path
+    -> float32 scalar) of this rank's part of its data-summed gradient
+    (``lay``: ``_layout``'s): the ZeRO-1 blocks' sums added over the data
+    ranks (one all-reduce for all of them), then the model-sharded leaves'
+    over the model ranks (one more); a leaf replicated over "model" counts
+    once."""
+    tp = _model(mesh)
+    # [cut over "model"][a ZeRO-1 block, or whole over the data axes]
+    parts = {c: {True: [], False: []} for c in (True, False)}
+    for path, v in sq.items():
+        parts[tp is not None and lay[path].cut][lay[path].dim is not None].append(v)
+    cuts = [c for c in (True, False) if parts[c][True]]
+    total = dict(zip(cuts, mesh.dp.all_reduce(torch.stack(
+        [torch.stack(parts[c][True]).sum() for c in cuts])))) if cuts else {}
+    for c in (True, False):
+        t = total.get(c, 0.0)
+        if parts[c][False]:
+            t = t + torch.stack(parts[c][False]).sum()
+        total[c] = torch.as_tensor(t, dtype=torch.float32)
+    if tp is None:
+        return total[False]
+    return tp.all_reduce(total[True].clone()) + total[False]
+
+
+def _model(mesh):
+    """The mesh's live "model" group of more than one rank, or None."""
+    g = mesh.groups.get("model")
+    return g if g is not None and g.size > 1 else None
+
+
+class _Leaf:
+    """One leaf's layout on a mesh: ``whole`` its whole shape, ``moment``
+    its moments' spec (``zero1_spec``'s), ``dim`` the dim that cuts over
+    the data axes (or None), ``cut`` whether "model" cuts the parameter
+    (its spec ``spec`` names the axis, which then holds more than one
+    rank)."""
+
+    def __init__(self, whole, spec, moment, mesh):
+        self.whole, self.moment = whole, moment
+        self.dim = dp_dim(moment)
+        self.cut = mesh.shape.get("model", 1) > 1 and bool(
+            sharding.only_axes(spec, ("model",)))
+        self._data = sharding.only_axes(moment, ("pod", "data"))
+
+    def block(self, p, mesh):
+        """This rank's data-axis block of ``p``, its model block (a view)."""
+        return sharding.shard(p, self._data, mesh)
+
+
+def _layout(params: dict, cfg: OptConfig, mesh, specs=None) -> dict | None:
+    """path -> ``_Leaf`` for every leaf of ``params`` on ``mesh`` (None
+    without one).  ``specs``: the whole leaves' parameter specs, needed on
+    a model axis, where ``params`` are blocks; without them the leaves are
+    taken whole."""
+    if mesh is None:
+        return None
+    if specs is None:
+        if _model(mesh) is not None:
+            raise ValueError("on a model axis the parameters are blocks: pass "
+                             "specs= (the whole leaves' specs)")
+        specs = sharding.param_shardings(None, mesh, params)
+    whole = {path: (sharding.whole_shape(tuple(p.shape), sharding.spec_at(specs, path),
+                                         mesh), p.dtype)
+             for path, p in leaves(params)}
+    wtree = tree_map(lambda path, p: whole[path], params, path=())
+    moments = state_shardings(mesh, specs, wtree, cfg)["m"]
+    return {path: _Leaf(whole[path][0], sharding.spec_at(specs, path),
+                        _at(moments, path), mesh) for path in whole}
 
 
 def _at(tree, path):
@@ -223,15 +305,6 @@ def dp_dim(sp: tuple):
         if any(a in ("pod", "data") for a in names):
             return i
     return None
-
-
-def _moment_specs(params: dict, cfg: OptConfig, mesh):
-    """Each moment's spec on ``mesh`` (``state_shardings``' "m"), or None
-    without a mesh."""
-    if mesh is None:
-        return None
-    return state_shardings(mesh, sharding.param_shardings(None, mesh, params),
-                           params, cfg)["m"]
 
 
 # ---------------------------------------------------------------------------

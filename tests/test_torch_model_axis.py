@@ -5,8 +5,8 @@ partial softmax and its merge (``decode_attention_partial`` /
 the reference's ``_moe_block_ep`` on a one-device (data 1, model 1) mesh;
 its ranks at P = E/M + 1 against the reference's one-hot cumsum; each
 rank's parameter and cache blocks against the reference's
-``param_spec_for`` / ``cache_spec_for``; and what still raises on a model
-axis.  The two-rank serving checks run in tests/test_torch_sharding.py's
+``param_spec_for`` / ``cache_spec_for``; which families build a train step on a model axis
+and what still raises there.  The two-rank serving checks run in tests/test_torch_sharding.py's
 spawn (tests/torch_dp_ranks.py).
 
 Tolerances: float32 attention within 2e-5 (the reference's own float32
@@ -363,12 +363,20 @@ def test_other_families_on_a_model_axis_raise(arch):
 
 
 def test_training_on_a_model_axis_raises():
-    """The dense and moe families serve on a model axis; training there
-    raises, naming ROADMAP.md item 11.7b."""
+    """The dense and moe families build a train step on a model axis (they
+    train there: tests/test_torch_sharding.py's spawn, tests/test_torch_tp_train.py);
+    the vlm, ssm, hybrid and encdec families raise, naming ROADMAP.md item
+    11.7c, and build one on the data axis alone."""
+    mesh = Mesh({"data": 1, "model": 2})
     for arch in ("qwen3-0.6b", "deepseek-moe-16b"):
+        for impl in ("gspmd", "ep"):
+            cfg = get_reduced(arch).replace(moe_impl=impl)
+            assert callable(tsteps.make_prefill_step(cfg, 16, mesh=mesh))
+            assert callable(tsteps.make_decode_step(cfg, mesh=mesh))
+            assert callable(tsteps.make_train_step(cfg, OptConfig(), mesh=mesh))
+    for arch in ("qwen2-vl-2b", "falcon-mamba-7b", "zamba2-7b", "whisper-base"):
         cfg = get_reduced(arch)
-        mesh = Mesh({"data": 1, "model": 2})
-        assert callable(tsteps.make_prefill_step(cfg, 16, mesh=mesh))
-        assert callable(tsteps.make_decode_step(cfg, mesh=mesh))
-        with pytest.raises(NotImplementedError, match=r"11\.7b"):
+        with pytest.raises(NotImplementedError, match=r"11\.7c"):
             tsteps.make_train_step(cfg, OptConfig(), mesh=mesh)
+        assert callable(tsteps.make_train_step(cfg, OptConfig(),
+                                               mesh=Mesh({"data": 2, "model": 1})))

@@ -239,10 +239,11 @@ def test_moe_routes_through_the_registry(monkeypatch):
 
 
 def test_moe_raises_where_not_ported():
-    """Expert parallelism serves (tests/test_torch_model_axis.py; without a
-    model axis "ep" is the gspmd block, as the reference's without an EP
-    mesh); training with it raises, naming ROADMAP.md item 11.7b; more than
-    2048 buckets raise a ValueError, at P = E and at P = E/M + 1."""
+    """Expert parallelism serves and trains (tests/test_torch_model_axis.py,
+    tests/test_torch_sharding.py's spawn; without a model axis "ep" is the
+    gspmd block, as the reference's without an EP mesh, and the launcher's
+    ``--moe-impl ep`` trains there); more than 2048 buckets raise a
+    ValueError, at P = E and at P = E/M + 1."""
     from repro_torch.launch.mesh import Mesh
     rcfg = rget_reduced("deepseek-moe-16b")
     p, x = _moe_case(rcfg, 3)
@@ -257,12 +258,14 @@ def test_moe_raises_where_not_ported():
     with pytest.raises(ValueError, match=str(thp.MAX_P)):
         tmoe.moe_block(tp, _t(x), big.replace(moe_impl="ep", n_experts=thp.MAX_P),
                        mesh=Mesh({"data": 1, "model": 1}))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.*11\.7b"):
-        ttrain.main(["--arch", "deepseek-moe-16b", "--reduced", "--device", "cpu",
-                     "--moe-impl", "ep"])
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.*11\.7b"):
-        tsteps.make_train_step(_port_cfg(rcfg).replace(moe_impl="ep"), OptConfig(),
-                               mesh=Mesh({"data": 1, "model": 2}))
+    with tempfile.TemporaryDirectory() as d:
+        res = ttrain.main(["--arch", "deepseek-moe-16b", "--reduced", "--device", "cpu",
+                           "--moe-impl", "ep", "--steps", "1", "--batch", "2",
+                           "--seq", "8", "--ckpt-dir", d])
+    assert res["steps"] == 1 and np.isfinite(res["losses"][0])
+    assert callable(tsteps.make_train_step(_port_cfg(rcfg).replace(moe_impl="ep"),
+                                           OptConfig(),
+                                           mesh=Mesh({"data": 1, "model": 2})))
 
 
 # ---------------------------------------------------------------------------

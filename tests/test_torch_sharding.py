@@ -20,7 +20,16 @@ and of the reduced deepseek-moe-16b (expert-parallel and gspmd, capacity
 binding) against the reference's one-device steps on the same weights in
 float32 (rtol 1e-4, atol 1e-5: the same operations, the row-parallel sums
 added in another order), their greedy picks, caches, a prompt prefilled in
-two chunks, and a decode step's collectives against the layout.
+two chunks, and a decode step's collectives against the layout.  Then, on
+that mesh, training: the reduced qwen3-0.6b tensor-parallel and the
+reduced deepseek-moe-16b expert-parallel and with its expert-sharded
+gspmd block, remat per block, one and two micro-batches, against the
+reference's one-device step on the same global batch (the gradients of
+the first batch, both steps' losses, the parameters and the AdamW state,
+to the data-parallel cases' tolerances); a checkpoint saved there restored
+on the mesh and at one process, bitwise; the launcher with
+``--model-axis 2``.  The (data 2, model 2) checks spawn four ranks of
+their own (tests/test_torch_tp_train.py).
 """
 from __future__ import annotations
 
@@ -303,6 +312,11 @@ CASES = [(a, z, n) for a in ARCHS for z in (True, False) for n in (1, 2)]
 CKPT_CASE = "qwen3-0.6b-zero1-micro1"
 LAUNCHER = ["--arch", "qwen3-0.6b", "--reduced", "--device", "cpu", "--steps", "2",
             "--batch", "4", "--seq", "16"]
+# the launcher on the model axis: the dense family, and the moe family
+# expert-parallel (at model axis 1 "ep" is the gspmd block)
+TP_LAUNCHERS = {"dense": LAUNCHER,
+                "ep": ["--arch", "deepseek-moe-16b", "--reduced", "--device", "cpu",
+                       "--steps", "2", "--batch", "4", "--seq", "16", "--moe-impl", "ep"]}
 
 
 # serving on a (data 1, model WORLD) mesh: name -> (arch, config changes,
@@ -319,6 +333,12 @@ SERVE = {
     "deepseek-moe-16b-gspmd": ("deepseek-moe-16b", dict(capacity_factor=0.5), 24),
 }
 SERVE_PROMPT = (4, 9)
+# training on the (data 1, model WORLD) mesh: (arch, moe_impl, n_micro); the
+# data-parallel cases' weights, batches and reference runs
+TP_CASES = [("qwen3-0.6b", "gspmd", 1), ("qwen3-0.6b", "gspmd", 2),
+            ("deepseek-moe-16b", "ep", 1), ("deepseek-moe-16b", "ep", 2),
+            ("deepseek-moe-16b", "gspmd", 1), ("deepseek-moe-16b", "gspmd", 2)]
+TP_CKPT_CASE = "tp-qwen3-0.6b-gspmd-micro1"
 SERVE_STEPS = 4
 SERVE_CHUNK = 5
 
@@ -352,6 +372,17 @@ def _ref_serve(rcfg, params, case):
 
 def _name(arch, zero1, n_micro):
     return f"{arch}-{'zero1' if zero1 else 'replicated'}-micro{n_micro}"
+
+
+def _tp_name(arch, impl, n_micro):
+    return f"tp-{arch}-{impl}-micro{n_micro}"
+
+
+def _ref_grads(rcfg, params, batch):
+    """The reference's one-device loss gradient on ``batch``."""
+    f = jax.jit(jax.grad(lambda p, b: rsteps.make_loss_fn(rcfg)(p, b)))
+    return jax.tree.map(np.asarray, f(jax.tree.map(jnp.asarray, params),
+                                      {k: jnp.asarray(v) for k, v in batch.items()}))
 
 
 def _rcfg(arch):
@@ -452,7 +483,16 @@ def dp_run():
     cases = [{"name": _name(a, z, n), "cfg": dataclasses.asdict(_rcfg(a)),
               "ocfg": dict(KW, zero1=z), "n_micro": n, "params": params[a],
               "batches": batches[a]} for a, z, n in CASES]
+    tp_cases = [{"name": _tp_name(a, impl, n),
+                 "cfg": dataclasses.asdict(_rcfg(a).replace(moe_impl=impl)),
+                 "ocfg": dict(KW), "n_micro": n, "params": params[a],
+                 "batches": batches[a]} for a, impl, n in TP_CASES]
+    tp_launcher = {k: v + ["--model-axis", str(WORLD),
+                           "--ckpt-dir", os.path.join(d, f"tp_launcher_{k}")]
+                   for k, v in TP_LAUNCHERS.items()}
     inputs = {"psum": psum, "cases": cases, "ckpt_case": CKPT_CASE,
+              "tp": {"cases": tp_cases, "ckpt_case": TP_CKPT_CASE,
+                     "ckpt_dir": os.path.join(d, "tp_ckpt"), "launcher": tp_launcher},
               "ckpt_dir": os.path.join(d, "ckpt"),
               "preempt_dir": os.path.join(d, "preempt"),
               "pipeline": {"corpus": corpus, "pcfg": pcfg},
@@ -472,10 +512,12 @@ def dp_run():
             env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     try:
         # the reference side, while the ranks run
-        ref = {"cases": {}}
+        ref = {"cases": {}, "grads": {}}
         for a in ARCHS:
             for n in (1, 2):
                 ref["cases"][(a, n)] = _ref_run(_rcfg(a), params[a], batches[a], n)
+        for a in {a for a, _, _ in TP_CASES}:
+            ref["grads"][a] = _ref_grads(_rcfg(a), params[a], batches[a][0])
         f = jax.vmap(lambda g, e: rcomp.compressed_psum(g, e, ("data",)),
                      axis_name="data")
         ref["psum"] = tuple(map(np.asarray, f(psum["g"], psum["err"])))
@@ -496,6 +538,8 @@ def dp_run():
             pipe.close()
         with tempfile.TemporaryDirectory() as ld:
             ref["launcher"] = ttrain.main(LAUNCHER + ["--ckpt-dir", ld])["losses"]
+        with tempfile.TemporaryDirectory() as ld:
+            ref["launcher_ep"] = ttrain.main(TP_LAUNCHERS["ep"] + ["--ckpt-dir", ld])["losses"]
         # one reference a model: without an EP mesh its "ep" is gspmd
         ref["serve"] = {}
         for case in serve:
@@ -811,3 +855,89 @@ def test_tp_decode_step_collectives_follow_the_layout(dp_run, name):
     for o in outs:
         assert o["serve"][name]["counts"] == want, (o["serve"][name]["counts"], want)
 
+
+
+# ---------------------------------------------------------------------------
+# training on the model axis
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch,impl,n_micro", TP_CASES,
+                         ids=[_tp_name(*c) for c in TP_CASES])
+def test_tp_train_step_matches_reference(dp_run, arch, impl, n_micro):
+    """(data 1, model 2), remat per block, against the reference's jitted
+    one-device step on the same global batch: with one micro-batch the
+    first batch's gradients gathered over "model" (atol 1e-4 x the leaf's
+    largest |g|, rtol 1e-5); both steps' losses (rtol 1e-5, both ranks the
+    same); the parameters (rtol 1e-5, atol 1e-2 lr) and the AdamW state
+    (atol 1e-4 x the leaf's largest |w|) gathered over both axes."""
+    _, ref, outs, _ = dp_run
+    name = _tp_name(arch, impl, n_micro)
+    want_losses, want_state = ref["cases"][(arch, n_micro)]
+    got = outs[0]["tp_cases"][name]
+    assert got["losses"] == outs[1]["tp_cases"][name]["losses"]
+    np.testing.assert_allclose(got["losses"], want_losses, rtol=1e-5)
+    if n_micro == 1:
+        for k, w in _flat(ref["grads"][arch]).items():
+            np.testing.assert_allclose(_flat(got["grads"])[k], w, rtol=1e-5,
+                                       atol=1e-4 * float(np.abs(w).max()), err_msg=k)
+    want, have = _flat(want_state), _flat(got["state"])
+    assert sorted(have) == sorted(want)
+    for k, w in want.items():
+        w = w.astype(np.float32)
+        atol = 1e-2 * KW["lr"] if k.startswith("params") else \
+            1e-4 * float(np.abs(w).max())
+        np.testing.assert_allclose(np.asarray(have[k], np.float32), w, rtol=1e-5,
+                                   atol=atol, err_msg=k)
+    for r, o in enumerate(outs):
+        for path, b in o["tp_cases"][name]["blocks"].items():
+            assert b["shape"] == b["zero1_shape"] and b["is_block"], (r, path, b)
+
+
+def test_tp_train_step_collectives(dp_run):
+    """The dense step's collectives on (data 1, model 2): the vocabulary-
+    parallel loss's max all-reduce moves a (B, S) float32 row a micro-batch,
+    never the (B, S, V) logits; no all-gather (every head divides the
+    axis); no all-reduce larger than a (B, S, d) float32 activation."""
+    inputs, _, outs, _ = dp_run
+    for n_micro in (1, 2):
+        name = _tp_name("qwen3-0.6b", "gspmd", n_micro)
+        case = next(c for c in inputs["tp"]["cases"] if c["name"] == name)
+        b, s = case["batches"][0]["tokens"].shape
+        counts = outs[0]["tp_cases"][name]["counts"]
+        assert counts == outs[1]["tp_cases"][name]["counts"]
+        assert counts["all_reduce_max"] == {"calls": n_micro, "bytes": 4 * b * s}
+        assert "all_gather" not in counts and "all_to_all" not in counts, counts
+        d, vocab = case["cfg"]["d_model"], case["cfg"]["vocab"]
+        sums = counts["all_reduce_sum"]
+        assert sums["bytes"] < sums["calls"] * 4 * (b // n_micro) * s * d, sums
+        assert 4 * b * s * vocab > sums["bytes"] / sums["calls"]
+
+
+def test_tp_checkpoint_restores_on_the_mesh_and_at_one_process(dp_run):
+    """Saved at (data 1, model 2): restored on the mesh into a fresh state,
+    bitwise against the live blocks; here at one process, bitwise against
+    the state gathered on the ranks."""
+    _, _, outs, d = dp_run
+    for o in outs:
+        assert o["tp_ckpt"] == {"step": STEPS, "bitwise": True}, o["tp_ckpt"]
+    whole = outs[0]["tp_cases"][TP_CKPT_CASE]["state"]
+    template = jax.tree.map(torch.from_numpy, whole)
+    tree, step, meta = tckpt.restore(os.path.join(d, "tp_ckpt"), template, device="cpu")
+    assert step == STEPS and meta == {"arch": "qwen3-0.6b"}
+    for k, w in _flat(whole).items():
+        assert np.array_equal(_flat(tree)[k].numpy(), w), k
+
+
+@pytest.mark.parametrize("kind", list(TP_LAUNCHERS))
+def test_launcher_trains_on_a_model_axis(dp_run, kind):
+    """``launch.train.main(... --model-axis 2)`` on two ranks against one
+    process, as ``test_launcher_trains_data_parallel`` holds it: the dense
+    family, and the moe family with ``--moe-impl ep``."""
+    _, ref, outs, _ = dp_run
+    want = ref["launcher" if kind == "dense" else "launcher_ep"]
+    for o in outs:
+        assert o["tp_launcher"][kind]["steps"] == 2
+        got = o["tp_launcher"][kind]["losses"]
+        np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
+        np.testing.assert_allclose(got[1:], want[1:], rtol=1e-3)

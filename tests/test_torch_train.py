@@ -773,12 +773,18 @@ def test_train_main_trains_checkpoints_and_resumes(capsys):
 
 
 def test_train_rejects_what_is_not_ported():
-    """Training on the model axis waits for ROADMAP.md item 11.7b (serving
-    on it runs: tests/test_torch_model_axis.py)."""
+    """A model axis the world does not hold raises ``make_local_mesh``'s
+    ValueError, the production mesh ``make_production_mesh``'s error; the
+    ssm family on a model axis names ROADMAP.md item 11.7c (the dense and
+    moe families train there: tests/test_torch_sharding.py's spawn)."""
     base = ["--arch", "qwen3-0.6b", "--reduced", "--device", "cpu"]
-    for extra in (["--model-axis", "2"], ["--production-mesh"], ["--moe-impl", "ep"]):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.*11\.7b"):
-            ttrain.main(base + extra)
+    with pytest.raises(ValueError, match="model axis of 2 does not divide 1"):
+        ttrain.main(base + ["--model-axis", "2"])
+    with pytest.raises(RuntimeError, match="needs 256 ranks"):
+        ttrain.main(base + ["--production-mesh"])
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.*11\.7c"):
+        ttrain.main(["--arch", "falcon-mamba-7b", "--reduced", "--device", "cpu",
+                     "--model-axis", "2"])
     # the vlm family trains (tests/test_torch_vlm.py); the encdec family
     # exits as the reference's launcher does
     with pytest.raises(SystemExit, match="whisper-specific driver"):

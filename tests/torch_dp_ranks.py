@@ -1,7 +1,8 @@
-"""One rank of the port's data-parallel checks (no jax, no reference).
+"""One rank of the port's data- and model-parallel checks (no jax, no
+reference).
 
     RANK=r WORLD_SIZE=2 MASTER_ADDR=localhost MASTER_PORT=p \\
-        OMP_NUM_THREADS=1 PYTHONPATH=src python tests/torch_dp_ranks.py DIR
+        OMP_NUM_THREADS=1 PYTHONPATH=src python tests/torch_dp_ranks.py DIR [tp4]
 
 as ``torchrun`` would start it.  Reads ``DIR/inputs.pt`` (numpy inputs
 written by ``tests/test_torch_sharding.py``), joins the group through
@@ -25,7 +26,21 @@ side at P = world, and writes ``DIR/rank<r>.pt``:
   expert-parallel, the cache sharded along S): the logits of each step
   gathered over the vocabulary, the greedy picks, the collectives of the
   first decode step, the cache gathered after the last step, and the last
-  logits of the same prompt prefilled in two chunks.
+  logits of the same prompt prefilled in two chunks;
+- "tp_cases": on the same (data 1, model world) mesh, each model-axis
+  train case (tensor- or expert-parallel through ``models/tp.py``): the
+  gradients of its first batch and the state after its steps gathered
+  over both axes (rank 0), the global losses, each moment's block against
+  ``zero1_spec`` and the first step's collectives;
+- "tp_ckpt": a save on that mesh of one case's state, restored there into a
+  fresh state (bitwise against the live blocks);
+- "tp_launcher": ``launch.train.main(... --model-axis world)``'s losses,
+  the dense family's and the moe family's with ``--moe-impl ep``.
+
+With ``tp4`` (four ranks) it runs the (data 2, model 2) checks of
+tests/test_torch_tp_train.py instead (``tp4_main``): the train step with
+ZeRO-1 for each micro-batch count, the blocks, and a save and restore at
+(2, 2).
 """
 from __future__ import annotations
 
@@ -161,6 +176,82 @@ def pipeline(inp: dict) -> dict:
             "batches": batches}
 
 
+def tp_train_case(case: dict, mesh, ckpt_dir: str | None = None) -> dict:
+    """One model-axis train case (module docstring): this rank's blocks of
+    the case's weights through ``make_train_step(mesh=)``; with
+    ``ckpt_dir`` also a save of the state after the steps and a restore
+    into a fresh state."""
+    cfg = ModelConfig(**case["cfg"])
+    ocfg = OptConfig(**case["ocfg"])
+    params = params_from_jax(cfg, case["params"], device="cpu", mesh=mesh).tree()
+    pspecs = sharding.param_shardings(cfg, mesh, steps.model_param_specs(cfg))
+    opt_sh = adamw.state_shardings(mesh, pspecs, steps.model_param_specs(cfg), ocfg)
+    layout = {"params": pspecs, "opt": opt_sh}
+    out = {}
+    if case["n_micro"] == 1:
+        _, g = steps.value_and_grad(steps.make_loss_fn(cfg, mesh=mesh), params,
+                                    _batch(case["batches"][0]))
+        whole = sharding.gather_tree(g, pspecs, mesh)
+        out["grads"] = _numpy(whole) if mesh.rank == 0 else None
+    state = {"params": params,
+             "opt": adamw.init_state(params, ocfg, mesh=mesh, specs=pspecs)}
+    step = steps.make_train_step(cfg, ocfg, n_micro=case["n_micro"], mesh=mesh)
+    losses = []
+    for i, b in enumerate(case["batches"]):
+        mesh.reset_counts()
+        state, loss = step(state, _batch(b))
+        losses.append(float(loss))
+        if i == 0:
+            out["counts"] = {k: dict(v) for k, v in mesh.counts.items()}
+    whole = sharding.gather_tree(state, layout, mesh)
+    blocks = {}
+    for path, t in lm.leaves(state["opt"]["m"]):
+        sp = sharding.spec_at(opt_sh["m"], path)
+        shape = sharding.shape_of(_at(steps.model_param_specs(cfg), path))
+        blocks["/".join(path)] = {
+            "shape": tuple(t.shape), "spec": sp,
+            "zero1_shape": sharding.local_shape(shape, sp, mesh),
+            "is_block": bool(torch.equal(t, sharding.shard(_at(whole["opt"]["m"], path),
+                                                           sp, mesh)))}
+    out |= {"losses": losses, "blocks": blocks,
+            "state": to_numpy(whole) if mesh.rank == 0 else None}
+    if ckpt_dir is not None:
+        drv = TrainDriver(FTConfig(ckpt_dir=ckpt_dir), state, step, mesh=mesh,
+                          shardings=layout, metadata={"arch": cfg.name})
+        drv.step = int(state["opt"]["step"])
+        drv.save()
+        drv.saver.wait()
+        torch.distributed.barrier()
+        fresh = lm.init_params(cfg, seed=9, device="cpu", mesh=mesh).tree()
+        fresh = {"params": fresh,
+                 "opt": adamw.init_state(fresh, ocfg, mesh=mesh, specs=pspecs)}
+        again = TrainDriver(FTConfig(ckpt_dir=ckpt_dir), fresh, step, mesh=mesh,
+                            shardings=layout)
+        assert again.maybe_resume()
+        out["ckpt"] = {"step": again.step, "bitwise": all(
+            torch.equal(a, b) for (_, a), (_, b) in zip(lm.leaves(fresh),
+                                                          lm.leaves(state)))}
+    return out
+
+
+def tp4_main(out_dir: str) -> None:
+    """The (data 2, model 2) checks (module docstring)."""
+    world = M.init_distributed("cpu")
+    mesh = M.make_local_mesh(model_axis=2)
+    inp = torch.load(os.path.join(out_dir, "inputs.pt"), weights_only=False)
+    out = {"world": world, "backend": mesh.backend, "mesh": dict(mesh.shape),
+           "coords": dict(mesh.coords), "cases": {}}
+    for n in inp["micro"]:
+        case = {"cfg": inp["cfg"], "ocfg": inp["ocfg"], "n_micro": n,
+                "params": inp["params"], "batches": inp["batches"]}
+        res = tp_train_case(case, mesh, inp["ckpt_dir"] if n == 1 else None)
+        if n == 1:
+            out["ckpt"] = res.pop("ckpt")
+        out["cases"][n] = res
+    torch.save(out, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
 def serve_case(case: dict, mesh) -> dict:
     """One serving case on the model mesh (module docstring)."""
     cfg = ModelConfig(**case["cfg"])
@@ -245,9 +336,21 @@ def main(out_dir: str) -> None:
     out["serve_mesh"] = dict(model_mesh.shape)
     out["serve"] = {case["name"]: serve_case(case, model_mesh)
                     for case in inp["serve"]}
+    tp = inp["tp"]
+    out["tp_cases"] = {}
+    for case in tp["cases"]:
+        res = tp_train_case(case, model_mesh,
+                            tp["ckpt_dir"] if case["name"] == tp["ckpt_case"] else None)
+        if "ckpt" in res:
+            out["tp_ckpt"] = res.pop("ckpt")
+        out["tp_cases"][case["name"]] = res
+    out["tp_launcher"] = {}
+    for kind, argv in tp["launcher"].items():
+        res = train.main(argv)
+        out["tp_launcher"][kind] = {"losses": res["losses"], "steps": res["steps"]}
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":
-    main(sys.argv[1])
+    (tp4_main if sys.argv[2:] == ["tp4"] else main)(sys.argv[1])
